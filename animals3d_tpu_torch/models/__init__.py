@@ -1,0 +1,10 @@
+from animals3d_tpu_torch.models.animal import AnimalModel, AnimalModelConfig
+
+
+def build_model(cfg: dict, device="cuda"):
+    """Model factory: dispatch on cfg['name']. Only MagicPony is ported."""
+    name = cfg.get("name", "MagicPony")
+    if name == "MagicPony":
+        from animals3d_tpu_torch.models.magicpony import MagicPony
+        return MagicPony(cfg, device=device)
+    raise NotImplementedError(f"{name} is not ported yet")
