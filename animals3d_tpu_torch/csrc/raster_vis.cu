@@ -26,14 +26,19 @@
 // (the file is also built with -fmad=false): the operation order of the
 // plain PyTorch version, so the two agree bit for bit.
 //
-// Bound on the H100: the work is visits of live (face, pixel) pairs —
-// 12 f32 operations each (3 edge functions) plus 4 for the depth of
-// covered pixels — at the CUDA-core f32 rate, against reading the
-// coefficients (52 bytes per face) of the live (tile, chunk) pairs. A
-// sub-block is read once from global memory per block that visits it and
-// then served from shared memory to 512 threads, so the kernel is bound by
-// the f32 visit work; the prep's Morton face order and per-sub-block bbox
-// masks keep the number of live visits low.
+// Bound on the H100: the function needs the live (face, pixel) pairs —
+// pixels inside the bbox of a face of a (tile, chunk) pair that the
+// occlusion skip keeps — at 12 f32 operations each (3 edge functions) at
+// the CUDA-core rate, against reading the coefficients (52 bytes per
+// face) of the live (tile, chunk) pairs once. This design does more: it
+// tests every face of a live 128-face sub-block against all 512 pixels of
+// the tile, so on a mesh of sub-pixel faces most of its edge tests fall
+// outside the face's bbox and it runs far above that bound. What it does
+// about it: the prep's Morton face order keeps a sub-block compact on
+// screen, the per-sub-block bbox masks skip sub-blocks that miss the tile,
+// and a sub-block is read once from global memory per block and then
+// served from shared memory to 512 threads. A per-face bbox cull inside a
+// sub-block is the next lever.
 
 #include <cuda_runtime.h>
 

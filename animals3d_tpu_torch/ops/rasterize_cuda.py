@@ -262,8 +262,9 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
 
     Walks list position k for every (image, tile) at once, and within it
     the chunk's sub-blocks, exactly as a kernel block does. If `stats` is
-    given it receives `live_visits` (live (sub-block, tile) visits) and
-    `live_blocks` (distinct (image, chunk, sub-block) ever live)."""
+    given it receives `visits`, an int64 (n, 4) tensor of the live
+    (image, tile, chunk, sub-block) visits, those not skipped by the
+    occlusion test or the sub-block mask."""
     _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub)
     height, width = resolution
     B, nch, _, chunk = table.shape
@@ -278,8 +279,7 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
     order_f = order.reshape(B * T, nch).long()
     masks_f = masks.reshape(B * T, nch)
     sub_ar = torch.arange(sub, device=dev)
-    live_visits = 0
-    ever_live = torch.zeros((B, nch, nsub), dtype=torch.bool, device=dev)
+    visits = []
     for k in range(int(counts_f.max()) if counts_f.numel() else 0):
         r = torch.nonzero(counts_f > k)[:, 0]
         cid = order_f[r, k]
@@ -292,9 +292,10 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
             act = torch.nonzero(live & (((mbits >> g) & 1) == 1))[:, 0]
             if act.numel() == 0:
                 continue
-            live_visits += act.numel()
             ba, ca = b[act], cid[act]
-            ever_live[ba, ca, g] = True
+            if stats is not None:
+                visits.append(torch.stack(
+                    [ba, t[act], ca, torch.full_like(ca, g)], 1))
             cf = table[ba, ca, :, g * sub:(g + 1) * sub]   # (Ra, 12, sub)
             ids = orig[(ca * chunk + g * sub)[:, None] + sub_ar]
             X = px[t[act]][:, :, None]
@@ -318,8 +319,8 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
         z[r], fid[r] = zr, idr
         flags[r, cid] = took.any(1).to(torch.uint8)
     if stats is not None:
-        stats["live_visits"] = live_visits
-        stats["live_blocks"] = int(ever_live.sum())
+        stats["visits"] = torch.cat(visits) if visits else \
+            torch.zeros((0, 4), dtype=torch.int64, device=dev)
     z = torch.where(fid > 0, z, torch.zeros_like(z))
     return (_untile(z, B, height, width), _untile(fid, B, height, width),
             flags.reshape(B, T, nch))
@@ -344,29 +345,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libraster_vis-{digest}.so")
 
 
-def build_commands() -> list:
-    """[(output path, nvcc argv)] for every kernel library not yet built."""
+def build() -> str:
+    """Compile the kernel library with nvcc unless it is already built.
+    Returns the compiler's output (register and shared-memory use)."""
     out = library_path()
     if os.path.exists(out):
-        return []
-    return [(out, [_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", _SOURCE])]
-
-
-def build_all() -> str:
-    """Build every missing kernel library, all nvcc processes at once.
-    Returns the compilers' output (register and shared-memory use)."""
+        return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs = [(out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                   stderr=subprocess.STDOUT, text=True))
-            for out, cmd in build_commands()]
-    logs = []
-    for out, proc in jobs:
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {out}:\n{text}")
-        os.replace(out + ".tmp", out)
-        logs.append(text)
-    return "\n".join(logs)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", _SOURCE],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {out}:\n{proc.stdout}")
+    os.replace(out + ".tmp", out)
+    return proc.stdout
 
 
 _LIB = None
@@ -375,7 +367,7 @@ _LIB = None
 def _library():
     global _LIB
     if _LIB is None:
-        build_all()
+        build()
         lib = ctypes.CDLL(library_path())
         lib.raster_vis_launch.argtypes = [ctypes.c_void_p] * 9 + \
             [ctypes.c_int] * 8 + [ctypes.c_void_p]

@@ -4,19 +4,21 @@
     python3 chip_smoke.py
 
 Phases, in this order, each fatal on failure:
-  1. build: compile every hand-written CUDA kernel from `csrc/` with nvcc
-     (one process per source, all at once) and print the compiler's
-     register / shared-memory report;
+  1. build: compile the hand-written CUDA kernel from `csrc/` with nvcc
+     and print the compiler's register / shared-memory report;
   2. reference: single-image reconstruction of a small float32 model on
      the card against the same model on the CPU (where the visibility
      step runs its plain version);
   3. kernels: run each kernel against its plain PyTorch version on the
      card — the tile visibility kernel on a random scene, the exact-z
-     depth-stack scene and the prior mesh of the full-width model posed by
-     10 cameras at 256² (face capacity 196,608). face_id and the per-tile
-     chunk flags must be identical and z equal where the ids agree. Times
-     the kernel and the plain version (CUDA events, medians) and computes
-     the kernel's bound from this run's inputs;
+     depth-stack scene, the prior mesh of the full-width model posed by
+     10 cameras at 256² (face capacity 196,608) and the full-width
+     recon's own posed meshes (the inputs `reconstruct` rasterizes).
+     face_id and the per-tile chunk flags must be identical and z equal
+     where the ids agree. Times the kernel and the plain version (CUDA
+     events, medians) on the last two scenes and computes the kernel's
+     bound from this run's inputs; the `kernels` line reports the recon
+     scene;
   4. slice: `reconstruct` of `train_magicpony_horse` at full width —
      iter-50000 phase (coarse grid 128, articulation on), batch 10 at 256²,
      dino_vits8, bf16 compute — with random weights from `init_params(0)`:
@@ -136,20 +138,91 @@ def posed_prior_scene(model, n_views: int = 10, res: int = 256):
             (res, res), 1024)
 
 
-def visibility_phase(model, device):
-    """Kernel against plain version on the three scenes; returns the
-    `kernels` entry for the visibility kernel."""
+def recon_scene(model, images, it):
+    """The posed meshes the full-width `reconstruct` rasterizes: the
+    instance predictor's output seen by its own cameras."""
+    import torch
+    from animals3d_tpu_torch.render.camera import xfm_points
+    phase = model.phase_for_iter(it, is_training=False)
+    grid, v_cap, f_cap = model.grid_for_phase(phase)
+    with torch.no_grad():
+        prior, _sdf = model.forward_base(grid, v_cap, f_cap)
+        out = model.instance_forward(images, prior, it, phase)
+    shape, mvp = out[0], out[3]
+    v_clip = xfm_points(shape.v_pos, mvp).contiguous()
+    H = images.shape[-1]
+    return (v_clip, shape.v_pos[0], shape.t_pos_idx, shape.f_valid,
+            (H, H), 1024)
+
+
+def visibility_bound(v_clip, faces, prep, res, visits, outputs):
+    """Least time (ms) the H100 needs for the visibility function on these
+    inputs: (bytes ms, operations ms, bytes, live pairs).
+
+    Operations: 12 float32 operations (3 edge functions) per live
+    (face, pixel) pair, a pixel centre inside the screen bbox of a valid
+    face of a live (tile, chunk) pair — one the occlusion skip keeps, as
+    `visits` from the plain version records. Bytes: the coefficients and
+    original ids of the live sub-blocks, each read once, the tiles' chunk
+    counts and z-mins, the list entries each tile walks, and the outputs
+    written once."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    height, width = res
+    table, orig = prep["table"], prep["orig"].long()
+    B, nch, _rows, chunk = table.shape
+    sub = chunk // prep["nsub"]
+    Fn = faces.shape[0]
+    valid = (table[:, :, :7] != 0).any(2).reshape(B, -1) \
+        & (orig < Fn)[None]                              # (B, Fp)
+    fv = v_clip[:, faces.long()[orig.clamp(max=Fn - 1)]]  # (B, Fp, 3, 4)
+    sx = (fv[..., 0] / fv[..., 3] + 1.0) * (0.5 * width)
+    sy = (fv[..., 1] / fv[..., 3] + 1.0) * (0.5 * height)
+    b, t, cid, g = visits.unbind(1)
+    slots = (cid * chunk + g * sub)[:, None] + torch.arange(
+        sub, device=visits.device)                       # (n, sub)
+    th, tw = rc.TILE_H, rc.TILE_W
+    ntx = width // tw
+
+    def centres(lo, hi, origin, size):
+        # pixel centres origin + j + 0.5, 0 <= j < size, inside [lo, hi]
+        j0 = torch.clamp(torch.ceil(lo - origin - 0.5), min=0)
+        j1 = torch.clamp(torch.floor(hi - origin - 0.5), max=size - 1)
+        return torch.clamp(j1 - j0 + 1, min=0)
+    bb = b[:, None]
+    nx = centres(sx.amin(-1)[bb, slots], sx.amax(-1)[bb, slots],
+                 ((t % ntx) * tw).float()[:, None], tw)
+    ny = centres(sy.amin(-1)[bb, slots], sy.amax(-1)[bb, slots],
+                 ((t // ntx) * th).float()[:, None], th)
+    pairs = int((nx * ny * valid[bb, slots]).sum())
+    live = torch.unique(visits[:, [0, 2, 3]], dim=0)      # (image, chunk, g)
+    ids = torch.unique(live[:, 1:], dim=0)                # (chunk, g)
+    walked = int(prep["counts"].sum())
+    nbytes = (live.shape[0] * sub * 12 * 4 + ids.shape[0] * sub * 4
+              + walked * 2 * 4
+              + sum(prep[k].numel() * 4 for k in ("counts", "zlo"))
+              + sum(a.numel() * a.element_size() for a in outputs))
+    return (nbytes / HBM_BYTES_PER_S * 1e3, 12 * pairs / F32_PEAK_FLOPS * 1e3,
+            nbytes, pairs)
+
+
+def visibility_phase(model, images, it, device):
+    """Kernel against plain version on the four scenes; returns the
+    `kernels` entry for the visibility kernel, timed and bounded on the
+    recon scene."""
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     rng = np.random.default_rng(SEED)
     scenes = {"random": random_scene(rng),
               "depth_stack": depth_stack_scene(),
-              "posed_prior": posed_prior_scene(model)}
+              "posed_prior": posed_prior_scene(model),
+              "recon": recon_scene(model, images, it)}
     entry = None
     for name, (v_clip, v_pos0, faces, f_valid, res, chunk) in scenes.items():
         t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
-        prep = rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
-                          t(f_valid, torch.bool), res, chunk)
+        v_clip, faces = t(v_clip), t(faces, torch.int64)
+        prep = rc.prepare(v_clip, t(v_pos0), faces, t(f_valid, torch.bool),
+                          res, chunk)
         args = (prep["table"], prep["orig"], prep["order"], prep["counts"],
                 prep["masks"], prep["zlo"], res, prep["nsub"])
         z, fid, flags = rc.visibility(*args)
@@ -167,36 +240,36 @@ def visibility_phase(model, device):
         if err != 0.0:
             raise AssertionError(f"{name}: z differs by {err}")
         covered = int((fid > 0).sum())
+        visits = stats["visits"]
+        # the design's own work: every face of a visited sub-block against
+        # every pixel of the tile
+        design_pairs = visits.shape[0] * (chunk // prep["nsub"]) * rc.TP
         print(f"visibility[{name}]: B={fid.shape[0]} res={res} "
               f"faces={faces.shape[0]} chunk={chunk} covered_px={covered} "
-              f"live_subblock_visits={stats['live_visits']} identical")
-        if name == "posed_prior" and covered == 0:
-            raise AssertionError("posed prior mesh covers no pixel")
-        if name != "posed_prior":
+              f"live_subblock_visits={visits.shape[0]} "
+              f"design_face_pixel_tests={design_pairs} identical")
+        if name in ("posed_prior", "recon") and covered == 0:
+            raise AssertionError(f"{name}: the mesh covers no pixel")
+        if name not in ("posed_prior", "recon"):
             continue
         ms = statistics.median(cuda_ms(lambda: rc.visibility(*args),
                                        TIMED_RUNS))
         plain_ms = statistics.median(
             cuda_ms(lambda: rc.visibility_reference(*args), 3))
-        # bound: each input read once and each output written once, against
-        # 12 float32 operations (3 edge functions) per live (face, pixel)
-        # visit at the CUDA-core rate
-        sub = prep["table"].shape[-1] // prep["nsub"]
-        pairs = stats["live_visits"] * sub * rc.TP
-        nbytes = sum(a.numel() * a.element_size() for a in args[:6]) + \
-            sum(a.numel() * a.element_size() for a in (z, fid, flags))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 12 * pairs / F32_PEAK_FLOPS * 1e3
+        bytes_ms, ops_ms, nbytes, pairs = visibility_bound(
+            v_clip, faces, prep, res, visits, (z, fid, flags))
+        bound = max(bytes_ms, ops_ms)
         print(f"visibility[{name}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-              f"{nbytes} -> {bytes_ms:.4f} ms; live pairs {pairs} -> "
-              f"{ops_ms:.4f} ms)")
+              f"ms, bound {bound:.4f} ms (live bytes {nbytes} -> "
+              f"{bytes_ms:.4f} ms; live bbox pairs {pairs} -> {ops_ms:.4f} "
+              f"ms), kernel/bound {ms / bound:.1f}x")
+        if name != "recon":
+            continue
         entry = {"name": "raster_vis", "route": "cuda",
                  "source": "animals3d_tpu_torch/csrc/raster_vis.cu",
                  "replaces": "animals3d_tpu/ops/rasterize_pallas.py:153",
                  "launches": 0, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms,
-                 "bound_ms": max(bytes_ms, ops_ms),
+                 "plain_ms": plain_ms, "bound_ms": bound,
                  "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                  "library_ms": None}
     return entry
@@ -219,7 +292,7 @@ def reference_phase():
     """A small float32 model on the card against the same weights on the
     CPU: cameras, articulation and light agree to 1e-4; the shaded RGBA
     agrees to 1e-3 on all but silhouette pixels whose winning face flips on
-    rounding (at most 1% of the pixels)."""
+    rounding (at most 0.2% of the pixels; 0.09% are seen on an H100)."""
     import torch
     from animals3d_tpu_torch.precision import set_mixed_precision
     set_mixed_precision(False)
@@ -241,7 +314,7 @@ def reference_phase():
     bad = float((d > 1e-3).float().mean())
     print(f"reference: shaded max |gpu - cpu| = {float(d.max()):.3g}, "
           f"share of pixels above 1e-3 = {bad:.4f}")
-    if not bad <= 0.01:
+    if not bad <= 0.002:
         raise AssertionError(f"reference: {bad:.4f} of the pixels differ")
 
 
@@ -315,13 +388,13 @@ def main() -> int:
           f"{torch.version.cuda}; tf32 off")
 
     t0 = time.perf_counter()
-    print(rc.build_all())
+    print(rc.build())
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     reference_phase()
 
     model, images, it, B, H = slice_phase()
-    entry = visibility_phase(model, torch.device("cuda"))
+    entry = visibility_phase(model, images, it, torch.device("cuda"))
 
     rc.visibility.launches = 0
     shaded, out, times, renders = drive(model, images, it, B, H)

@@ -19,33 +19,22 @@ from __future__ import annotations
 import argparse
 import os
 import statistics
-import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from animals3d_tpu_torch import config as cfglib  # noqa: E402
-from animals3d_tpu_torch.models import build_model  # noqa: E402
+import chip_smoke  # noqa: E402  (the full-width setup and the timers)
 from animals3d_tpu_torch.ops import rasterize_cuda as rc  # noqa: E402
-from animals3d_tpu_torch.precision import set_mixed_precision  # noqa: E402
+from animals3d_tpu_torch.render.camera import xfm_points  # noqa: E402
 
 
 def timed(fn, runs):
-    out, times = None, []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return out, statistics.median(times)
+    """fn's output and its median device time (ms) over `runs` runs."""
+    return fn(), statistics.median(chip_smoke.cuda_ms(fn, runs))
 
 
 def main() -> int:
@@ -58,21 +47,11 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    cfg = cfglib.load_config("train_magicpony_horse")
-    set_mixed_precision(cfg.get("mixed_precision"))
-    model_cfg = dict(cfg["model"])
-    model_cfg["dataset"] = cfg["dataset"]
-    model = build_model(model_cfg, device="cuda")
-    model.init_params(0)
-    B, H, it = cfg["dataset"]["batch_size"], model.in_image_size, 50000
-    images = torch.as_tensor(np.random.default_rng(0).uniform(
-        0, 1, (B, 1, 3, H, H)).astype(np.float32), device="cuda")
+    card = chip_smoke.card_line()
+    rc.build()
+    model, images, it, _B, H = chip_smoke.slice_phase()
     phase = model.phase_for_iter(it, is_training=False)
     grid, v_cap, f_cap = model.grid_for_phase(phase)
-    rc.build_all()
     with torch.no_grad():
         for _ in range(2):
             model.reconstruct(model, images, it)
@@ -86,7 +65,6 @@ def main() -> int:
             ["shaded"], shape, mvp, w2c, campos, (H, H),
             im_features=out[6], light_params=out[10], prior_mesh=prior),
             args.runs)
-        from animals3d_tpu_torch.render.camera import xfm_points
         v_clip = xfm_points(shape.v_pos, mvp)
         prep, prep_ms = timed(lambda: rc.prepare(
             v_clip, shape.v_pos[0], shape.t_pos_idx, shape.f_valid, (H, H)),

@@ -55,11 +55,15 @@ def _jax_recon(jm, jp, images, it):
 def test_reconstruct_matches_jax_chain(pair, it):
     """Phase 50000 (articulation on, deform off) and 95000 (deform on too).
     mvp, articulation and light within 1e-4; the posed vertices within
-    1e-4; shaded RGBA per `assert_images_close`: 1e-4, away from faces
-    flipped by rounding, and 5e-3 on antialiased silhouette pairs — after
-    the ViT and the skinning the two packages' vertices differ by ~1e-5,
-    and a silhouette edge nearly parallel to a pixel pair amplifies that
-    in its blend weight."""
+    1e-4; shaded RGBA per `assert_images_close`: 1e-4, away from the faces
+    flipped by rounding (each a float64 tie; at most 0.2% of the pixels,
+    where up to 7 of 8,192 are seen), and 4e-3 on antialiased silhouette
+    pairs. After the ViT and the skinning the two packages' vertices
+    differ by ~1e-5, and by an amount that depends on the CPU thread
+    count (1 to 8 threads tried). That moves the depth of a sub-pixel face
+    by up to 1.93e-3 (phase 95000), hence z within 3e-3, and a silhouette
+    edge nearly parallel to a pixel pair amplifies it in its blend weight,
+    up to 2.4e-3 (phase 95000)."""
     set_mixed_precision(None)
     jm, jp, tm = pair
     phase = jm.phase_for_iter(it)
@@ -80,12 +84,12 @@ def test_reconstruct_matches_jax_chain(pair, it):
                                atol=1e-4, rtol=0)
     shape = out[0]
     with torch.no_grad():
-        rast = rc.rasterize_cuda(txfm(shape.v_pos, out[3]), shape.t_pos_idx,
-                                 shape.f_valid, (H, H),
-                                 v_pos0=shape.v_pos[0])
+        v_clip = txfm(shape.v_pos, out[3])
+        rast = rc.rasterize_cuda(v_clip, shape.t_pos_idx, shape.f_valid,
+                                 (H, H), v_pos0=shape.v_pos[0])
     assert (to_np(rast.face_id) > 0).sum() > 100   # the animal is in view
-    assert_images_close(shaded, want, rast, wrast,
-                        silhouette_atol=5e-3)
+    assert_images_close(shaded, want, rast, wrast, v_clip, shape.t_pos_idx,
+                        silhouette_atol=4e-3, z_atol=3e-3, max_share=0.002)
 
 
 def _to_flax_layout(name, value):

@@ -1,8 +1,11 @@
 """Port parity of `render_mesh` (the modes the MagicPony forward asks for:
 `shaded` and `dino_pred`, antialias included) on the JAX prior mesh seen
 by two cameras at 64², with the texture and DINO fields of one set of
-weights. atol 1e-4, and 2e-3 on antialiased silhouette pairs, away from
-pixels whose face flips on float32 rounding (`assert_images_close`)."""
+weights. atol 1e-4, and 1e-3 on antialiased silhouette pairs (4.1e-4
+seen), away from pixels whose face flips on float32 rounding (3 of 8,192
+seen; each checked as a float64 tie by `assert_images_close`). z within
+1e-3: the plane equation of a sub-pixel face at NDC depth ~0.98 loses
+digits to cancellation, 9.1e-4 seen."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,8 +18,7 @@ from animals3d_tpu_torch.ops import rasterize_cuda as rc
 from animals3d_tpu_torch.precision import set_mixed_precision
 from animals3d_tpu_torch.render.camera import xfm_points as txfm
 from test_animal_model import TINY_OVERRIDES
-from torch_parity import (assert_images_close, assert_same_visibility,
-                          build_pair, to_np)
+from torch_parity import assert_images_close, build_pair, to_np
 
 H = 64
 OVERRIDES = TINY_OVERRIDES + [
@@ -86,12 +88,8 @@ def test_render_mesh_matches(scene, modes):
     jclip = jxfm(jnp.broadcast_to(prior.v_pos, (2, *prior.v_pos.shape[1:])),
                  jnp.asarray(mvp))
     jrast = jrz.rasterize(jclip, prior.t_pos_idx, prior.f_valid, (H, H))
-    fid, fid_want = to_np(rast.face_id), np.asarray(jrast.face_id)
-    assert (fid > 0).sum() > 200                   # the mesh is in view
-    # sub-pixel faces at NDC depth ~0.98: see `assert_same_visibility`
-    assert_same_visibility(fid, fid_want, to_np(rast.z), jrast.z,
-                           to_np(v_clip), np.asarray(prior.t_pos_idx),
-                           z_atol=1e-3)
+    assert (to_np(rast.face_id) > 0).sum() > 200   # the mesh is in view
     for key in modes:
         assert got[key].shape == want[key].shape, key
-        assert_images_close(got[key], want[key], rast, jrast)
+        assert_images_close(got[key], want[key], rast, jrast, v_clip,
+                            tprior.t_pos_idx)

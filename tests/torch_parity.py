@@ -60,26 +60,29 @@ def _f64_face_at(v_clip, faces, b, fid, ys, xs, H, W):
 
 
 def assert_same_visibility(fid, fid_want, z, z_want, v_clip, faces,
-                           z_atol=1e-4):
+                           z_atol=1e-4, max_share=0.008):
     """face_id equal on every pixel whose winner is decided above float32
-    rounding, z within `z_atol`.
+    rounding, z within `z_atol`, at most `max_share` of the pixels flipped.
 
     Both packages compute the same float32 formulas, but XLA's CPU compiler
     fuses some of them into FMAs, so their roundings differ. The depth of
     a face is the plane equation of the Pallas kernel, which loses digits
-    to cancellation (up to ~6e-5 on the synthetic scenes, ~5e-4 on
-    sub-pixel faces at NDC depths near 1), hence `z_atol` — by default the
-    JAX package's own tolerance between its two rasterizers
-    (`tests/test_rasterize_pallas.py:26`). A pixel whose face differs must
-    be a tie at that precision, checked in float64: both faces cover it
+    to cancellation: up to 6.3e-5 on the synthetic scenes of
+    `test_torch_raster.py`, hence the default `z_atol` — the JAX package's
+    own tolerance between its two rasterizers
+    (`tests/test_rasterize_pallas.py:26`). The default `max_share` is set
+    by the capacity-padded sphere scene, where 22 of 4,096 pixels (0.54%)
+    lie on edges shared by two faces. A pixel whose face differs must be a
+    tie at that precision, checked in float64: both faces cover it
     (smallest barycentric ≥ -1e-4, the 1e-4·|det| edge bias) at depths
-    within `z_atol`, as on an edge shared by two faces."""
+    within `z_atol`."""
     fid, fid_want = np.asarray(fid), np.asarray(fid_want)
     z, z_want = np.asarray(z), np.asarray(z_want)
     np.testing.assert_array_equal(fid > 0, fid_want > 0)
     np.testing.assert_allclose(z, z_want, atol=z_atol, rtol=0)
     flips = np.argwhere(fid != fid_want)
-    assert len(flips) <= 0.01 * fid.size, f"{len(flips)} pixels differ"
+    assert len(flips) <= max_share * fid.size, \
+        f"{len(flips)} of {fid.size} pixels differ"
     H, W = fid.shape[1:]
     for b in np.unique(flips[:, 0]):
         ys, xs = flips[flips[:, 0] == b, 1:].T
@@ -117,21 +120,28 @@ def _silhouette_pairs(fid, z, z_gap=1e-3):
     return out
 
 
-def assert_images_close(got, want, rast, rast_want, atol=1e-4,
-                        silhouette_atol=2e-3, max_share=0.02):
+def assert_images_close(got, want, rast, rast_want, v_clip, faces,
+                        atol=1e-4, silhouette_atol=1e-3, z_atol=1e-3,
+                        max_share=0.001):
     """(B, C, H, W) images equal within `atol`, except:
 
-    * pixels whose face differs between the two packages (float32 ties,
-      see `assert_same_visibility`) and their 4-neighbours — the antialias
-      pass blends across neighbours — at most `max_share` of the image;
+    * pixels whose face differs between the two packages and their
+      4-neighbours — the antialias pass blends across neighbours. Those
+      faces must first pass `assert_same_visibility` on `v_clip` (float64
+      tie check, depths within `z_atol`), and at most `max_share` of the
+      pixels may flip: 3 of 8,192 (0.037%) are seen on the 64² scenes of
+      `test_torch_render.py`, which set the defaults with z gaps up to
+      9.1e-4;
     * the pixels of silhouette pairs, within `silhouette_atol`: their
       antialias weight is a ratio of float32 edge functions of the form
-      a·x + b·y + c, whose constant c ≈ x·y cancels ~1e-3 of the weight.
+      a·x + b·y + c, whose constant c ≈ x·y cancels digits of the weight.
     """
     got, want = to_np(got), to_np(want)
     fid, fid_want = to_np(rast.face_id), to_np(rast_want.face_id)
+    assert_same_visibility(fid, fid_want, to_np(rast.z), to_np(rast_want.z),
+                           to_np(v_clip), to_np(faces), z_atol=z_atol,
+                           max_share=max_share)
     near = _grow(fid != fid_want)
-    assert near.mean() <= max_share, f"{near.mean():.4f} of pixels flip"
     sil = _silhouette_pairs(fid, to_np(rast.z)) \
         | _silhouette_pairs(fid_want, to_np(rast_want.z))
     for mask, tol in ((~near & ~sil, atol), (~near & sil, silhouette_atol)):
