@@ -6,7 +6,9 @@ path a/b/c/kernel lands on module a.b.c: a Dense kernel (in, out) becomes
 a Linear weight (out, in), a Conv kernel HWIO becomes OIHW, a norm's
 `scale` becomes `weight`, and `_SplitFirstDense` keeps its (pixel ⊕
 feature) split. Every leaf is consumed exactly once and every parameter
-of the module is set, or this raises.
+of the module is set, or this raises. `export_jax_params` is the inverse
+(the module's parameters as a flax-layout numpy tree) and `export_jax_grads`
+lays the parameters' gradients out the same way.
 """
 from __future__ import annotations
 
@@ -56,3 +58,43 @@ def load_jax_params(model: nn.Module, tree: dict) -> None:
     missing = sorted(set(params) - done)
     if missing:
         raise KeyError(f"parameters not in the tree: {missing}")
+
+
+def _to_flax(name: str, value: np.ndarray):
+    """(path, array) of one port tensor in the flax tree's layout."""
+    *mod_path, leaf = name.split(".")
+    if leaf == "weight":
+        if value.ndim == 2:
+            return tuple(mod_path) + ("kernel",), value.T
+        if value.ndim == 4:
+            return tuple(mod_path) + ("kernel",), value.transpose(2, 3, 1, 0)
+        if value.ndim == 1:                          # a norm's scale
+            return tuple(mod_path) + ("scale",), value
+        raise ValueError(f"{name}: weight of rank {value.ndim}")
+    return tuple(mod_path) + (leaf,), value
+
+
+def _tree(model: nn.Module, pick) -> dict:
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        value = pick(name, p)
+        if value is None:
+            continue
+        path, arr = _to_flax(name, value.detach().cpu().numpy())
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(arr, copy=True)
+    return tree
+
+
+def export_jax_params(model: nn.Module) -> dict:
+    """The module's parameters as a flax-layout tree of numpy arrays (the
+    inverse of `load_jax_params`)."""
+    return _tree(model, lambda _name, p: p)
+
+
+def export_jax_grads(model: nn.Module) -> dict:
+    """The parameters' gradients in the flax tree's layout; a parameter
+    without a gradient (frozen, or unused in the step) is left out."""
+    return _tree(model, lambda _name, p: p.grad)

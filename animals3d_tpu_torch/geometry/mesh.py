@@ -13,6 +13,15 @@ from typing import Optional
 import torch
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor, dim: int = 0):
+    """x[idx] along `dim` for an integer index of any shape, through
+    `index_select`: its backward is an atomic `index_add_`, where advanced
+    indexing's is a sort-based `index_put_` that serializes duplicate
+    indices — and capacity-padded faces all point at vertex 0."""
+    out = x.index_select(dim, idx.reshape(-1))
+    return out.reshape(*x.shape[:dim], *idx.shape, *x.shape[dim + 1:])
+
+
 def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=eps))
 
@@ -50,9 +59,9 @@ class Mesh:
 
 def face_normals(v_pos, t_pos_idx, f_valid, normalize: bool = True):
     """(B, F, 3) face normals; zero for invalid faces."""
-    v0 = v_pos[:, t_pos_idx[:, 0]]
-    v1 = v_pos[:, t_pos_idx[:, 1]]
-    v2 = v_pos[:, t_pos_idx[:, 2]]
+    v0 = take_rows(v_pos, t_pos_idx[:, 0], 1)
+    v1 = take_rows(v_pos, t_pos_idx[:, 1], 1)
+    v2 = take_rows(v_pos, t_pos_idx[:, 2], 1)
     fn = torch.cross(v1 - v0, v2 - v0, dim=-1)
     if normalize:
         fn = safe_normalize(fn)
@@ -66,9 +75,9 @@ def auto_normals(v_pos, t_pos_idx, v_valid, f_valid):
     B, V, _ = v_pos.shape
     Fn = t_pos_idx.shape[0]
     tab = v_pos.transpose(0, 1).reshape(V, B * 3)
-    c0 = tab[t_pos_idx[:, 0]].reshape(Fn, B, 3)
-    c1 = tab[t_pos_idx[:, 1]].reshape(Fn, B, 3)
-    c2 = tab[t_pos_idx[:, 2]].reshape(Fn, B, 3)
+    c0 = take_rows(tab, t_pos_idx[:, 0]).reshape(Fn, B, 3)
+    c1 = take_rows(tab, t_pos_idx[:, 1]).reshape(Fn, B, 3)
+    c2 = take_rows(tab, t_pos_idx[:, 2]).reshape(Fn, B, 3)
     fn = torch.cross(c1 - c0, c2 - c0, dim=-1)
     fn = torch.where(f_valid[:, None, None], fn, torch.zeros_like(fn)) \
         .reshape(Fn, B * 3)

@@ -1,27 +1,85 @@
-"""AnimalModel: the MagicPony model wiring (port of the inference part of
+"""AnimalModel: the MagicPony model wiring and loss orchestration (port of
 `animals3d_tpu.models.animal`).
 
 `reconstruct` is single-image reconstruction: netBase (prior SDF over the
 lattice + marching tets) → netInstance (DINO ViT, pose, articulation,
-skinning) → `render_mesh` of the input view. The losses, regularizers and
-training forward are not ported yet.
+skinning) → `render_mesh` of the input view. `forward` is the training
+forward: the same chain with grid jitter and random pose sampling, renders
+of `shaded` and `dino_pred`, the reconstruction losses weighted by the
+pose hypothesis' probability, the logit loss and the regularizers; it
+returns (total_loss, (metrics, aux)) and `loss.backward()` is the whole
+backward pass. The flow loss and the sequence smoothness terms are not
+ported yet.
+
+Batch contract: a dict with images (B, F, 3, H, W) in [0, 1], masks
+(B, F, 1, H, W), mask_dt (B, F, 2, H, W), mask_valid (B, F, H, W),
+dino_features (B, F, D, h, w) or None.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from animals3d_tpu_torch import config as cfglib
 from animals3d_tpu_torch.device import get_device
 from animals3d_tpu_torch.geometry import tets as tetlib
+from animals3d_tpu_torch.geometry.mesh import take_rows
+from animals3d_tpu_torch.noise import Noise, uniform
+from animals3d_tpu_torch.ops.image import resize_nchw
 from animals3d_tpu_torch.phase import Phase
 from animals3d_tpu_torch.predictors import (BasePredictor, BasePredictorConfig,
                                             InstancePredictor,
                                             InstancePredictorConfig)
 from animals3d_tpu_torch.render.render import render_mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 0.0001
+    weight_decay: float = 0.0
+    # MultiStepLR: lr × gamma at each milestone iteration
+    use_scheduler: bool = False
+    scheduler_milestone: tuple = (1, 2, 3, 4, 5)
+    scheduler_gamma: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    mask_loss_weight: float = 10.0
+    mask_dt_loss_weight: float = 0.0
+    mask_inv_dt_loss_weight: float = 100.0
+    rgb_loss_weight: float = 1.0
+    flow_loss_weight: float = 0.0
+    dino_feat_im_loss_weight: float = 10.0
+    sdf_reg_decay_start_iter: int = 10000
+    sdf_bce_reg_loss_weight: float = 0.0
+    sdf_gradient_reg_loss_weight: float = 0.01
+    logit_loss_weight: float = 1.0
+    logit_loss_target_weight: float = 0.0
+    logit_loss_dino_feat_im_loss_multiplier: float = 50.0
+    arti_reg_loss_iter_range: Tuple[float, float] = (60000, float("inf"))
+    arti_reg_loss_weight: float = 0.1
+    deform_reg_loss_weight: float = 10.0
+    prior_normal_reg_loss_weight: float = 0.0
+    instance_normal_reg_loss_weight: float = 0.0
+
+
+def expand_bf(x, b, f):
+    return None if x is None else x.reshape(b, f, *x.shape[1:])
+
+
+def collapse_bf(x):
+    return None if x is None else x.reshape(-1, *x.shape[2:])
+
+
+def _in_range(total_iter, rng_pair) -> float:
+    lo, hi = float(rng_pair[0]), float(rng_pair[1])
+    return float(total_iter >= lo and (total_iter < hi or not np.isfinite(hi)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +110,11 @@ class AnimalModel(nn.Module):
         self.name = cfg.get("name", "MagicPony")
         self.cfg_model = cfglib.bind(AnimalModelConfig, cfg)
         self.cfg_render = cfglib.bind(RenderConfig, cfg.get("cfg_render"))
+        self.cfg_loss = cfglib.bind(LossConfig, cfg.get("cfg_loss"))
+        self.cfg_optim_base = cfglib.bind(OptimizerConfig,
+                                          cfg.get("cfg_optim_base"))
+        self.cfg_optim_instance = cfglib.bind(OptimizerConfig,
+                                              cfg.get("cfg_optim_instance"))
         self.cfg_predictor_base = cfglib.bind(BasePredictorConfig,
                                               cfg.get("cfg_predictor_base"))
         self.cfg_predictor_instance = cfglib.bind(
@@ -61,6 +124,7 @@ class AnimalModel(nn.Module):
         self.in_image_size = ds.get("in_image_size", 256)
         self.out_image_size = ds.get("out_image_size", 256)
         self.num_frames = ds.get("num_frames", 1)
+        self.dino_feature_dim = self.cfg_predictor_base.cfg_dino.feature_dim
         self.netBase = BasePredictor(self.cfg_predictor_base)
         self.netInstance = InstancePredictor(self.cfg_predictor_instance,
                                              image_size=self.in_image_size)
@@ -147,13 +211,199 @@ class AnimalModel(nn.Module):
                            render_modes=render_modes, prior_mesh=prior_mesh,
                            dino_fn=dino_fn)
 
-    # -- forwards -----------------------------------------------------------
-    def forward_base(self, grid, v_cap: int, f_cap: int):
-        """Prior mesh and SDF (no grid jitter: the eval forward)."""
-        return self.netBase(grid, v_cap, f_cap)
+    # -- loss weights -------------------------------------------------------
+    def loss_weight(self, name: str, total_iter):
+        return getattr(self.cfg_loss, f"{name}_weight")
 
-    def instance_forward(self, images, prior_mesh, total_iter, phase: Phase):
-        return self.netInstance(images, prior_mesh, total_iter, phase)
+    def logit_weight(self, name: str, total_iter):
+        """Weight of each recon loss inside the logit-loss target."""
+        weight = self.loss_weight(name, total_iter)
+        if name == "dino_feat_im_loss":
+            weight = weight \
+                * self.cfg_loss.logit_loss_dino_feat_im_loss_multiplier
+        return weight
+
+    # -- losses -------------------------------------------------------------
+    def compute_reconstruction_losses(self, image_pred, image_gt, mask_pred,
+                                      mask_gt, mask_dt, mask_valid, dino_gt,
+                                      dino_pred, background_mode="none"):
+        """Per-(B, F) unreduced losses."""
+        losses = {}
+        B, Fr = image_pred.shape[:2]
+
+        def mean_bf(x):
+            return x.reshape(B, Fr, -1).mean(2)
+
+        mask_pred_valid = mask_pred * mask_valid
+        losses["mask_loss"] = mean_bf((mask_pred_valid - mask_gt) ** 2)
+        losses["mask_dt_loss"] = mean_bf(mask_pred * mask_dt[:, :, 1])
+        losses["mask_inv_dt_loss"] = mean_bf((1 - mask_pred)
+                                             * mask_dt[:, :, 0])
+
+        # intersection mask eroded by one pixel (3x3 mean > 0.99)
+        with torch.no_grad():
+            both = (mask_pred_valid > 0).to(image_pred.dtype) * mask_gt
+            eroded = F.avg_pool2d(collapse_bf(both)[:, None], 3, stride=1,
+                                  padding=1, count_include_pad=True)
+            both = expand_bf((eroded[:, 0] > 0.99).to(image_pred.dtype), B,
+                             Fr)
+
+        rgb = (image_pred - image_gt).abs()
+        if background_mode not in ("background", "input"):
+            rgb = rgb * both[:, :, None]
+        losses["rgb_loss"] = mean_bf(rgb)
+
+        if dino_pred is not None and dino_gt is not None:
+            dl = (dino_pred - dino_gt) ** 2 * both[:, :, None]
+            losses["dino_feat_im_loss"] = mean_bf(dl)
+        return losses
+
+    def compute_regularizers(self, grid, sdf, prior_mesh, gen=None,
+                             noise: Noise = None, arti_params=None,
+                             deformation=None):
+        """SDF regularizers, articulation and deformation magnitudes, and
+        the prior's normal consistency (image data; the sequence smoothness
+        terms are not ported)."""
+        losses = dict(self.netBase.sdf_reg_losses(grid, sdf, prior_mesh,
+                                                  gen=gen, noise=noise))
+        if arti_params is not None:
+            losses["arti_reg_loss"] = (arti_params ** 2).mean()
+        if deformation is not None:
+            losses["deform_reg_loss"] = (deformation ** 2).mean()
+        if prior_mesh is not None and \
+                self.cfg_loss.prior_normal_reg_loss_weight > 0:
+            faces = prior_mesh.t_pos_idx
+            adj = torch.cat([faces[:, 0:2], faces[:, 1:3]], 0)
+            n = take_rows(prior_mesh.v_nrm[0], adj)            # (2F, 2, 3)
+            diffs = 1.0 - (n[:, 0] * n[:, 1]).sum(-1)
+            w = torch.cat([prior_mesh.f_valid] * 2).to(diffs.dtype)
+            losses["prior_normal_reg_loss"] = \
+                (diffs * w).sum() / torch.clamp(w.sum(), min=1.0)
+        if "sequence" in self.data_type and self.num_frames > 1:
+            raise NotImplementedError(
+                "sequence smoothness losses are not ported")
+        return losses
+
+    # -- forwards -----------------------------------------------------------
+    def forward_base(self, grid, v_cap: int, f_cap: int, jitter=None):
+        """Prior mesh and SDF; `jitter` (a uniform scalar) is the training
+        forward's grid jitter, None at eval."""
+        return self.netBase(grid, v_cap, f_cap, jitter=jitter)
+
+    def instance_forward(self, images, prior_mesh, total_iter, phase: Phase,
+                         gen=None, noise: Noise = None):
+        return self.netInstance(images, prior_mesh, total_iter, phase,
+                                gen=gen, noise=noise)
+
+    def forward(self, batch, total_iter, gen=None, phase: Phase = None,
+                grid=None, noise: Noise = None):
+        """The training forward. Random sites (grid jitter, pose sampling,
+        eikonal points) take their values from `noise` where it has them
+        and draw the rest from `gen`. Returns (total_loss, (metrics, aux))."""
+        if phase is None:
+            phase = self.phase_for_iter(total_iter)
+        noise = noise or Noise()
+        images = batch["images"]
+        B, Fr = images.shape[:2]
+        h = w = self.out_image_size
+        mask_gt = (batch["masks"][:, :, 0] > 0.9).to(images.dtype)
+        mask_dt = batch["mask_dt"] / self.in_image_size
+        mask_valid = batch["mask_valid"]
+        if batch.get("flows") is not None and self.cfg_render.render_flow:
+            raise NotImplementedError("the flow loss is not ported")
+        dino_feat_im = batch.get("dino_features")
+
+        dino_gt = None
+        if dino_feat_im is not None:
+            d = resize_nchw(collapse_bf(dino_feat_im), (h, w))
+            dino_gt = expand_bf(d, B, Fr)[:, :, :self.dino_feature_dim]
+        image_gt = images
+        if self.out_image_size != self.in_image_size:
+            image_gt = expand_bf(resize_nchw(collapse_bf(image_gt), (h, w)),
+                                 B, Fr)
+
+        _g, v_cap, f_cap = self.grid_for_phase(phase)
+        if grid is None:
+            grid = _g
+        jitter = uniform(noise.jitter_u, (), gen, self.device) \
+            if phase.is_training else None
+        prior_mesh, sdf = self.forward_base(grid, v_cap, f_cap, jitter=jitter)
+
+        (shape, pose_raw, pose, mvp, w2c, campos, im_features, _feat_key,
+         deformation, arti_params, light_params, fw_aux) = \
+            self.instance_forward(images, prior_mesh, total_iter, phase,
+                                  gen=gen, noise=noise)
+
+        final_losses = {}
+        metrics = {}
+        mask_pred = image_pred = dino_pred = None
+        do_render = self.cfg_model.enable_render or not phase.is_training
+        if do_render:
+            bg_mode = self.cfg_render.background_mode
+            if bg_mode in ("background", "input"):
+                raise NotImplementedError(
+                    f"background_mode {bg_mode!r} in the training forward")
+            renders = self.render(
+                ["shaded", "dino_pred"], shape, mvp, w2c, campos, (h, w),
+                im_features=im_features, light_params=light_params,
+                prior_mesh=prior_mesh, use_dino=True)
+            shaded = expand_bf(renders["shaded"], B, Fr)
+            dino_pred = expand_bf(renders["dino_pred"], B, Fr)
+            image_pred = shaded[:, :, :3]
+            mask_pred = shaded[:, :, 3]
+
+            losses = self.compute_reconstruction_losses(
+                image_pred, image_gt, mask_pred, mask_gt, mask_dt, mask_valid,
+                dino_gt, dino_pred, background_mode=bg_mode)
+
+            # hypothesis-probability weighting + logit loss
+            rot_logit = fw_aux["rot_logit"]
+            rot_prob = fw_aux["rot_prob"].detach()
+            num_hypos = self.netInstance.num_pose_hypos
+            logit_target = torch.zeros((B, Fr), dtype=images.dtype,
+                                       device=images.device)
+            for name, loss in losses.items():
+                logit_target = logit_target \
+                    + loss * self.logit_weight(name, total_iter)
+                final_losses[name] = \
+                    (loss * rot_prob.reshape(B, Fr) * num_hypos).mean()
+            logit_target = collapse_bf(logit_target).detach()
+            final_losses["logit_loss"] = \
+                ((rot_logit - logit_target) ** 2).mean()
+            metrics["logit_loss_target"] = logit_target.mean()
+
+        final_losses.update(self.compute_regularizers(
+            grid, sdf, prior_mesh, gen=gen, noise=noise,
+            arti_params=arti_params, deformation=deformation))
+
+        total = 0.0
+        tex_range = self.cfg_predictor_instance.cfg_texture.texture_iter_range
+        for name, loss in final_losses.items():
+            weight = self.loss_weight(name, total_iter)
+            if isinstance(weight, (int, float)) and weight <= 0:
+                continue
+            gate = 1.0
+            if name == "rgb_loss":
+                gate = _in_range(total_iter, tex_range)
+            if name == "arti_reg_loss":
+                gate = _in_range(total_iter,
+                                 self.cfg_loss.arti_reg_loss_iter_range)
+            total = total + loss * weight * gate
+
+        metrics.update(final_losses)
+        metrics["loss"] = total
+        aux = {"mask_pred": mask_pred, "image_pred": image_pred,
+               "shape": shape, "prior_mesh": prior_mesh, "pose": pose,
+               "mvp": mvp, "w2c": w2c, "campos": campos,
+               "im_features": im_features, "light_params": light_params,
+               "arti_params": arti_params, "pose_raw": pose_raw,
+               "deformation": deformation, "sdf": sdf, "mask_gt": mask_gt,
+               "dino_pred": dino_pred, "dino_gt": dino_gt,
+               "rots_probs": fw_aux.get("rots_probs"),
+               "posed_bones": fw_aux.get("posed_bones"),
+               "rot_idx": fw_aux["rot_idx"],
+               "rand_pose_flag": fw_aux["rand_pose_flag"]}
+        return total, (metrics, aux)
 
     @torch.no_grad()
     def reconstruct(self, params, images, total_iter: int):

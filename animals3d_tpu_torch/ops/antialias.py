@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from animals3d_tpu_torch.geometry.mesh import take_rows
 from animals3d_tpu_torch.ops.dmtet import first_geq
 from animals3d_tpu_torch.ops.rasterize import Rast
 
@@ -91,7 +92,9 @@ def antialias(color, rast: Rast, v_clip, faces, z_tol: float = 2e-3,
     fid_in = torch.where(inside_is_first, fid_p, fid_q)
     tri = faces[torch.clamp(fid_in.long() - 1, min=0)]          # (B, K, 3)
 
-    vv_ = v_clip[torch.arange(B, device=dev)[:, None, None], tri]  # (B,K,3,4)
+    V = v_clip.shape[1]
+    vv_ = take_rows(v_clip.reshape(B * V, 4),
+                    torch.arange(B, device=dev)[:, None, None] * V + tri)
     w = vv_[..., 3]
     safe_w = torch.where(w.abs() > 1e-9, w, torch.full_like(w, 1e-9))
     sx = (vv_[..., 0] / safe_w + 1.0) * (0.5 * W)

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from animals3d_tpu_torch.geometry.tets import kuhn_corners
 
@@ -137,7 +138,8 @@ def marching_tets_lattice(pos: torch.Tensor, sdf: torch.Tensor, res: int,
     src = src.clamp(0, cross.shape[0] - 1)
     ce0 = src // 7
     ce1 = (ce0 + deltas[src % 7]).clamp(0, sdf.shape[0] - 1)
-    s0, s1 = sdf[ce0], sdf[ce1]
+    # index_select: its backward scatters with atomics (see `take_rows`)
+    s0, s1 = sdf.index_select(0, ce0), sdf.index_select(0, ce1)
     denom = s0 - s1
     denom = torch.where(denom.abs() > 1e-10, denom,
                         torch.full_like(denom, 1e-10))
@@ -204,3 +206,41 @@ def marching_tets(pos, sdf, grid, v_cap: int, f_cap: int) -> ExtractedMesh:
         raise NotImplementedError(
             "only procedural lattice grids are ported (npz grids are not)")
     return marching_tets_lattice(pos, sdf, grid.res, v_cap, f_cap)
+
+
+def sdf_bce_reg_loss_lattice(sdf: torch.Tensor, res: int) -> torch.Tensor:
+    """BCE consistency across the sign-crossing lattice edges, averaged
+    over them. Per crossing edge, bce(a, [b > 0]) + bce(b, [a > 0]) equals
+    softplus(±a) + softplus(±b) with the sign picked by the neighbour's
+    occupancy, so two crossing-degree fields per vertex are accumulated
+    with shifted compares and softplus is evaluated once per vertex."""
+    n = res + 1
+    s3 = sdf.reshape(n, n, n)
+    occ = s3 > 0
+    sgn = torch.sign(s3)
+    deg_pos = torch.zeros_like(s3)    # crossing edges whose neighbour > 0
+    deg_neg = torch.zeros_like(s3)    # crossing edges whose neighbour <= 0
+    count = torch.zeros((), dtype=s3.dtype, device=s3.device)
+    for dx, dy, dz in _LATTICE_DIRS.tolist():
+        a_sl = (slice(0, n - dx), slice(0, n - dy), slice(0, n - dz))
+        b_sl = (slice(dx, None), slice(dy, None), slice(dz, None))
+        crossing = sgn[a_sl] != sgn[b_sl]
+        a_occ, b_occ = occ[a_sl], occ[b_sl]
+        end_pad = (0, dz, 0, dy, 0, dx)       # F.pad: last dim first
+        beg_pad = (dz, 0, dy, 0, dx, 0)
+        f = lambda m, pad: F.pad(m.to(s3.dtype), pad)
+        deg_pos = deg_pos + f(crossing & b_occ, end_pad) \
+            + f(crossing & a_occ, beg_pad)
+        deg_neg = deg_neg + f(crossing & ~b_occ, end_pad) \
+            + f(crossing & ~a_occ, beg_pad)
+        count = count + crossing.sum()
+    total = (F.softplus(-s3) * deg_pos + F.softplus(s3) * deg_neg).sum()
+    return total / torch.clamp(count, min=1)
+
+
+def sdf_bce_for_grid(sdf: torch.Tensor, grid) -> torch.Tensor:
+    """Dispatch: lattice grids go to `sdf_bce_reg_loss_lattice`."""
+    if not getattr(grid, "is_lattice", False):
+        raise NotImplementedError(
+            "only procedural lattice grids are ported (npz grids are not)")
+    return sdf_bce_reg_loss_lattice(sdf, grid.res)

@@ -1,6 +1,7 @@
 """Triangle rasterization reference and per-pixel resolve
 (port of `animals3d_tpu.ops.rasterize`: `Rast`, `_face_coeffs`, `rasterize`,
-`compute_barycentrics` and the gather path of `resolve`).
+`compute_barycentrics` and the hybrid path of `resolve`: a row gather
+forward with the scatter-add kernel of `ops.resolve_cuda` as its backward).
 
 Conventions (the reference's GL pipeline): `v_clip` is (B, V, 4) clip
 space; NDC = xyz / w; smaller NDC z is nearer; pixel (i, j) has centre
@@ -16,6 +17,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from animals3d_tpu_torch.geometry.mesh import take_rows
+from animals3d_tpu_torch.ops.resolve_cuda import resolve_bwd
+from animals3d_tpu_torch.precision import compute_dtype
 
 
 class Rast(NamedTuple):
@@ -141,9 +146,33 @@ def compute_barycentrics(v_clip, faces, face_id, resolution):
     return torch.where((face_id > 0)[..., None], uv, torch.zeros_like(uv))
 
 
+class _ResolveRows(torch.autograd.Function):
+    """rows[b, p] = pf[b, max(face_id[b, p] − 1, 0)]: a plain gather
+    forward; the backward is the scatter-add kernel of `ops.resolve_cuda`
+    (its plain version on the CPU), which takes the cotangent in the
+    compute type of the precision policy and accumulates in float32.
+    Background pixels gather face 0's row and receive no gradient: callers
+    mask them downstream."""
+
+    @staticmethod
+    def forward(ctx, pf, face_id):
+        B, P = face_id.shape
+        sel = torch.clamp(face_id.long() - 1, min=0)
+        ctx.save_for_backward(face_id)
+        ctx.num_faces = pf.shape[1]
+        return torch.gather(pf, 1, sel[..., None].expand(B, P, pf.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        face_id, = ctx.saved_tensors
+        d_pf = resolve_bwd(g.to(compute_dtype()).contiguous(), face_id,
+                           ctx.num_faces)
+        return d_pf.to(g.dtype), None
+
+
 def resolve(attr, rast: Rast, v_clip, faces, face_attr=None):
     """Fused barycentrics + attribute interpolation with one per-pixel row
-    gather (the JAX package's gather path).
+    gather (the JAX package's hybrid path: gather forward, kernel backward).
 
     Clip positions and attributes pack into a per-face table (B, F, 3·C)
     (+ optional per-face `face_attr` (B, F, K) channels); each pixel
@@ -157,17 +186,17 @@ def resolve(attr, rast: Rast, v_clip, faces, face_attr=None):
         attr = attr[None].expand(B, *attr.shape)
     nA = attr.shape[-1]
     fid = rast.face_id
-    sel = torch.clamp(fid.long() - 1, min=0).reshape(B, H * W)
     C = 4 + nA
     V = v_clip.shape[1]
     Fn = faces.shape[0]
     pv = torch.cat([v_clip, attr.to(v_clip.dtype)], -1)          # (B, V, C)
     tab = pv.transpose(0, 1).reshape(V, B * C)
-    pf = tab[faces].reshape(Fn, 3, B, C).permute(2, 0, 1, 3) \
+    pf = take_rows(tab, faces).reshape(Fn, 3, B, C).permute(2, 0, 1, 3) \
         .reshape(B, Fn, 3 * C)
     if face_attr is not None:
         pf = torch.cat([pf, face_attr.to(pf.dtype)], -1)
-    rows = torch.gather(pf, 1, sel[..., None].expand(B, H * W, pf.shape[-1]))
+    rows = _ResolveRows.apply(
+        pf, fid.reshape(B, H * W).to(torch.int32).contiguous())
     rT = rows.transpose(1, 2)                                    # (B, R, HW)
     dev = v_clip.device
     xs = (torch.arange(H * W, device=dev) % W).float() + 0.5

@@ -1,5 +1,7 @@
 """Tile visibility rasterizer: a hand-written CUDA kernel for Hopper
-(`csrc/raster_vis.cu`) and its plain PyTorch version.
+(`csrc/raster_vis.cu`) and its plain PyTorch version; and the build of the
+package's kernel library (`build`, `library`: every `csrc/*.cu`, one nvcc
+call, loaded with ctypes), which the other kernel modules load from here.
 
 Port of the Pallas kernel `_raster_kernel`
 (`animals3d_tpu/ops/rasterize_pallas.py:153`, launched from
@@ -338,21 +340,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
+def _sources() -> list:
+    """Every kernel source of the package, in a fixed order."""
+    csrc = os.path.join(_PKG_DIR, "csrc")
+    return [os.path.join(csrc, n) for n in sorted(os.listdir(csrc))
+            if n.endswith(".cu")]
+
+
 def library_path() -> str:
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()) \
-            .hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libraster_vis-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libkernels-{h.hexdigest()[:12]}.so")
 
 
 def build() -> str:
-    """Compile the kernel library with nvcc unless it is already built.
+    """Compile every `csrc/*.cu` into one shared library with a single nvcc
+    call (its sources compiled in parallel) unless it is already built.
     Returns the compiler's output (register and shared-memory use)."""
     out = library_path()
     if os.path.exists(out):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", _SOURCE],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "--threads", "0", "-o",
+                           out + ".tmp", *_sources()],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
@@ -364,14 +376,24 @@ def build() -> str:
 _LIB = None
 
 
-def _library():
+def library():
+    """The loaded kernel library (built at first use), with the argument
+    types of every launch function set."""
     global _LIB
     if _LIB is None:
         build()
         lib = ctypes.CDLL(library_path())
-        lib.raster_vis_launch.argtypes = [ctypes.c_void_p] * 9 + \
-            [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.raster_vis_launch.restype = ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.raster_vis_launch.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+        lib.fused_mlp_fwd_launch.argtypes = [ptr] * 6 + [i64] + [i32] * 4 \
+            + [ptr]
+        lib.fused_mlp_bwd_launch.argtypes = [ptr] * 9 + [i64] + [i32] * 4 \
+            + [ptr]
+        lib.resolve_bwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        for fn in (lib.raster_vis_launch, lib.fused_mlp_fwd_launch,
+                   lib.fused_mlp_bwd_launch,
+                   lib.resolve_bwd_launch):
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -391,7 +413,7 @@ def visibility(table, orig, order, counts, masks, zlo, resolution,
     height, width = resolution
     B, nch, _, chunk = table.shape
     T = (height // TILE_H) * (width // TILE_W)
-    lib = _library()
+    lib = library()
     z = torch.empty((B, height, width), dtype=torch.float32, device=dev)
     fid = torch.empty((B, height, width), dtype=torch.int32, device=dev)
     flags = torch.zeros((B, T, nch), dtype=torch.uint8, device=dev)

@@ -1,9 +1,10 @@
 """Base predictor: category prior shape (SDF + marching tets) and the DINO
 feature field (port of `animals3d_tpu.predictors.base`).
 
-The eval path sweeps the SDF MLP densely over the lattice; the banded and
-fused sweeps of the JAX package (training / offline options) are not
-ported yet.
+The eval path sweeps the SDF MLP densely over the lattice; training
+(jittered sweeps) goes through the fused kernels of `ops.fused_mlp`, which
+keep the (N, 256) activations out of device memory. The banded sweep of
+the JAX package (an offline option) is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from torch import nn
 
 from animals3d_tpu_torch.geometry.mesh import make_mesh
 from animals3d_tpu_torch.networks.mlp import CoordMLP
-from animals3d_tpu_torch.ops import dmtet
+from animals3d_tpu_torch.noise import Noise, uniform
+from animals3d_tpu_torch.ops import dmtet, fused_mlp
 from animals3d_tpu_torch.predictors.config import BasePredictorConfig
 
 
@@ -45,35 +47,100 @@ class BasePredictor(nn.Module):
         pts_in = torch.cat([pts[..., :1].abs(), pts[..., 1:]], -1) \
             if shape.symmetrize else pts
         sdf = self.netSDF(pts_in)
-        init = shape.init_sdf
-        if init is None:
-            pass
-        elif isinstance(init, (int, float)):
-            sdf = sdf + init
-        elif init == "sphere":
-            r = shape.spatial_scale * 0.25
-            sdf = sdf + (r - torch.linalg.norm(pts, dim=-1, keepdim=True))
-        elif init == "ellipsoid":
-            r = shape.spatial_scale * 0.15
-            scaled = torch.cat([pts[..., :2], pts[..., 2:] / 2], -1)
-            sdf = sdf + (r - torch.linalg.norm(scaled, dim=-1, keepdim=True))
-        else:
-            raise NotImplementedError(init)
-        return sdf
+        init = self._init_sdf(pts)
+        return sdf + (init[..., None] if torch.is_tensor(init) else init)
 
     def dino_field(self, pts):
         return self.netDINO(pts)
 
-    def get_prior_mesh(self, grid, v_cap: int, f_cap: int):
-        """SDF over the lattice (no jitter at eval) → marching tets →
-        batch-1 Mesh. Returns (mesh, sdf)."""
-        pos = grid.verts * self.cfg.cfg_shape.spatial_scale
-        sdf = self.get_sdf(pos)[..., 0]
+    # ---- fused lattice sweep ---------------------------------------------
+    def _use_fused_sweep(self, training: bool = False) -> bool:
+        """Gate of the fused netSDF sweep (`ops.fused_mlp`): on for
+        training (the backward recomputes the activations instead of
+        storing 5 × (N, 256) of them), off for eval, and only for the
+        unconditional 256-wide net."""
+        shape = self.cfg.cfg_shape
+        return (training and shape.num_layers >= 2
+                and shape.hidden_size == 256
+                and fused_mlp.coordmlp_sweep_params_ok(self.netSDF,
+                                                       shape.num_layers))
+
+    def _init_sdf(self, pos):
+        """The analytic init bias of `get_sdf`, (N,)."""
+        shape = self.cfg.cfg_shape
+        init = shape.init_sdf
+        if init is None:
+            return 0.0
+        if isinstance(init, (int, float)):
+            return init
+        if init == "sphere":
+            return shape.spatial_scale * 0.25 - torch.linalg.norm(pos, dim=-1)
+        if init == "ellipsoid":
+            scaled = torch.cat([pos[..., :2], pos[..., 2:] / 2], -1)
+            return shape.spatial_scale * 0.15 \
+                - torch.linalg.norm(scaled, dim=-1)
+        raise NotImplementedError(init)
+
+    def _fused_sdf_sweep(self, pos):
+        """`get_sdf(pos)[..., 0]` with the MLP trunk evaluated by the fused
+        kernels: the same symmetrize, harmonic embedding and init bias."""
+        shape = self.cfg.cfg_shape
+        pts_in = torch.cat([pos[..., :1].abs(), pos[..., 1:]], -1) \
+            if shape.symmetrize else pos
+        sdf = fused_mlp.mlp_sweep(self.netSDF, self.netSDF.embed(pts_in),
+                                  num_layers=shape.num_layers)
+        return sdf + self._init_sdf(pos)
+
+    # ---- prior mesh -------------------------------------------------------
+    def get_prior_mesh(self, grid, v_cap: int, f_cap: int, jitter=None):
+        """Optional global grid jitter → SDF over the lattice → marching
+        tets → batch-1 Mesh. `jitter` is a uniform [0, 1) scalar (None at
+        eval): the lattice shifts by (2·jitter − 1)·jitter_grid·scale, and
+        the sweep goes through the fused kernels. Returns (mesh, sdf)."""
+        shape = self.cfg.cfg_shape
+        pos = grid.verts * shape.spatial_scale
+        if jitter is not None and shape.jitter_grid > 0:
+            pos = pos + (jitter * 2 - 1) * shape.jitter_grid \
+                * shape.spatial_scale
+        if self._use_fused_sweep(training=jitter is not None):
+            sdf = self._fused_sdf_sweep(pos)
+        else:
+            sdf = self.get_sdf(pos)[..., 0]
         out = dmtet.marching_tets(pos, sdf, grid, v_cap, f_cap)
         mesh = make_mesh(out.verts[None], out.faces, out.v_valid,
                          out.f_valid, out.num_verts, out.num_faces,
                          face_gidx=out.face_gidx)
         return mesh, sdf
 
-    def forward(self, grid, v_cap: int, f_cap: int):
-        return self.get_prior_mesh(grid, v_cap, f_cap)
+    def forward(self, grid, v_cap: int, f_cap: int, jitter=None):
+        return self.get_prior_mesh(grid, v_cap, f_cap, jitter=jitter)
+
+    # ---- regularizers -----------------------------------------------------
+    def sdf_reg_losses(self, grid, sdf, mesh, gen=None, noise: Noise = None):
+        """BCE edge consistency + eikonal penalty on 5000 random + 5000
+        near-surface points. The eikonal term differentiates the gradient
+        of the plain `get_sdf` (`create_graph=True`); it never goes through
+        the fused kernels."""
+        shape = self.cfg.cfg_shape
+        noise = noise or Noise()
+        dev = sdf.device
+        bce = dmtet.sdf_bce_for_grid(sdf, grid)
+        n = 5000
+        rand_pts = (uniform(noise.rand_pts_u, (n, 3), gen, dev) - 0.5) \
+            * shape.spatial_scale
+        v_cap = mesh.v_pos.shape[1]
+        # the vertex buffer is compacted: indices below num_verts are valid
+        if noise.surf_idx is not None:
+            idx = noise.surf_idx.to(dev).long()
+        else:
+            hi = torch.clamp(mesh.num_verts, min=1).to(dev)
+            idx = torch.floor(uniform(None, (n,), gen, dev) * hi).long()
+        surf = mesh.v_pos[0].detach()[idx.clamp(0, v_cap - 1)]
+        surf = surf + (uniform(noise.surf_u, (n, 3), gen, dev) - 0.5) \
+            * 0.1 * shape.spatial_scale
+        pts = torch.cat([rand_pts, surf], 0).requires_grad_(True)
+        with torch.enable_grad():
+            val = self.get_sdf(pts)[..., 0]
+            grads, = torch.autograd.grad(val.sum(), pts, create_graph=True)
+        eikonal = ((torch.linalg.norm(grads, dim=-1) - 1.0) ** 2).mean()
+        return {"sdf_bce_reg_loss": bce, "sdf_gradient_reg_loss": eikonal}

@@ -1,10 +1,10 @@
 """Instance predictor: image → (pose, deformation, articulation, texture,
 light) (port of `animals3d_tpu.predictors.instance`).
 
-The forward here is the eval forward: the pose hypothesis is the most
-probable one (`random_sample` is False outside training), so it is
-deterministic. Training-time hypothesis sampling and the articulation
-refinement pass are not ported yet and raise.
+Outside training the pose hypothesis is the most probable one; in training
+it is sampled (`sample_pose_hypothesis(random_sample=True)`) from the
+draws of a `Noise` or a generator. The articulation refinement pass is not
+ported yet and raises.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from animals3d_tpu_torch.networks.articulation import ArticulationNetwork
 from animals3d_tpu_torch.networks.encoders import Encoder32
 from animals3d_tpu_torch.networks.mlp import CoordMLP
 from animals3d_tpu_torch.networks.vit import DinoViT
+from animals3d_tpu_torch.noise import Noise, uniform
 from animals3d_tpu_torch.ops.image import grid_sample_bilinear
 from animals3d_tpu_torch.phase import Phase
 from animals3d_tpu_torch.predictors.config import InstancePredictorConfig
@@ -67,6 +68,8 @@ class ViTEncoder(nn.Module):
         heads = 6 if which_vit == "dino_vits8" else 12
         self.ViT = DinoViT(patch_size=8, dim=self.vit_feat_dim,
                            num_heads=heads)
+        if frozen:
+            self.ViT.requires_grad_(False)
         if final_layer_type != "conv":
             raise NotImplementedError(final_layer_type)
         grid = image_size // self.patch_size
@@ -193,12 +196,12 @@ class InstancePredictor(nn.Module):
         return torch.cat([rot_pred, trans], -1)
 
     def sample_pose_hypothesis(self, poses_raw, total_iter,
-                               random_sample: bool):
-        """softmax(-logits / T) with annealed T and uniform blending; the
-        eval pose is the most probable hypothesis."""
-        if random_sample:
-            raise NotImplementedError(
-                "training-time pose sampling is not ported yet")
+                               random_sample: bool, gen=None,
+                               noise: Noise = None):
+        """softmax(-logits / T) with annealed T and uniform blending. The
+        eval pose is the most probable hypothesis; with `random_sample` a
+        uniformly random one replaces it unless `best_u < p_best` (p_best
+        ramps to 0.8), the draws coming from `noise` or `gen`."""
         cfg = self.cfg.cfg_pose
         K = self.num_pose_hypos
         rots = poses_raw[..., :K * 4].reshape(-1, K, 4)
@@ -213,6 +216,20 @@ class InstancePredictor(nn.Module):
                                 / 2000.0, 0.0, 1.0))
         probs = (1.0 / K) * naive_w + probs * (1.0 - naive_w)
         rot_idx = torch.argmax(probs, dim=1)
+        rand_flag = torch.zeros((N,), dtype=torch.int32, device=probs.device)
+        if random_sample:
+            noise = noise or Noise()
+            dev = probs.device
+            if noise.rand_idx is not None:
+                rand_idx = noise.rand_idx.to(dev).long()
+            else:
+                rand_idx = torch.floor(uniform(None, (N,), gen, dev) * K) \
+                    .long().clamp(max=K - 1)
+            p_best = float(np.clip((total_iter - cfg.best_pose_start_iter)
+                                   / 2000.0, 0.0, 0.8))
+            best_flag = uniform(noise.best_u, (N,), gen, dev) < p_best
+            rot_idx = torch.where(best_flag, rot_idx, rand_idx)
+            rand_flag = 1 - best_flag.to(torch.int32)
 
         def take(a):
             idx = rot_idx.reshape(-1, *([1] * (a.ndim - 1)))
@@ -224,8 +241,7 @@ class InstancePredictor(nn.Module):
         pose = torch.cat([rot_mat.reshape(N, 9), trans], -1)
         aux = {"rot_idx": rot_idx, "rot_prob": take(probs),
                "rot_logit": take(logits), "rots_probs": probs,
-               "rand_pose_flag": torch.zeros((N,), dtype=torch.int32,
-                                             device=probs.device)}
+               "rand_pose_flag": rand_flag}
         return pose_raw, pose, aux
 
     def get_camera_extrinsics_from_pose(self, pose, znear=0.1, zfar=1000.0):
@@ -378,7 +394,7 @@ class InstancePredictor(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, images, prior_mesh: Mesh, total_iter,
-                phase: Phase = Phase()):
+                phase: Phase = Phase(), gen=None, noise: Noise = None):
         """The 12-tuple (shape, pose_raw, pose, mvp, w2c, campos, feat_out,
         feat_key, deformation, arti_params, light_params, aux)."""
         batch_size, num_frames = images.shape[:2]
@@ -387,7 +403,8 @@ class InstancePredictor(nn.Module):
         poses_raw = self.forward_pose(patch_out, patch_key, zeroy=phase.zeroy)
         pose_raw, pose, aux = self.sample_pose_hypothesis(
             poses_raw, total_iter,
-            random_sample=(phase.is_training and self.cfg.cfg_pose.rand_campos))
+            random_sample=(phase.is_training and self.cfg.cfg_pose.rand_campos),
+            gen=gen, noise=noise)
         mvp, w2c, campos = self.get_camera_extrinsics_from_pose(pose)
 
         shape = prior_mesh

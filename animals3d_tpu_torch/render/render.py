@@ -17,7 +17,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from animals3d_tpu_torch.geometry.mesh import Mesh
+from animals3d_tpu_torch.geometry.mesh import Mesh, take_rows
 from animals3d_tpu_torch.ops import shading as sh
 from animals3d_tpu_torch.ops.antialias import antialias
 from animals3d_tpu_torch.ops.rasterize import resolve
@@ -58,7 +58,7 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
     v_tex = prior.v_pos.expand(B, *prior.v_pos.shape[1:])
     chans = [mesh.v_pos, mesh.v_nrm, v_tex]
     # face normals of the posed mesh ride in resolve's per-face row
-    fp = mesh.v_pos[:, faces]                                  # (B, F, 3, 3)
+    fp = take_rows(mesh.v_pos, faces, 1)                       # (B, F, 3, 3)
     u = fp[:, :, 1] - fp[:, :, 0]
     w_ = fp[:, :, 2] - fp[:, :, 0]
     nx = u[..., 1] * w_[..., 2] - u[..., 2] * w_[..., 1]

@@ -96,3 +96,169 @@ def test_visibility_kernel_rejects_bad_inputs(card):
         rc.visibility(prep["table"][:, :, :, ::2].contiguous(), prep["orig"],
                       prep["order"], prep["counts"], prep["masks"],
                       prep["zlo"], res, prep["nsub"])
+
+
+# ---------------------------------------------------------------------------
+# fused netSDF sweep (K6/K7) and resolve backward (K4)
+# ---------------------------------------------------------------------------
+
+def _mlp_inputs(rng, n, dp, nl, dtype, card):
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    t = lambda a, dt: torch.as_tensor(a, device=card).to(dt).contiguous()
+    e = t(rng.uniform(-1, 1, (n, dp)).astype(np.float32), dtype)
+    win = t(rng.normal(0, dp ** -0.5, (dp, fm.NF)).astype(np.float32), dtype)
+    b = t(rng.normal(0, 0.1, (fm.NF,)).astype(np.float32), torch.float32)
+    ws = t(rng.normal(0, (2 / fm.NF) ** 0.5, (nl, fm.NF, fm.NF))
+           .astype(np.float32), dtype)
+    wlast = t(rng.normal(0, fm.NF ** -0.5, (fm.NF,)).astype(np.float32),
+              dtype)
+    g = t(rng.normal(size=(n,)).astype(np.float32), torch.float32)
+    return e, win, b, ws, wlast, g
+
+
+@pytest.mark.parametrize("n,dp,nl", [(1001, 64, 4), (77, 64, 1),
+                                     (20000, 64, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_kernels_equal_plain_version(card, n, dp, nl, dtype):
+    """Forward and every weight gradient against the plain version. float32:
+    rtol 2e-5 of the output's magnitude forward, 1e-4 of each gradient's
+    norm backward (summation order). bf16: the output is a bf16 value, so
+    the two may differ by 2 bf16 ulps (2^-8 relative) of the output's
+    magnitude where a 256-long float32 sum rounds to the other side; a
+    gradient by 2e-3 of its norm (the limits of `chip_smoke.py`, which
+    reads 0.62 ulps and 3.6e-4 at full width)."""
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    e, win, b, ws, wlast, g = _mlp_inputs(np.random.default_rng(n), n, dp, nl,
+                                          dtype, card)
+    before = fm.fused_mlp_fwd.launches, fm.fused_mlp_bwd.launches
+    out = fm.fused_mlp_fwd(e, win, b, ws, wlast)
+    grads = fm.fused_mlp_bwd(e, g, win, b, ws, wlast)
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp_fwd.launches, fm.fused_mlp_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fm.fused_mlp_fwd_reference(e, win, b, ws, wlast)
+    wgrads = fm.fused_mlp_bwd_reference(e, g, win, b, ws, wlast)
+    f32 = dtype == torch.float32
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((out - want).abs().max()) <= (2e-5 if f32 else 2 * 2 ** -8) \
+        * scale
+    for name, a, w in zip(("dwin", "db", "dws", "dwlast"), grads, wgrads):
+        assert torch.isfinite(a).all(), name
+        err = float((a - w).norm() / w.norm())
+        assert err <= (1e-4 if f32 else 2e-3), (name, err)
+    again = fm.fused_mlp_bwd(e, g, win, b, ws, wlast)
+    for a, c in zip(grads, again):
+        assert torch.equal(a, c)       # fixed grid, fixed reduction order
+
+
+def test_mlp_sweep_function_on_card(card):
+    """`mlp_sweep` through autograd on the card against the plain CoordMLP
+    (float32): output rtol 2e-5, every parameter's grad 1e-4 of its norm;
+    an input that requires grad raises."""
+    from animals3d_tpu_torch.networks.mlp import CoordMLP
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    set_mixed_precision(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = CoordMLP(3, 1, 5, nf=256, n_harmonic_functions=8,
+                   embedder_scalar=0.8).to(card)
+    gen = torch.Generator().manual_seed(0)
+    net.to("cpu")
+    for m in net.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    net.to(card)
+    pts = torch.as_tensor(np.random.default_rng(0).uniform(
+        -3, 3, (3001, 3)).astype(np.float32), device=card)
+    w = torch.as_tensor(np.random.default_rng(1).normal(size=3001)
+                        .astype(np.float32), device=card)
+    ref = net(pts)[:, 0]
+    (ref * w).sum().backward()
+    want = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.zero_grad()
+    got = fm.mlp_sweep(net, net.embed(pts), num_layers=5)
+    (got * w).sum().backward()
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    for k, p in net.named_parameters():
+        err = float((p.grad - want[k]).norm() / want[k].norm())
+        assert err <= 1e-4, (k, err)
+    with pytest.raises(ValueError):
+        fm.mlp_sweep(net, net.embed(pts.requires_grad_()), num_layers=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resolve_bwd_kernel_equals_plain_version(card, dtype):
+    """Scatter-add by winner id: rtol 1e-5 (the order of the float32
+    atomics); faces with at most one pixel are exact; a cotangent on the
+    background contributes nothing."""
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    rng = np.random.default_rng(5)
+    B, P, R, Fn = 3, 4096, 42, 500
+    fid = rng.integers(0, Fn + 1, (B, P)).astype(np.int32)
+    fid[:, :P // 3] = 0
+    g = torch.as_tensor(rng.normal(size=(B, P, R)).astype(np.float32),
+                        device=card).to(dtype)
+    fid = torch.as_tensor(fid, device=card)
+    n = rv.resolve_bwd.launches
+    got = rv.resolve_bwd(g, fid, Fn)
+    torch.cuda.synchronize()
+    assert rv.resolve_bwd.launches == n + 1
+    want = rv.resolve_bwd_reference(g, fid, Fn)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    g0 = g.clone()
+    g0[fid == 0] = 0
+    assert torch.equal(rv.resolve_bwd(g0, fid, Fn).sum(1) != 0,
+                       got.sum(1) != 0)
+    # one pixel per face: exact
+    fid1 = torch.zeros((1, P), dtype=torch.int32, device=card)
+    fid1[0, :Fn] = torch.randperm(Fn, device=card).int() + 1
+    assert torch.equal(rv.resolve_bwd(g[:1].contiguous(), fid1, Fn),
+                       rv.resolve_bwd_reference(g[:1].contiguous(), fid1, Fn))
+
+
+def test_small_train_step_on_card(card):
+    """One float32 `train_step` of a small model (netSDF 256 wide, so the
+    fused sweep runs) on the card: every kernel launches once, the loss
+    is finite, every trainable parameter moves and the ViT does not."""
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch.data.synth import fake_batch
+    from animals3d_tpu_torch.models import build_model
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.trainer import make_optimizer, train_step
+    set_mixed_precision(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfglib.load_config("train_magicpony_horse", overrides=[
+        "dataset.in_image_size=64", "dataset.out_image_size=64",
+        "model.cfg_predictor_base.cfg_shape.grid_res=16",
+        "model.cfg_predictor_base.cfg_shape.grid_res_coarse=16",
+        "model.cfg_predictor_base.cfg_shape.num_layers=2",
+        "model.cfg_predictor_base.cfg_shape.hidden_size=256",
+        "model.cfg_predictor_instance.cfg_encoder.cout=32",
+        "model.cfg_predictor_instance.cfg_texture.hidden_size=32",
+        "model.cfg_predictor_instance.cfg_articulation.hidden_size=32",
+        "model.cfg_predictor_instance.cfg_light.hidden_size=32"])
+    model = build_model(dict(cfg["model"], dataset=cfg["dataset"]),
+                        device="cuda")
+    model.init_params(0)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kernels = (rc.visibility, fm.fused_mlp_fwd, fm.fused_mlp_bwd,
+               rv.resolve_bwd)
+    counts = [k.launches for k in kernels]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    met = train_step(model, make_optimizer(model), fake_batch(model, 2),
+                     50000, gen)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [c + 1 for c in counts]
+    assert np.isfinite(float(met["loss"]))
+    for name, p in model.named_parameters():
+        same = torch.equal(p, before[name])
+        if ".ViT." in name:
+            assert same and not p.requires_grad, name
+        elif not name.startswith("netInstance.netDeform."):
+            assert not same and bool(torch.isfinite(p).all()), name

@@ -138,13 +138,20 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """No file of the port, nor chip_smoke.py, imports jax, flax, optax or
-    the JAX package."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No file of the port, nor chip_smoke.py, the profile script or the
+    card-only tests, imports jax, flax, optax or the JAX package. The
+    training slice's modules are among the files scanned."""
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "torch_recon_profile.py"),
+             os.path.join(REPO, "tests", "test_torch_cuda.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO,
                                                    "animals3d_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    scanned = {os.path.relpath(f, REPO) for f in files}
+    for new in ("ops/fused_mlp.py", "ops/resolve_cuda.py", "trainer.py",
+                "noise.py", "data/synth.py", "models/animal.py"):
+        assert os.path.join("animals3d_tpu_torch", new) in scanned, new
     banned = ("jax", "flax", "optax", "animals3d_tpu")
     for path in files:
         for mod in _imports(path):

@@ -147,3 +147,73 @@ def assert_images_close(got, want, rast, rast_want, v_clip, faces,
     for mask, tol in ((~near & ~sil, atol), (~near & sil, silhouette_atol)):
         keep = np.broadcast_to(mask[:, None], got.shape)
         np.testing.assert_allclose(got[keep], want[keep], atol=tol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# training-forward helpers
+# ---------------------------------------------------------------------------
+
+# TINY_OVERRIDES with the netSDF at the width the fused sweep covers, so
+# both packages train through their fused path (Pallas in interpret mode on
+# the JAX side, the plain version of the CUDA kernels on the port's)
+TRAIN_OVERRIDES = [o for o in TINY_OVERRIDES
+                   if "cfg_shape.hidden_size" not in o] + \
+    ["model.cfg_predictor_base.cfg_shape.hidden_size=256"]
+
+
+def fake_batch_np(seed, B=2, F=1, H=64, dino_dim=4):
+    """The batch of `tests/test_animal_model.py`, as numpy arrays."""
+    r = np.random.default_rng(seed)
+    mask = np.zeros((B, F, 1, H, H), np.float32)
+    mask[:, :, :, 16:48, 20:44] = 1.0
+    return {
+        "images": r.uniform(0, 1, (B, F, 3, H, H)).astype(np.float32),
+        "masks": mask,
+        "mask_dt": r.uniform(0, 5, (B, F, 2, H, H)).astype(np.float32),
+        "mask_valid": np.ones((B, F, H, H), np.float32),
+        "flows": None, "bboxs": np.zeros((B, F, 8), np.float32),
+        "bg_images": None,
+        "dino_features": r.uniform(0, 1, (B, F, dino_dim, 16, 16))
+        .astype(np.float32),
+        "dino_clusters": None, "seq_idx": np.zeros((B,), np.int32),
+        "frame_idx": np.zeros((B, F), np.int32),
+    }
+
+
+def batch_to(batch, conv):
+    return {k: None if v is None else conv(v) for k, v in batch.items()}
+
+
+def jax_noise(rng, n_images, num_hypos, num_verts=None):
+    """The draws `AnimalModel.forward` makes from `rng`, reproduced by
+    splitting the key as the JAX code does (`models/animal.py:415` →
+    `predictors/instance.py:534,293-297`; `predictors/base.py:170,227-237`),
+    as a port `Noise`. `surf_idx` needs the prior mesh's vertex count."""
+    from animals3d_tpu_torch.noise import Noise
+    rngs = jax.random.split(rng, 5)
+    jitter_u = jax.random.uniform(rngs[0], ())
+    rng_pose, _ = jax.random.split(rngs[1])
+    k1, k2 = jax.random.split(rng_pose)
+    rand_idx = jax.random.randint(k1, (n_images,), 0, num_hypos)
+    best_u = jax.random.uniform(k2, (n_images,))
+    e1, e2, e3 = jax.random.split(rngs[2], 3)
+    n = 5000
+    t = lambda a: torch.from_numpy(np.array(a))
+    surf_idx = None
+    if num_verts is not None:
+        surf_idx = t(jax.random.randint(e2, (n,), 0, max(int(num_verts), 1)))
+    return Noise(jitter_u=t(jitter_u), rand_idx=t(rand_idx), best_u=t(best_u),
+                 rand_pts_u=t(jax.random.uniform(e1, (n, 3))),
+                 surf_idx=surf_idx,
+                 surf_u=t(jax.random.uniform(e3, (n, 3))))
+
+
+def flat_tree(tree, prefix=()):
+    """{path tuple: numpy leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
