@@ -101,10 +101,22 @@ class AnimalModelConfig:
 
 class AnimalModel(nn.Module):
     """MagicPony base model. Parameters live in `netBase`/`netInstance`
-    on `device` (default CUDA; the CPU only when asked for)."""
+    on `device` (default CUDA; the CPU only when asked for).
+    `raster_variant` (3, 4 or 6) and `resolve_rows` ("gather" or "kernel")
+    select the render's visibility kernel and resolve path
+    (`render.render.render_mesh`); the defaults are the JAX package's."""
 
-    def __init__(self, cfg: dict, device="cuda"):
+    def __init__(self, cfg: dict, device="cuda", raster_variant: int = 3,
+                 resolve_rows: str = "gather"):
         super().__init__()
+        if raster_variant not in (3, 4, 6):
+            raise ValueError(f"raster_variant {raster_variant}: want 3, 4 "
+                             "or 6")
+        if resolve_rows not in ("gather", "kernel"):
+            raise ValueError(f"resolve_rows {resolve_rows!r}: want 'gather' "
+                             "or 'kernel'")
+        self.raster_variant = raster_variant
+        self.resolve_rows = resolve_rows
         self.device = get_device(device)
         self.cfg_raw = cfg
         self.name = cfg.get("name", "MagicPony")
@@ -209,7 +221,9 @@ class AnimalModel(nn.Module):
                            background=background,
                            spp=self.cfg_render.renderer_spp,
                            render_modes=render_modes, prior_mesh=prior_mesh,
-                           dino_fn=dino_fn)
+                           dino_fn=dino_fn,
+                           raster_variant=self.raster_variant,
+                           resolve_rows=self.resolve_rows)
 
     # -- loss weights -------------------------------------------------------
     def loss_weight(self, name: str, total_iter):

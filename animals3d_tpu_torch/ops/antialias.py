@@ -55,13 +55,17 @@ def _pair_blend(inside_is_first, e_in_p, e_in_q, valid):
             torch.where(inside_is_first, w_outside, w_inside))
 
 
-def antialias(color, rast: Rast, v_clip, faces, z_tol: float = 2e-3,
-              pair_cap: int | None = None):
-    """Antialias `color` (B, H, W, C) at silhouettes."""
-    B, H, W, C = color.shape
+def silhouette_pairs(rast: Rast, v_clip, faces, z_tol: float = 2e-3,
+                     pair_cap: int | None = None) -> dict:
+    """The silhouette pairs of `rast`, prefix-compacted into `pair_cap`
+    slots per image, with the inside triangle's edge functions at both
+    pixel centres: p_lin, q_lin (B, K) raster indices of the pair's pixels;
+    inside_is_first (B, K); e_p, e_q (B, K, 3), differentiable in v_clip;
+    slot_ok (B, K)."""
+    B, H, W = rast.face_id.shape
     K = pair_cap if pair_cap is not None else default_pair_cap(H, W)
     n_pix = H * W
-    dev = color.device
+    dev = v_clip.device
     fid = rast.face_id.detach()
     z = torch.where(fid > 0, rast.z.detach(),
                     torch.full_like(rast.z, float("inf")))
@@ -112,14 +116,25 @@ def antialias(color, rast: Rast, v_clip, faces, z_tol: float = 2e-3,
     y_p = torch.div(p_lin, W, rounding_mode="floor").float() + 0.5
     x_q = (q_lin % W).float() + 0.5
     y_q = torch.div(q_lin, W, rounding_mode="floor").float() + 0.5
-    e_p = ea * x_p[..., None] + eb * y_p[..., None] + ec
-    e_q = ea * x_q[..., None] + eb * y_q[..., None] + ec
-    w_first, w_second = _pair_blend(inside_is_first, e_p, e_q, slot_ok)
+    return {"p_lin": p_lin, "q_lin": q_lin,
+            "inside_is_first": inside_is_first,
+            "e_p": ea * x_p[..., None] + eb * y_p[..., None] + ec,
+            "e_q": ea * x_q[..., None] + eb * y_q[..., None] + ec,
+            "slot_ok": slot_ok}
 
+
+def antialias(color, rast: Rast, v_clip, faces, z_tol: float = 2e-3,
+              pair_cap: int | None = None):
+    """Antialias `color` (B, H, W, C) at silhouettes."""
+    B, H, W, C = color.shape
+    n_pix = H * W
+    pr = silhouette_pairs(rast, v_clip, faces, z_tol, pair_cap)
+    w_first, w_second = _pair_blend(pr["inside_is_first"], pr["e_p"],
+                                    pr["e_q"], pr["slot_ok"])
     color_f = color.reshape(B * n_pix, C)
-    base = (torch.arange(B, device=dev) * n_pix)[:, None]
-    gp = (base + p_lin).reshape(-1)
-    gq = (base + q_lin).reshape(-1)
+    base = (torch.arange(B, device=color.device) * n_pix)[:, None]
+    gp = (base + pr["p_lin"]).reshape(-1)
+    gq = (base + pr["q_lin"]).reshape(-1)
     delta = color_f[gq] - color_f[gp]                            # (B·K, C)
     out = color_f.index_add(0, gp, w_first.reshape(-1, 1) * delta)
     out = out.index_add(0, gq, -w_second.reshape(-1, 1) * delta)

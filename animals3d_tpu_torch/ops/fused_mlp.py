@@ -107,10 +107,6 @@ def fused_mlp_bwd_reference(e, g, win, b, ws, wlast):
     return dwin, db, dws, dwlast
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def fused_mlp_fwd(e, win, b, ws, wlast):
     """Trunk output (N,) float32 for embedded rows e (N, DP).
 
@@ -124,20 +120,14 @@ def fused_mlp_fwd(e, win, b, ws, wlast):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check(e, win, b, ws, wlast)
-    from animals3d_tpu_torch.ops.rasterize_cuda import library
-    lib = library()
+    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     N, dp = e.shape
     out = torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    with torch.cuda.device(dev):
-        err = lib.fused_mlp_fwd_launch(
-            e.data_ptr(), win.data_ptr(), b.data_ptr(), ws.data_ptr(),
-            wlast.data_ptr(), out.data_ptr(), N, dp, ws.shape[0] + 1,
-            NUM_BLOCKS, int(e.dtype == torch.bfloat16), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_fwd kernel launch failed: cudaError "
-                           f"{err}")
+    _launch("fused_mlp_fwd", library().fused_mlp_fwd_launch, e, win, b, ws,
+            wlast, out, N, dp, ws.shape[0] + 1, NUM_BLOCKS,
+            int(e.dtype == torch.bfloat16))
     fused_mlp_fwd.launches += 1
     return out
 
@@ -161,22 +151,15 @@ def fused_mlp_bwd(e, g, win, b, ws, wlast):
     if g.dtype != torch.float32 or tuple(g.shape) != (N,) \
             or not g.is_contiguous() or g.device != dev:
         raise ValueError(f"g: want contiguous float32 ({N},) on {dev}")
-    from animals3d_tpu_torch.ops.rasterize_cuda import library
-    lib = library()
+    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     nl = ws.shape[0]
     psz = dp * NF + NF + nl * NF * NF + NF
     out = torch.empty((psz,), dtype=torch.float32, device=dev)
     partial = torch.zeros((NUM_BLOCKS, psz), dtype=torch.float32, device=dev)
     wts = ws.transpose(1, 2).contiguous()
-    with torch.cuda.device(dev):
-        err = lib.fused_mlp_bwd_launch(
-            e.data_ptr(), g.data_ptr(), win.data_ptr(), b.data_ptr(),
-            ws.data_ptr(), wts.data_ptr(), wlast.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), N, dp, nl + 1, NUM_BLOCKS,
-            int(e.dtype == torch.bfloat16), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError "
-                           f"{err}")
+    _launch("fused_mlp_bwd", library().fused_mlp_bwd_launch, e, g, win, b,
+            ws, wts, wlast, partial, out, N, dp, nl + 1, NUM_BLOCKS,
+            int(e.dtype == torch.bfloat16))
     fused_mlp_bwd.launches += 1
     o0, o1, o2 = dp * NF, dp * NF + NF, dp * NF + NF + nl * NF * NF
     # the kernel accumulates the transposes (rows = output feature)

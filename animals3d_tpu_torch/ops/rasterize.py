@@ -1,7 +1,9 @@
 """Triangle rasterization reference and per-pixel resolve
 (port of `animals3d_tpu.ops.rasterize`: `Rast`, `_face_coeffs`, `rasterize`,
-`compute_barycentrics` and the hybrid path of `resolve`: a row gather
-forward with the scatter-add kernel of `ops.resolve_cuda` as its backward).
+`compute_barycentrics` and two paths of `resolve`: the hybrid path, a row
+gather forward with the scatter-add kernel of `ops.resolve_cuda` as its
+backward, and the kernel path of `A3D_MXU_FWD=1`, whose forward is the
+resolve-rows kernel of `ops.resolve_cuda`, in tile order).
 
 Conventions (the reference's GL pipeline): `v_clip` is (B, V, 4) clip
 space; NDC = xyz / w; smaller NDC z is nearer; pixel (i, j) has centre
@@ -19,7 +21,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from animals3d_tpu_torch.geometry.mesh import take_rows
-from animals3d_tpu_torch.ops.resolve_cuda import resolve_bwd
+from animals3d_tpu_torch.ops.resolve_cuda import (TILE_H, TILE_W,
+                                                  from_tile_order,
+                                                  resolve_bwd, resolve_fwd,
+                                                  to_tile_order)
 from animals3d_tpu_torch.precision import compute_dtype
 
 
@@ -170,17 +175,51 @@ class _ResolveRows(torch.autograd.Function):
         return d_pf.to(g.dtype), None
 
 
-def resolve(attr, rast: Rast, v_clip, faces, face_attr=None):
-    """Fused barycentrics + attribute interpolation with one per-pixel row
-    gather (the JAX package's hybrid path: gather forward, kernel backward).
+class _ResolveRowsCM(torch.autograd.Function):
+    """rows[b, :, q] = pf[b, face_id − 1] at tile-order pixel q, channel-
+    major (B, R, T·TP) and zero on background (the counterpart of
+    `_resolve_rows_cm`): the resolve-rows kernel of `ops.resolve_cuda` (its
+    plain version on the CPU) forward; the backward lays the cotangent out
+    in raster order and runs the scatter-add kernel in the compute type of
+    the precision policy, as `_ResolveRows` does."""
+
+    @staticmethod
+    def forward(ctx, pf, face_id, resolution):
+        ctx.save_for_backward(face_id)
+        ctx.num_faces = pf.shape[1]
+        ctx.resolution = resolution
+        rows = resolve_fwd(pf.float().contiguous(), face_id, resolution)
+        return rows.to(pf.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        face_id, = ctx.saved_tensors
+        g_r = from_tile_order(g, ctx.resolution)
+        d_pf = resolve_bwd(g_r.to(compute_dtype()).contiguous(), face_id,
+                           ctx.num_faces)
+        return d_pf.to(g.dtype), None, None
+
+
+def resolve(attr, rast: Rast, v_clip, faces, face_attr=None,
+            rows: str = "gather"):
+    """Fused barycentrics + attribute interpolation with one row of a
+    per-face table per pixel.
 
     Clip positions and attributes pack into a per-face table (B, F, 3·C)
     (+ optional per-face `face_attr` (B, F, K) channels); each pixel
-    gathers its winner's row once and interpolates perspective-correctly.
-    attr: (B, V, A) or (V, A). Returns (uv (B,H,W,2), out (B,H,W,A)) plus
-    (B,H,W,K) if face_attr is given; all 0 on background. Differentiable
-    w.r.t. v_clip, attr and face_attr; the face assignment is fixed.
+    takes its winner's row once and interpolates perspective-correctly.
+    `rows` picks how: "gather" (the JAX package's default hybrid path) is
+    a row gather in raster order with the scatter-add kernel backward;
+    "kernel" (its `A3D_MXU_FWD=1` path) is the resolve-rows kernel, which
+    writes the rows channel-major in tile order, so the barycentric math
+    runs in tile order and `assemble` lays the results back out. The two
+    give the same values. attr: (B, V, A) or (V, A). Returns (uv (B,H,W,2),
+    out (B,H,W,A)) plus (B,H,W,K) if face_attr is given; all 0 on
+    background. Differentiable w.r.t. v_clip, attr and face_attr; the face
+    assignment is fixed.
     """
+    if rows not in ("gather", "kernel"):
+        raise ValueError(f"rows {rows!r}: want 'gather' or 'kernel'")
     B, H, W = rast.face_id.shape
     if attr.ndim == 2:
         attr = attr[None].expand(B, *attr.shape)
@@ -195,12 +234,28 @@ def resolve(attr, rast: Rast, v_clip, faces, face_attr=None):
         .reshape(B, Fn, 3 * C)
     if face_attr is not None:
         pf = torch.cat([pf, face_attr.to(pf.dtype)], -1)
-    rows = _ResolveRows.apply(
-        pf, fid.reshape(B, H * W).to(torch.int32).contiguous())
-    rT = rows.transpose(1, 2)                                    # (B, R, HW)
     dev = v_clip.device
+    fid_r = fid.reshape(B, H * W).to(torch.int32).contiguous()
     xs = (torch.arange(H * W, device=dev) % W).float() + 0.5
     ys = (torch.arange(H * W, device=dev) // W).float() + 0.5
+    keep = (fid > 0).reshape(B, 1, H * W)
+    if rows == "kernel":
+        if H % TILE_H or W % TILE_W:
+            raise ValueError(f"resolution {(H, W)} must be a multiple of "
+                             f"({TILE_H}, {TILE_W})")
+        rT = _ResolveRowsCM.apply(pf, fid_r, (H, W))             # (B, R, P)
+        # pixel centres and the foreground mask in the rows' tile order
+        xs, ys = (to_tile_order(a.reshape(1, H * W, 1), (H, W))[0, 0]
+                  for a in (xs, ys))
+        keep = to_tile_order(keep.transpose(1, 2), (H, W))
+
+        def layout(x, ch):                     # (B, ch, T·TP) → (B, H, W, ch)
+            return from_tile_order(x, (H, W)).reshape(B, H, W, ch)
+    else:
+        rT = _ResolveRows.apply(pf, fid_r).transpose(1, 2)       # (B, R, HW)
+
+        def layout(x, ch):                     # (B, ch, HW) → (B, H, W, ch)
+            return x.transpose(1, 2).reshape(B, H, W, ch)
 
     def vch(vtx, c):
         return rT[:, vtx * C + c]
@@ -228,11 +283,9 @@ def resolve(attr, rast: Rast, v_clip, faces, face_attr=None):
     l0p = 1.0 - u - v
     out = torch.stack([vch(0, 4 + c) * l0p + vch(1, 4 + c) * u
                        + vch(2, 4 + c) * v for c in range(nA)], 1)
-    keep = (fid > 0).reshape(B, 1, H * W)
 
-    def assemble(x, ch):                       # (B, ch, HW) → (B, H, W, ch)
-        x = torch.where(keep, x, torch.zeros_like(x))
-        return x.transpose(1, 2).reshape(B, H, W, ch)
+    def assemble(x, ch):
+        return layout(torch.where(keep, x, torch.zeros_like(x)), ch)
 
     uv = assemble(torch.stack([u, v], 1), 2)
     out = assemble(out, nA)

@@ -30,8 +30,30 @@ function as (a·px + b·py) + c with no fused multiply-add
 contracts the JAX package's coefficient math into FMAs, so against the
 JAX package a pixel on an edge shared by two faces may flip.)
 
-On a CPU tensor `visibility` runs the plain version; on a CUDA tensor it
-launches the kernel (built from source with `nvcc` at first use into
+Two more kernels compute the same function (`variant` of `prepare` and
+`rasterize_cuda`, the counterpart of the JAX package's `A3D_RASTER_V`):
+
+  * variant 4, `visibility_v4` (`csrc/raster_vis_v4.cu`, port of
+    `_raster_kernel_v4`): K1's lists and visiting order with one thread
+    per face; each face tests only the pixels of its cull box (`fbox`, a
+    bound of every pixel centre its float32 edge tests can accept) and
+    keeps each pixel's winner as a 64-bit (z, id) key in shared memory
+    with `atomicMin`. Its outputs equal K1's bit for bit, flags included,
+    so its plain version is `visibility_reference`;
+  * variant 6, `visibility_v6` (`csrc/raster_vis_v6.cu`, port of
+    `_raster_kernel_v6`): per (image, tile), the overlapping 128-face
+    sub-blocks ("units") in ascending quantized z-min, at most
+    S = min(128, U, `v6_cap`) of them; the occlusion skip is per unit, the
+    flags per list slot (scattered back to chunks by `chunk_flags_v6`),
+    and a tile with more than S units scans every sub-block with no skip.
+    Its plain version is `visibility_v6_reference`. Its z and face_id
+    equal K1's wherever the skips are conservative; they are not where the
+    plane equation's float32 rounding puts a face's depth below the
+    least vertex depth its chunk or unit is skipped by, and there the two
+    variants may skip different faces.
+
+On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
+launches its kernel (built from source with `nvcc` at first use into
 `_build/`) or raises.
 """
 from __future__ import annotations
@@ -104,22 +126,41 @@ def _untile(x, B, height, width):
         .reshape(B, height, width)
 
 
-def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024):
-    """Everything the visibility kernel reads (see the module docstring).
+def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
+            nsub: int = NSUB, variant: int = 3, v6_cap: int = 128):
+    """Everything the visibility kernel of `variant` reads (see the module
+    docstring).
 
     v_clip (B, V, 4) clip positions; v_pos0 (V, 3) batch-0 world positions
-    (they key the shared Morton block order); faces (F, 3); f_valid (F,).
-    Returns a dict: table (B, nch, 12, chunk) f32 rows [a0 a1 a2 az | b0 b1
-    b2 bz | c0 c1 c2 cz] so that e = (a·px + b·py) + c; orig (nch·chunk,)
-    int32 original face id per sorted slot; order (B, T, nch) int32 chunk
-    ids front to back (overlapping ones first); counts (B, T) int32;
-    masks (B, T, nch) int32 sub-block overlap bits by chunk id; zlo
-    (B, nch) int32 quantized chunk z-min; nsub.
+    (they key the shared Morton block order); faces (F, 3); f_valid (F,);
+    nsub sub-blocks per chunk (the JAX package's `A3D_NSUB`; 1 when it
+    does not divide `chunk`). Returns a dict: table (B, nch, 12, chunk) f32
+    rows [a0 a1 a2 az | b0 b1 b2 bz | c0 c1 c2 cz] so that
+    e = (a·px + b·py) + c; orig (nch·chunk,) int32 original face id per
+    sorted slot; order (B, T, nch) int32 chunk ids front to back
+    (overlapping ones first); counts (B, T) int32; masks (B, T, nch) int32
+    sub-block overlap bits by chunk id; zlo (B, nch) int32 quantized chunk
+    z-min; nsub. Variant 4 adds fbox (B, nch·chunk, 4) int16 per-face cull
+    boxes (`cull_boxes`); variant 6 adds zu (B, U) int32 quantized unit
+    z-min, units (B, T, S) int32 unit lists, counts6 (B, T) int32 and S.
+    Raises ValueError for a variant that cannot run on these shapes (the
+    JAX package falls back to variant 3 there).
     """
     height, width = resolution
     if height % TILE_H or width % TILE_W:
         raise ValueError(f"resolution {resolution} must be a multiple of "
                          f"({TILE_H}, {TILE_W})")
+    if variant not in (3, 4, 6):
+        raise ValueError(f"variant {variant}: want 3, 4 or 6")
+    if not 1 <= nsub <= 16:
+        raise ValueError(f"nsub {nsub}: want 1 to 16")
+    nsub = nsub if chunk % nsub == 0 and chunk >= nsub else 1
+    if variant == 4 and (chunk // nsub) % BLOCK:
+        raise ValueError(f"variant 4 needs sub-blocks of a multiple of "
+                         f"{BLOCK} faces; chunk {chunk} / nsub {nsub}")
+    if variant == 6 and nsub == 1:
+        raise ValueError(f"variant 6 needs more than one sub-block per "
+                         f"chunk; chunk {chunk}, nsub {nsub}")
     dev = v_clip.device
     B = v_clip.shape[0]
     Fn = faces.shape[0]
@@ -196,7 +237,6 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024):
     # ---- per-(tile, chunk) lists + sub-block masks ----
     nty, ntx = height // TILE_H, width // TILE_W
     T = nty * ntx
-    nsub = NSUB if chunk % NSUB == 0 and chunk >= NSUB else 1
     sub = chunk // nsub
 
     def box(v, fill, red):
@@ -223,37 +263,161 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024):
                        torch.full_like(overlap, _INT_MAX, dtype=torch.int32))
     order = torch.argsort(zkey, dim=-1, stable=True).to(torch.int32)
     counts = overlap.sum(-1).to(torch.int32)
-    return {"table": table, "orig": orig.to(torch.int32).contiguous(),
-            "order": order.contiguous(), "counts": counts.contiguous(),
-            "masks": masks.contiguous(), "zlo": zlo.contiguous(),
-            "nsub": nsub}
+    out = {"table": table, "orig": orig.to(torch.int32).contiguous(),
+           "order": order.contiguous(), "counts": counts.contiguous(),
+           "masks": masks.contiguous(), "zlo": zlo.contiguous(),
+           "nsub": nsub}
+    if variant == 4:
+        out["fbox"] = cull_boxes(table, resolution)
+    if variant == 6:
+        # units (sub-blocks) per tile in ascending (quantized z-min, unit
+        # id): the stable sort of `_rasterize_pallas_T` (:843-858), without
+        # its slab gather — the kernel reads a unit's columns of `table`
+        U = nch * nsub
+        ovu = ov_sub.reshape(B, T, U)
+        zu = _zq(zmin.reshape(B, U, sub).amin(-1))          # (B, U)
+        S = max(1, min(128, U, int(v6_cap)))
+        ukey = torch.where(ovu, zu[:, None, :],
+                           torch.full_like(ovu, _INT_MAX, dtype=torch.int32))
+        units = torch.argsort(ukey, dim=-1, stable=True)[..., :S]
+        out.update(zu=zu.contiguous(),
+                   units=units.to(torch.int32).contiguous(),
+                   counts6=ovu.sum(-1).to(torch.int32).contiguous(), S=S)
+    return out
 
 
-def _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub):
-    B, nch, rows, chunk = table.shape
+def cull_boxes(table, resolution):
+    """Per face (sorted slot) and image, the pixel index ranges
+    [x0, x1, y0, y1] (B, nch·chunk, 4) int16 outside which the face's
+    float32 edge tests accept no pixel centre; empty when x0 > x1 or
+    y0 > y1. Variant 4's kernel tests only the pixels of its box.
+
+    Derived from the coefficients themselves, in float64, so that the cull
+    cannot change a winner. (A box of the vertices is not enough: the
+    constant c = x1·y2 − x2·y1 of an edge is rounded to float32, which on a
+    face a fraction of a pixel across can move the edge by more than the
+    face's size.) (a·px + b·py) + c evaluated in float32 differs from its
+    exact value by at most 4·2^-24·(|a|·W + |b|·H + |c|); so a pixel the
+    kernel accepts satisfies a·x + b·y + c + E ≥ 0 with twice that bound E,
+    for all three edges. Where the three edge normals span the plane
+    positively, that region lies in the triangle of the three lines'
+    pairwise intersections; elsewhere the box is the whole screen. A face
+    with an edge of zero normal and a negative constant (the invalid
+    faces' (0, 0, −1)) covers nothing."""
     height, width = resolution
-    T = (height // TILE_H) * (width // TILE_W)
-    want = {"table": (table, torch.float32, (B, nch, 12, chunk)),
-            "orig": (orig, torch.int32, (nch * chunk,)),
-            "order": (order, torch.int32, (B, T, nch)),
-            "counts": (counts, torch.int32, (B, T)),
-            "masks": (masks, torch.int32, (B, T, nch)),
-            "zlo": (zlo, torch.int32, (B, nch))}
-    for name, (t, dtype, shape) in want.items():
+    B, nch, _rows, chunk = table.shape
+    t = table.permute(0, 1, 3, 2).reshape(B, nch * chunk, 12).double()
+    a, b, c = t[..., 0:3], t[..., 4:7], t[..., 8:11]
+    cp = c + 2.0 ** -21 * (a.abs() * width + b.abs() * height + c.abs()) \
+        + 1e-30
+    i, j = [1, 2, 0], [2, 0, 1]          # the lines meeting at corner k
+    ai, bi, ci = a[..., i], b[..., i], cp[..., i]
+    aj, bj, cj = a[..., j], b[..., j], cp[..., j]
+    det = ai * bj - aj * bi              # cross products of the normals
+    sdet = torch.where(det == 0, torch.ones_like(det), det)
+    x = (bi * cj - bj * ci) / sdet
+    y = (aj * ci - ai * cj) / sdet
+    # float64 error of the corners, padded far above its 1e-16 scale
+    ex = 1e-3 + 1e-12 * ((bi * cj).abs() + (bj * ci).abs()) / sdet.abs()
+    ey = 1e-3 + 1e-12 * ((aj * ci).abs() + (ai * cj).abs()) / sdet.abs()
+    spans = ((det > 0).all(-1) | (det < 0).all(-1)) \
+        & torch.isfinite(x).all(-1) & torch.isfinite(y).all(-1) \
+        & torch.isfinite(ex).all(-1) & torch.isfinite(ey).all(-1)
+    x0 = torch.ceil((x - ex).amin(-1) - 0.5)
+    x1 = torch.floor((x + ex).amax(-1) - 0.5)
+    y0 = torch.ceil((y - ey).amin(-1) - 0.5)
+    y1 = torch.floor((y + ey).amax(-1) - 0.5)
+    full = ~spans
+    x0 = torch.where(full, torch.zeros_like(x0), x0)
+    x1 = torch.where(full, torch.full_like(x1, width - 1), x1)
+    y0 = torch.where(full, torch.zeros_like(y0), y0)
+    y1 = torch.where(full, torch.full_like(y1, height - 1), y1)
+    none = ((a == 0) & (b == 0) & (c < 0)).any(-1)
+    x0 = torch.where(none, torch.full_like(x0, width), x0)
+    x1 = torch.where(none, torch.full_like(x1, -1), x1)
+    box = torch.stack([x0.clamp(-1, width), x1.clamp(-1, width),
+                       y0.clamp(-1, height), y1.clamp(-1, height)], -1)
+    return box.to(torch.int16).contiguous()
+
+
+def _check(tensors, device):
+    """tensors: name → (tensor, dtype, shape); each must match, be
+    contiguous and lie on `device`."""
+    for name, (t, dtype, shape) in tensors.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != table.device:
-            raise ValueError(f"{name} is on {t.device}, table on "
-                             f"{table.device}")
-    if height % TILE_H or width % TILE_W or chunk % nsub:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, table on {device}")
+
+
+def _check_table(table, orig, resolution, nsub):
+    B, nch, rows, chunk = table.shape
+    height, width = resolution
+    if table.dtype != torch.float32 or rows != 12:
+        raise ValueError(f"table: want float32 (B, nch, 12, chunk), got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    _check({"table": (table, torch.float32, tuple(table.shape)),
+            "orig": (orig, torch.int32, (nch * chunk,))}, table.device)
+    if height % TILE_H or width % TILE_W or nsub < 1 or chunk % nsub:
         raise ValueError(f"bad resolution {resolution} / chunk {chunk} / "
                          f"nsub {nsub}")
     if (chunk // nsub) * 13 * 4 > 227 * 1024:
         raise ValueError(f"sub-block of {chunk // nsub} faces exceeds "
                          "shared memory")
+    return B, nch, chunk, (height // TILE_H) * (width // TILE_W)
+
+
+def _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub):
+    B, nch, _chunk, T = _check_table(table, orig, resolution, nsub)
+    _check({"order": (order, torch.int32, (B, T, nch)),
+            "counts": (counts, torch.int32, (B, T)),
+            "masks": (masks, torch.int32, (B, T, nch)),
+            "zlo": (zlo, torch.int32, (B, nch))}, table.device)
+
+
+def _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub):
+    B, nch, _chunk, T = _check_table(table, orig, resolution, nsub)
+    if nsub < 2 or units.ndim != 3:
+        raise ValueError(f"variant 6: nsub {nsub}, units {tuple(units.shape)}")
+    _check({"units": (units, torch.int32, (B, T, units.shape[-1])),
+            "counts6": (counts6, torch.int32, (B, T)),
+            "zu": (zu, torch.int32, (B, nch * nsub))}, table.device)
+
+
+def _subblock_winners(table, orig, px, py, b, t, cid, g, sub):
+    """Per pixel of tile t[n] of image b[n], the lexicographic minimum of
+    (z, original id + 1) over the faces of sub-block g[n] of chunk cid[n]
+    that cover it (z = BIG where none does): gz, gi, each (n, TP)."""
+    chunk = table.shape[-1]
+    slot = (g * sub)[:, None] + torch.arange(sub, device=table.device)
+    cf = table[b[:, None], cid[:, None], :, slot]        # (n, sub, 12)
+    ids = orig[cid[:, None] * chunk + slot]               # (n, sub)
+    X, Y = px[t][:, :, None], py[t][:, :, None]
+
+    def ev(i):
+        return affine(cf[:, None, :, i], cf[:, None, :, i + 4],
+                      cf[:, None, :, i + 8], X, Y)
+    m = torch.minimum(torch.minimum(ev(0), ev(1)), ev(2))
+    zcand = torch.where(m >= 0, ev(3), torch.full_like(m, BIG))
+    gz = zcand.amin(-1)
+    gid = torch.where(zcand <= gz[..., None], ids[:, None, :],
+                      torch.full_like(ids[:, None, :], _INT_MAX)).amin(-1)
+    return gz, gid + 1
+
+
+def _take(gz, gi, za, ia):
+    """The running winner (za, ia) after a candidate (gz, gi): smaller z
+    wins, exactly equal z goes to the smaller id. Returns (z, id, took)."""
+    take = (gz < za) | ((gz == za) & (za < BIG) & (gi < ia))
+    return torch.where(take, gz, za), torch.where(take, gi, ia), take
+
+
+def _outputs(z, fid, B, height, width):
+    z = torch.where(fid > 0, z, torch.zeros_like(z))
+    return _untile(z, B, height, width), _untile(fid, B, height, width)
 
 
 def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
@@ -266,7 +430,8 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
     the chunk's sub-blocks, exactly as a kernel block does. If `stats` is
     given it receives `visits`, an int64 (n, 4) tensor of the live
     (image, tile, chunk, sub-block) visits, those not skipped by the
-    occlusion test or the sub-block mask."""
+    occlusion test or the sub-block mask. It is the plain version of
+    variant 4's kernel too, whose outputs are the same."""
     _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub)
     height, width = resolution
     B, nch, _, chunk = table.shape
@@ -280,7 +445,6 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
     counts_f = counts.reshape(-1).long()
     order_f = order.reshape(B * T, nch).long()
     masks_f = masks.reshape(B * T, nch)
-    sub_ar = torch.arange(sub, device=dev)
     visits = []
     for k in range(int(counts_f.max()) if counts_f.numel() else 0):
         r = torch.nonzero(counts_f > k)[:, 0]
@@ -295,41 +459,93 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
             if act.numel() == 0:
                 continue
             ba, ca = b[act], cid[act]
+            ga = torch.full_like(ca, g)
             if stats is not None:
-                visits.append(torch.stack(
-                    [ba, t[act], ca, torch.full_like(ca, g)], 1))
-            cf = table[ba, ca, :, g * sub:(g + 1) * sub]   # (Ra, 12, sub)
-            ids = orig[(ca * chunk + g * sub)[:, None] + sub_ar]
-            X = px[t[act]][:, :, None]
-            Y = py[t[act]][:, :, None]
-
-            def ev(i):
-                return affine(cf[:, i, None, :], cf[:, i + 4, None, :],
-                              cf[:, i + 8, None, :], X, Y)
-            m = torch.minimum(torch.minimum(ev(0), ev(1)), ev(2))
-            zcand = torch.where(m >= 0, ev(3), torch.full_like(m, BIG))
-            gz = zcand.amin(-1)
-            gid = torch.where(zcand <= gz[..., None], ids[:, None, :],
-                              torch.full_like(ids[:, None, :], _INT_MAX)) \
-                .amin(-1)
-            gi = gid + 1
-            za, ia = zr[act], idr[act]
-            take = (gz < za) | ((gz == za) & (za < BIG) & (gi < ia))
-            zr[act] = torch.where(take, gz, za)
-            idr[act] = torch.where(take, gi, ia)
-            took[act] |= take
+                visits.append(torch.stack([ba, t[act], ca, ga], 1))
+            gz, gi = _subblock_winners(table, orig, px, py, ba, t[act], ca,
+                                       ga, sub)
+            zr[act], idr[act], tk = _take(gz, gi, zr[act], idr[act])
+            took[act] |= tk
         z[r], fid[r] = zr, idr
         flags[r, cid] = took.any(1).to(torch.uint8)
     if stats is not None:
         stats["visits"] = torch.cat(visits) if visits else \
             torch.zeros((0, 4), dtype=torch.int64, device=dev)
-    z = torch.where(fid > 0, z, torch.zeros_like(z))
-    return (_untile(z, B, height, width), _untile(fid, B, height, width),
-            flags.reshape(B, T, nch))
+    return (*_outputs(z, fid, B, height, width), flags.reshape(B, T, nch))
+
+
+def visibility_v6_reference(table, orig, units, counts6, zu, resolution,
+                            nsub: int):
+    """Plain PyTorch version of variant 6's kernel (same signature and
+    outputs): z, face_id as `visibility_reference`, and slot flags
+    (B, T, S) uint8 — whether any pixel took a face from the unit in list
+    slot k (0 where the unit was skipped).
+
+    A tile with at most S units walks its list front to back and skips a
+    unit whose quantized z-min is behind every pixel's winner. A tile with
+    more scans every sub-block of every chunk with no skip and no flags
+    (`_raster_kernel_v6` :603-628); `chunk_flags_v6` gives it the overlap
+    row."""
+    _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub)
+    height, width = resolution
+    B, nch, _, chunk = table.shape
+    S = units.shape[-1]
+    dev = table.device
+    T = (height // TILE_H) * (width // TILE_W)
+    sub = chunk // nsub
+    px, py = tile_pixels(height, width, dev)
+    z = torch.full((B * T, TP), BIG, device=dev)
+    fid = torch.zeros((B * T, TP), dtype=torch.int32, device=dev)
+    sflags = torch.zeros((B * T, S), dtype=torch.uint8, device=dev)
+    counts_f = counts6.reshape(-1).long()
+    units_f = units.reshape(B * T, S).long()
+    dense = counts_f <= S
+    n_dense = int(torch.where(dense, counts_f, 0).max()) \
+        if counts_f.numel() else 0
+    for k in range(n_dense):
+        r = torch.nonzero(dense & (counts_f > k))[:, 0]
+        unit = units_f[r, k]
+        b, t = r // T, r % T
+        zr, idr = z[r], fid[r]
+        act = torch.nonzero(zu[b, unit] <= _zq(zr.amax(1)))[:, 0]
+        if act.numel() == 0:
+            continue
+        ua = unit[act]
+        gz, gi = _subblock_winners(table, orig, px, py, b[act], t[act],
+                                   ua // nsub, ua % nsub, sub)
+        zr[act], idr[act], tk = _take(gz, gi, zr[act], idr[act])
+        z[r], fid[r] = zr, idr
+        sflags[r[act], k] = tk.any(1).to(torch.uint8)
+    r = torch.nonzero(~dense)[:, 0]
+    if r.numel():
+        b, t = r // T, r % T
+        zr, idr = z[r], fid[r]
+        for cid in range(nch):
+            for g in range(nsub):
+                gz, gi = _subblock_winners(
+                    table, orig, px, py, b, t, torch.full_like(b, cid),
+                    torch.full_like(b, g), sub)
+                zr, idr, _tk = _take(gz, gi, zr, idr)
+        z[r], fid[r] = zr, idr
+    return (*_outputs(z, fid, B, height, width), sflags.reshape(B, T, S))
+
+
+def chunk_flags_v6(slot_flags, units, counts6, masks, nsub: int):
+    """Variant 6's per-(image, tile, chunk) flags (B, T, nch) uint8, the
+    contract of K1's: each slot's flag goes to its unit's chunk (by max);
+    a tile with more than S units takes its overlap row; the result is
+    ANDed with the overlap (`_rasterize_pallas_T` :874-879)."""
+    S = units.shape[-1]
+    won = torch.zeros(masks.shape, dtype=torch.int32, device=masks.device)
+    won.scatter_reduce_(2, (units // nsub).long(), slot_flags.to(torch.int32),
+                        "amax")
+    overlap = masks > 0
+    won = torch.where((counts6 <= S)[..., None], won > 0, overlap) & overlap
+    return won.to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build, bind, launch
+# the CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -385,47 +601,67 @@ def library():
         lib = ctypes.CDLL(library_path())
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         lib.raster_vis_launch.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+        lib.raster_vis_v4_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+        lib.raster_vis_v6_launch.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
         lib.fused_mlp_fwd_launch.argtypes = [ptr] * 6 + [i64] + [i32] * 4 \
             + [ptr]
         lib.fused_mlp_bwd_launch.argtypes = [ptr] * 9 + [i64] + [i32] * 4 \
             + [ptr]
         lib.resolve_bwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        for fn in (lib.raster_vis_launch, lib.fused_mlp_fwd_launch,
-                   lib.fused_mlp_bwd_launch,
-                   lib.resolve_bwd_launch):
+        lib.resolve_fwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        for fn in (lib.raster_vis_launch, lib.raster_vis_v4_launch,
+                   lib.raster_vis_v6_launch, lib.fused_mlp_fwd_launch,
+                   lib.fused_mlp_bwd_launch, lib.resolve_bwd_launch,
+                   lib.resolve_fwd_launch):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
+def _launch(name, fn, *args):
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _device(table):
+    dev = table.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _outputs_cuda(B, resolution, nflags, device):
+    """The visibility kernels' outputs: z and face_id (B, H, W), which every
+    kernel writes in full, and zeroed flags (B, T, nflags) uint8."""
+    height, width = resolution
+    T = (height // TILE_H) * (width // TILE_W)
+    z = torch.empty((B, height, width), dtype=torch.float32, device=device)
+    fid = torch.empty((B, height, width), dtype=torch.int32, device=device)
+    flags = torch.zeros((B, T, nflags), dtype=torch.uint8, device=device)
+    return z, fid, flags
+
+
 def visibility(table, orig, order, counts, masks, zlo, resolution,
                nsub: int):
-    """Visibility on the tensors' device: the CUDA kernel for CUDA
+    """Visibility on the tensors' device: the CUDA kernel K1 for CUDA
     tensors, `visibility_reference` for CPU tensors. Adds one to
     `visibility.launches` per kernel launch."""
-    dev = table.device
-    if dev.type == "cpu":
+    if _device(table).type == "cpu":
         return visibility_reference(table, orig, order, counts, masks, zlo,
                                     resolution, nsub)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub)
     height, width = resolution
     B, nch, _, chunk = table.shape
     T = (height // TILE_H) * (width // TILE_W)
-    lib = library()
-    z = torch.empty((B, height, width), dtype=torch.float32, device=dev)
-    fid = torch.empty((B, height, width), dtype=torch.int32, device=dev)
-    flags = torch.zeros((B, T, nch), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raster_vis_launch(
-            table.data_ptr(), orig.data_ptr(), order.data_ptr(),
-            counts.data_ptr(), masks.data_ptr(), zlo.data_ptr(),
-            z.data_ptr(), fid.data_ptr(), flags.data_ptr(),
-            B, T, width // TILE_W, nch, chunk, nsub, height, width, stream)
-    if err != 0:
-        raise RuntimeError(f"raster_vis kernel launch failed: cudaError {err}")
+    z, fid, flags = _outputs_cuda(B, resolution, nch, table.device)
+    _launch("raster_vis", library().raster_vis_launch, table, orig, order,
+            counts, masks, zlo, z, fid, flags, B, T, width // TILE_W, nch,
+            chunk, nsub, height, width)
     visibility.launches += 1
     return z, fid, flags
 
@@ -433,14 +669,78 @@ def visibility(table, orig, order, counts, masks, zlo, resolution,
 visibility.launches = 0
 
 
+def visibility_v4(table, orig, order, counts, masks, zlo, fbox, resolution,
+                  nsub: int):
+    """Variant 4 (face-parallel) visibility: the CUDA kernel K2 for CUDA
+    tensors, `visibility_reference` for CPU tensors; the same outputs as
+    `visibility`. fbox: `cull_boxes(table, resolution)`. Adds one to
+    `visibility_v4.launches` per kernel launch."""
+    _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub)
+    B, nch, _, chunk = table.shape
+    _check({"fbox": (fbox, torch.int16, (B, nch * chunk, 4))}, table.device)
+    if _device(table).type == "cpu":
+        return visibility_reference(table, orig, order, counts, masks, zlo,
+                                    resolution, nsub)
+    height, width = resolution
+    T = (height // TILE_H) * (width // TILE_W)
+    z, fid, flags = _outputs_cuda(B, resolution, nch, table.device)
+    _launch("raster_vis_v4", library().raster_vis_v4_launch, table, orig,
+            order, counts, masks, zlo, fbox, z, fid, flags, B, T,
+            width // TILE_W, nch, chunk, nsub, height, width)
+    visibility_v4.launches += 1
+    return z, fid, flags
+
+
+visibility_v4.launches = 0
+
+
+def visibility_v6(table, orig, units, counts6, zu, resolution, nsub: int):
+    """Variant 6 (dense unit lists) visibility: the CUDA kernel K3 for CUDA
+    tensors, `visibility_v6_reference` for CPU tensors; returns z,
+    face_id and slot flags (B, T, S) uint8. Adds one to
+    `visibility_v6.launches` per kernel launch."""
+    if _device(table).type == "cpu":
+        return visibility_v6_reference(table, orig, units, counts6, zu,
+                                       resolution, nsub)
+    _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub)
+    height, width = resolution
+    B, nch, _, chunk = table.shape
+    S = units.shape[-1]
+    T = (height // TILE_H) * (width // TILE_W)
+    z, fid, sflags = _outputs_cuda(B, resolution, S, table.device)
+    _launch("raster_vis_v6", library().raster_vis_v6_launch, table, orig,
+            units, counts6, zu, z, fid, sflags, B, T, width // TILE_W, nch,
+            chunk, nsub, S, height, width)
+    visibility_v6.launches += 1
+    return z, fid, sflags
+
+
+visibility_v6.launches = 0
+
+
 def rasterize_cuda(v_clip, faces, f_valid, resolution, v_pos0,
-                   chunk: int = 1024) -> Rast:
-    """Rasterize (B, V, 4) clip-space vertices with the tile kernel (the
-    counterpart of `rasterize_pallas(..., fv_rows=...)`). v_pos0: (V, 3)
-    batch-0 world positions for the shared face order."""
-    prep = prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk)
-    z, fid, flags = visibility(prep["table"], prep["orig"], prep["order"],
-                               prep["counts"], prep["masks"], prep["zlo"],
-                               resolution, prep["nsub"])
+                   chunk: int = 1024, variant: int = 3, v6_cap: int = 128,
+                   nsub: int = NSUB) -> Rast:
+    """Rasterize (B, V, 4) clip-space vertices with the tile kernel of
+    `variant` (3: K1, 4: K2, 6: K3; the counterpart of
+    `rasterize_pallas(..., fv_rows=...)` under `A3D_RASTER_V`, with
+    `v6_cap` for `A3D_V6_CAP` and `nsub` for `A3D_NSUB`). v_pos0: (V, 3)
+    batch-0 world positions for the shared face order. Raises ValueError
+    for a variant that cannot run on these shapes."""
+    prep = prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk, nsub,
+                   variant, v6_cap)
+    common = (prep["table"], prep["orig"])
+    lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
+    if variant == 3:
+        z, fid, flags = visibility(*common, *lists, resolution, prep["nsub"])
+    elif variant == 4:
+        z, fid, flags = visibility_v4(*common, *lists, prep["fbox"],
+                                      resolution, prep["nsub"])
+    else:
+        z, fid, sflags = visibility_v6(*common, prep["units"],
+                                       prep["counts6"], prep["zu"],
+                                       resolution, prep["nsub"])
+        flags = chunk_flags_v6(sflags, prep["units"], prep["counts6"],
+                               prep["masks"], prep["nsub"])
     uv = compute_barycentrics(v_clip, faces, fid, resolution)
     return Rast(uv=uv, z=z, face_id=fid, flags=flags)

@@ -1,7 +1,8 @@
-"""Resolve backward: a hand-written CUDA kernel for Hopper
-(`csrc/resolve_bwd.cu`) and its plain PyTorch version.
+"""Resolve rows, forward and backward: hand-written CUDA kernels for
+Hopper (`csrc/resolve_fwd.cu`, `csrc/resolve_bwd.cu`) and their plain
+PyTorch versions.
 
-Port of the Pallas kernel `_resolve_bwd_kernel`
+`resolve_bwd` ports the Pallas kernel `_resolve_bwd_kernel`
 (`animals3d_tpu/ops/rasterize_pallas.py:1097`, launched by
 `resolve_grad_pallas`): the transpose of the per-pixel row gather of
 `ops.rasterize.resolve`,
@@ -15,8 +16,18 @@ kernel is bound by bytes; it scatters with float32 atomics, so where a
 face collects several pixels the order of the additions changes from run
 to run.
 
-On CPU tensors `resolve_bwd` runs the plain version; on CUDA tensors it
-launches the kernel or raises.
+`resolve_fwd` ports `_resolve_fwd_kernel` (:1269, launched by
+`resolve_rows_pallas` :1326): the rows pf[b, face_id − 1] of every pixel,
+written channel-major in tile order (B, R, T·TP), the layout the tile-order
+branch of `resolve` consumes. On the TPU it is a one-hot matrix product
+over the rasterizer's winner-chunk lists, because the TPU gathers rows
+slowly; here a pixel's winner id addresses its row directly, so the kernel
+needs neither the winner-chunk lists nor the flags. Background rows are
+zero (the JAX contract lets them alias face 0; `resolve` masks them
+anyway).
+
+On CPU tensors each wrapper runs its plain version; on CUDA tensors it
+launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -64,20 +75,91 @@ def resolve_bwd(g, face_id, num_faces: int):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check(g, face_id, num_faces)
-    from animals3d_tpu_torch.ops.rasterize_cuda import library
-    lib = library()
+    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     B, P, R = g.shape
     out = torch.zeros((B, num_faces, R), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.resolve_bwd_launch(
-            g.data_ptr(), face_id.data_ptr(), out.data_ptr(), B, P, R,
-            num_faces, int(g.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"resolve_bwd kernel launch failed: cudaError "
-                           f"{err}")
+    _launch("resolve_bwd", library().resolve_bwd_launch, g, face_id, out, B,
+            P, R, num_faces, int(g.dtype == torch.bfloat16))
     resolve_bwd.launches += 1
     return out
 
 
 resolve_bwd.launches = 0
+
+
+TILE_H, TILE_W = 16, 32          # the visibility kernels' pixel tiles
+TP = TILE_H * TILE_W
+
+
+def _check_fwd(pf, face_id, resolution):
+    height, width = resolution
+    if height % TILE_H or width % TILE_W:
+        raise ValueError(f"resolution {resolution} must be a multiple of "
+                         f"({TILE_H}, {TILE_W})")
+    if pf.ndim != 3 or pf.dtype != torch.float32 or pf.shape[1] == 0:
+        raise ValueError(f"pf: want float32 (B, F, R), got {pf.dtype} "
+                         f"{tuple(pf.shape)}")
+    want = (pf.shape[0], height * width)
+    if face_id.dtype != torch.int32 or tuple(face_id.shape) != want:
+        raise ValueError(f"face_id: want int32 {want}, got {face_id.dtype} "
+                         f"{tuple(face_id.shape)}")
+    if not pf.is_contiguous() or not face_id.is_contiguous():
+        raise ValueError("pf and face_id must be contiguous")
+    if face_id.device != pf.device:
+        raise ValueError(f"face_id is on {face_id.device}, pf on {pf.device}")
+
+
+def to_tile_order(x, resolution):
+    """(B, H·W, R) raster-order rows → (B, R, T·TP) channel-major in tile
+    order (tile-major over 16×32 tiles, rows within a tile)."""
+    height, width = resolution
+    B, _P, R = x.shape
+    nty, ntx = height // TILE_H, width // TILE_W
+    return x.reshape(B, nty, TILE_H, ntx, TILE_W, R) \
+        .permute(0, 5, 1, 3, 2, 4).reshape(B, R, height * width)
+
+
+def from_tile_order(x, resolution):
+    """The inverse of `to_tile_order`: (B, R, T·TP) → (B, H·W, R)."""
+    height, width = resolution
+    B, R, _P = x.shape
+    nty, ntx = height // TILE_H, width // TILE_W
+    return x.reshape(B, R, nty, ntx, TILE_H, TILE_W) \
+        .permute(0, 2, 4, 3, 5, 1).reshape(B, height * width, R)
+
+
+def resolve_fwd_reference(pf, face_id, resolution):
+    """Plain PyTorch version of `resolve_fwd`: an index into pf and the
+    permute to tile order, background rows zero."""
+    _check_fwd(pf, face_id, resolution)
+    B, F, R = pf.shape
+    fg = (face_id > 0) & (face_id <= F)
+    sel = torch.clamp(face_id.long() - 1, 0, F - 1)
+    rows = pf[torch.arange(B, device=pf.device)[:, None], sel]   # (B, P, R)
+    rows = torch.where(fg[..., None], rows, torch.zeros((), device=pf.device))
+    return to_tile_order(rows, resolution).contiguous()
+
+
+def resolve_fwd(pf, face_id, resolution):
+    """Resolve rows (B, R, T·TP) float32, channel-major in tile order, from
+    per-face rows pf (B, F, R) float32 and 1-based winner ids face_id
+    (B, H·W) int32 in raster order (0 = background, whose rows are zero).
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Adds one to `resolve_fwd.launches` per kernel launch."""
+    dev = pf.device
+    if dev.type == "cpu":
+        return resolve_fwd_reference(pf, face_id, resolution)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_fwd(pf, face_id, resolution)
+    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
+    height, width = resolution
+    B, F, R = pf.shape
+    out = torch.empty((B, R, height * width), dtype=torch.float32, device=dev)
+    _launch("resolve_fwd", library().resolve_fwd_launch, pf, face_id, out, B,
+            F, R, height, width)
+    resolve_fwd.launches += 1
+    return out
+
+
+resolve_fwd.launches = 0

@@ -2,9 +2,10 @@
 `animals3d_tpu.render.render`, for the modes the MagicPony forward asks
 for — `shaded` and `dino_pred` — at spp = 1).
 
-Rasterize with the tile kernel (`ops.rasterize_cuda`; its plain version on
-the CPU), resolve barycentrics and interpolated attributes with one
-per-pixel gather, shade with the texture MLP and a directional light,
+Rasterize with a tile kernel (`ops.rasterize_cuda`, `raster_variant` 3, 4
+or 6; its plain version on the CPU), resolve barycentrics and interpolated
+attributes with one row per pixel (`resolve_rows` "gather" or "kernel",
+see `ops.rasterize.resolve`), shade with the texture MLP and a directional light,
 composite over the background and antialias silhouettes. Textures and
 DINO features are sampled at canonical (prior-mesh) positions, so
 appearance is pose-invariant. `shaded` keeps RGBA: its alpha is the
@@ -35,9 +36,13 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
                 render_modes: Sequence[str] = ("shaded",),
                 prior_mesh: Optional[Mesh] = None,
                 dino_fn: Optional[Callable] = None,
-                two_sided_shading: bool = True) -> dict:
+                two_sided_shading: bool = True, raster_variant: int = 3,
+                resolve_rows: str = "gather") -> dict:
     """mtx_in (B, 4, 4) mvp; w2c (B, 4, 4); campos (B, 3); background
-    (B, H, W, 3) or None. Returns mode → (B, C, H, W)."""
+    (B, H, W, 3) or None. `raster_variant` and `resolve_rows` select the
+    visibility kernel and the resolve path (the JAX package's
+    `A3D_RASTER_V` and `A3D_MXU_FWD`); the defaults are its defaults.
+    Returns mode → (B, C, H, W)."""
     if spp != 1:
         raise NotImplementedError("supersampling (spp > 1) is not ported")
     for key in render_modes:
@@ -50,7 +55,7 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
     faces = mesh.t_pos_idx
     v_clip = xfm_points(mesh.v_pos, mtx_in)                   # (B, V, 4)
     rast = rasterize_cuda(v_clip, faces, mesh.f_valid, (H, W),
-                          v_pos0=mesh.v_pos[0])
+                          v_pos0=mesh.v_pos[0], variant=raster_variant)
     mask = rast.mask[..., None].to(v_clip.dtype)
 
     # ---- interpolated attribute buffers ----
@@ -68,7 +73,8 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
     inv = torch.where(mesh.f_valid[None], inv, torch.zeros_like(inv))
     fn = torch.stack([nx * inv, ny * inv, nz * inv], -1)
     _uv, fused, gb_geo_normal = resolve(torch.cat(chans, -1), rast, v_clip,
-                                        faces, face_attr=fn)
+                                        faces, face_attr=fn,
+                                        rows=resolve_rows)
     gb_pos = fused[..., 0:3]
     gb_normal = fused[..., 3:6]
     gb_tex_pos = fused[..., 6:9]

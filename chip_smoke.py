@@ -11,42 +11,51 @@ Phases, in this order, each fatal on failure:
      their plain versions), then one training step of a small float32
      model (netSDF 256 wide, so the fused sweep is the path compared) on
      the card against the CPU from the same weights, batch and noise:
-     loss, every parameter's gradient and the parameters after the step;
+     loss, every parameter's gradient and the parameters after the step —
+     once on the default render path and once on `raster_variant=6,
+     resolve_rows="kernel"` (K3 and K5 on the card);
   3. kernels: run each kernel against its plain PyTorch version on the
-     card — the tile visibility kernel on a random scene, the exact-z
-     depth-stack scene, the prior mesh of the full-width model posed by
-     10 cameras at 256² (face capacity 196,608) and the full-width
-     recon's own posed meshes (the inputs `reconstruct` rasterizes).
-     face_id and the per-tile chunk flags must be identical and z equal
-     where the ids agree. Times the kernel and the plain version (CUDA
-     events, medians) on the last two scenes and computes the kernel's
-     bound from this run's inputs; the `kernels` line reports the recon
-     scene. Then the fused netSDF sweep, forward and backward, against
-     its plain versions at the full-width shape (the embedded jittered
-     129³ lattice, weights of `init_params(0)`) and at a ragged small N,
-     in bf16 and float32, and the resolve backward against its plain
-     version on the training step's own winner ids with a random
-     cotangent (10, 65,536, 42) and on the depth-stack scene, where one
-     face collects hundreds of pixels; each with its time, its plain
-     version's, its bound and (resolve backward) `index_add_`'s;
-  4. train slice: `train_step` of the same model at full width —
-     iter-50000 training phase (grid jitter, random pose sampling, fused
-     sweep), batch 10 of `fake_batch`, bf16 — 1 warm-up and 5 timed steps
-     with fresh noise from a generator. The launch counters are set to 0
-     just before and read just after: each of the four kernels must have
-     launched once per step;
-  5. slice: `reconstruct` of `train_magicpony_horse` at full width —
-     iter-50000 phase (coarse grid 128, articulation on), batch 10 at 256²,
-     dino_vits8, bf16 compute — with random weights from `init_params(0)`:
-     1 warm-up run, then 5 timed runs. The kernels' launch counters are set
-     to 0 just before this phase and read just after it; every render must
-     have launched the visibility kernel once.
+     card — the tile visibility kernels K1, K2 (variant 4) and K3 (variant
+     6) on a random scene, the exact-z depth-stack scene, the prior mesh of
+     the full-width model posed by 10 cameras at 256² (face capacity
+     196,608) and the full-width recon's own posed meshes (the inputs
+     `reconstruct` rasterizes): K1 and K2 against `visibility_reference`
+     and K2 against K1 (z, face_id and chunk flags bit for bit), K3 against
+     `visibility_v6_reference` (z, face_id, slot flags) and its z and
+     face_id against K1's, also with the unit lists capped at 2 (the
+     full-scan loop). Times the three and their plain versions (CUDA
+     events, medians) on the last two scenes and computes the bound from
+     this run's inputs; the `kernels` line reports the recon scene. Then
+     the fused netSDF sweep, forward and backward, against its plain
+     versions at the full-width shape (the embedded jittered 129³ lattice,
+     weights of `init_params(0)`) and at a ragged small N, in bf16 and
+     float32; the resolve backward against its plain version on the
+     training step's own winner ids with a random cotangent (10, 65,536,
+     42) and on the depth-stack scene, where one face collects hundreds of
+     pixels; and the resolve-rows forward K5 against its plain version and
+     `torch.gather` on the training step's own winner ids; each with its
+     time, its plain version's, its bound and, where one exists, a library
+     call's;
+  4. paths, at the full width of `train_magicpony_horse` (iter-50000
+     phase: grid 128, articulation on; batch 10 at 256², dino_vits8, bf16
+     compute; random weights from `init_params(0)`), each with the launch
+     counters set to 0 just before it and read just after it (each kernel
+     of the path once per step or render, no other kernel):
+     `train_step` on the default path (1 warm-up and 5 timed steps: K1,
+     K6, K7, K4) and on `raster_variant=6, resolve_rows="kernel"` (1 + 3:
+     K3, K5, K4, K6, K7), the loss on the batch with fixed draws falling;
+     `reconstruct` on the default path (1 + 5: K1), with
+     `raster_variant=4` (1 + 3: K2; every render's z and face_id equal to
+     K1's on the same posed meshes) and with `raster_variant=6,
+     resolve_rows="kernel"` (1 + 3: K3, K5; the images equal to the
+     default path's within 1e-3).
 
-Prints a `kernels` JSON line (`launches` is the count over the training
-steps of phase 4, `launches_train` the same, `launches_recon` the count
-over the renders of phase 5), the card's name and power limit, and as the
-last line `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
-card.
+Prints a `kernels` JSON line (all seven kernels; `launches` is the count on
+the path that drives the kernel — `recon_v4` for K2,
+`train_v6_kernel_rows` for K3 and K5, the default training path for the
+others — and `launches_by_path` the counts on every path), the card's name
+and power limit, and as the last line `{"ok": true, "device": {...}}`.
+Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -97,6 +106,11 @@ REF_GRAD_TOL = 2e-3
 REF_NOISY_TOL = 2e-2
 REF_NOISY_LEAVES = ("netInstance.netTexture.", "netBase.netDINO.in_layer.",
                     "netBase.netDINO.mlp.layer_0.")
+
+# |recon image of variant 6 + kernel rows - default| away from the pixels
+# whose winner differs: the two paths compute the same function, and the
+# default path run twice differs by 1.2e-7 to 1.8e-7 on an H100
+IMAGE_TOL = 1e-6
 
 
 def card_line() -> str:
@@ -154,6 +168,16 @@ def depth_stack_scene():
     v_clip = np.concatenate([v * 2.0, np.full((len(v), 1), 2.0)], -1)[None]
     return (v_clip.astype(np.float32), v, np.asarray(faces),
             np.ones(len(faces), bool), (32, 32), 2)
+
+
+def depth_stack_copies_scene():
+    """The depth stack with each face repeated 16 times in a row, for
+    variant 4 (sub-blocks of a multiple of 32 faces): chunks of 32 faces
+    hold one quad each (nsub 1), and the copies tie exactly in z."""
+    v_clip, v, faces, f_valid, res, _chunk = depth_stack_scene()
+    faces = np.repeat(faces.reshape(-1, 2, 3), 16, 0).reshape(9, 16, 2, 3) \
+        .transpose(0, 2, 1, 3).reshape(-1, 3)
+    return v_clip, v, faces, np.ones(len(faces), bool), res, 32
 
 
 def posed_prior_scene(model, n_views: int = 10, res: int = 256):
@@ -246,10 +270,92 @@ def visibility_bound(v_clip, faces, prep, res, visits, outputs):
             nbytes, pairs)
 
 
+def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_ms,
+                 ops_ms, library_ms=None):
+    return {"name": name, "route": "cuda",
+            "source": "animals3d_tpu_torch/csrc/" + source,
+            "replaces": "animals3d_tpu/ops/" + replaces, "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def same_outputs(name, got, want, what=("z", "face_id", "flags")):
+    """Each output of `got` equal to `want`'s (face_id and flags bit for
+    bit, z as float32 values); returns max |z - z_want|."""
+    import torch
+    for label, a, b in zip(what, got, want):
+        if not torch.equal(a, b):
+            diff = int((a != b).sum())
+            raise AssertionError(f"{name}: {label} differs at {diff} "
+                                 "entries")
+    return float((got[0] - want[0]).abs().max())
+
+
+def v6_against_k1(name, got, k1, prep):
+    """Variant 6's z and face_id against K1's on the same inputs: identical
+    but at pixels where the nearer of the two winners (lexicographic in
+    (z, id), background last) is a face that the other kernel could not
+    reach, for one of two reasons of the float32 formulation:
+      * skip: its quantized depth lies below the quantized z-min of its
+        unit. The z-min is the least vertex depth of the unit's faces; the
+        plane equation's rounding can put a face's depth at a pixel below
+        it, and then the occlusion skip is not conservative for that face
+        (K1 skips per chunk, variant 6 per unit: they may skip different
+        faces there);
+      * scan: the tile has more units than list slots, so variant 6 scans
+        every sub-block with no bbox mask, and the face's sub-block bbox
+        misses the tile: the face's rounded edge functions accept a pixel
+        its vertex bbox leaves out (a face a fraction of a pixel across),
+        which K1's sub-block masks never offer it.
+    The JAX package's kernels share both (its v6 and its v3's list-overflow
+    scan run without masks). Returns (pixels by reason, mask of them)."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    (za, fa), (zb, fb) = got[:2], k1[:2]
+    diff = (fa != fb) | (za != zb)
+    if not bool(diff.any()):
+        return {"skip": 0, "scan": 0}, diff
+    b, y, x = torch.nonzero(diff).unbind(1)
+    inf = torch.full_like(za[diff], float("inf"))
+    ea = torch.where(fa[diff] > 0, za[diff], inf)
+    eb = torch.where(fb[diff] > 0, zb[diff], inf)
+    a_first = (ea < eb) | ((ea == eb) & (fa[diff] < fb[diff]))
+    z = torch.where(a_first, ea, eb)
+    f = torch.where(a_first, fa[diff], fb[diff]).long()
+    orig = prep["orig"].long()
+    slot = torch.empty_like(orig)
+    slot[orig] = torch.arange(orig.numel(), device=orig.device)
+    nsub = prep["nsub"]
+    unit = slot[(f - 1).clamp(min=0)] // (prep["table"].shape[-1] // nsub)
+    skip = (f > 0) & (rc._zq(z) < prep["zu"][b, unit])
+    t = (y // rc.TILE_H) * (za.shape[-1] // rc.TILE_W) + x // rc.TILE_W
+    bit = (prep["masks"][b, t, unit // nsub] >> (unit % nsub)) & 1
+    scan = (f > 0) & (prep["counts6"][b, t] > prep["S"]) & (bit == 0)
+    if not bool((skip | scan).all()):
+        bad = torch.nonzero(~(skip | scan))[:, 0]
+        for i in bad[:8].tolist():
+            print(f"{name}: pixel {(int(b[i]), int(y[i]), int(x[i]))}: "
+                  f"variant 6 ({float(za[diff][i])!r}, {int(fa[diff][i])}), "
+                  f"K1 ({float(zb[diff][i])!r}, {int(fb[diff][i])}), unit "
+                  f"{int(unit[i])} z-min {int(prep['zu'][b[i], unit[i]])}, "
+                  f"zq {int(rc._zq(z[i:i + 1]))}, tile {int(t[i])} units "
+                  f"{int(prep['counts6'][b[i], t[i]])}, mask bit "
+                  f"{int(bit[i])}")
+        raise AssertionError(f"{name}: {int((~(skip | scan)).sum())} of "
+                             f"{int(diff.sum())} pixels differ from K1 for "
+                             "another reason")
+    return {"skip": int(skip.sum()), "scan": int((scan & ~skip).sum())}, diff
+
+
 def visibility_phase(model, images, it, device):
-    """Kernel against plain version on the four scenes; returns the
-    `kernels` entry for the visibility kernel, timed and bounded on the
-    recon scene."""
+    """K1 against its plain version on the four scenes, K2 against the same
+    plain version and against K1, K3 against its plain version (and its z
+    and face_id against K1's), each bit for bit; a second K3 pass with the
+    unit lists capped at 2 runs its full-scan loop. Returns the `kernels`
+    entries of K1, K2 and K3, timed and bounded on the recon scene (K2's
+    and K3's bound is K1's: the same function on the same inputs)."""
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     rng = np.random.default_rng(SEED)
@@ -257,28 +363,29 @@ def visibility_phase(model, images, it, device):
               "depth_stack": depth_stack_scene(),
               "posed_prior": posed_prior_scene(model),
               "recon": recon_scene(model, images, it)}
-    entry = None
-    for name, (v_clip, v_pos0, faces, f_valid, res, chunk) in scenes.items():
-        t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
+    # (chunk, nsub) of variants 4 and 6 where a scene's own do not run them
+    v4_scene = {"depth_stack": depth_stack_copies_scene()}
+    v6_nsub = {"depth_stack": 2}
+    entries = {}
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
+
+    def prep_of(scene, **kw):
+        v_clip, v_pos0, faces, f_valid, res, chunk = scene
+        return rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
+                          t(f_valid, torch.bool), res, chunk, **kw)
+
+    for name, scene in scenes.items():
+        v_clip, v_pos0, faces, f_valid, res, chunk = scene
         v_clip, faces = t(v_clip), t(faces, torch.int64)
-        prep = rc.prepare(v_clip, t(v_pos0), faces, t(f_valid, torch.bool),
-                          res, chunk)
+        prep = prep_of(scene)
         args = (prep["table"], prep["orig"], prep["order"], prep["counts"],
                 prep["masks"], prep["zlo"], res, prep["nsub"])
-        z, fid, flags = rc.visibility(*args)
+        out1 = rc.visibility(*args)
         torch.cuda.synchronize()
         stats = {}
-        z_ref, fid_ref, flags_ref = rc.visibility_reference(*args,
-                                                            stats=stats)
-        same = fid == fid_ref
-        if not bool(same.all()):
-            raise AssertionError(f"{name}: face_id differs at "
-                                 f"{int((~same).sum())} pixels")
-        if not torch.equal(flags, flags_ref):
-            raise AssertionError(f"{name}: chunk flags differ")
-        err = float((z - z_ref).abs().max())
-        if err != 0.0:
-            raise AssertionError(f"{name}: z differs by {err}")
+        ref1 = rc.visibility_reference(*args, stats=stats)
+        err = same_outputs(f"K1 {name}", out1, ref1)
+        z, fid, flags = out1
         covered = int((fid > 0).sum())
         visits = stats["visits"]
         # the design's own work: every face of a visited sub-block against
@@ -290,29 +397,91 @@ def visibility_phase(model, images, it, device):
               f"design_face_pixel_tests={design_pairs} identical")
         if name in ("posed_prior", "recon") and covered == 0:
             raise AssertionError(f"{name}: the mesh covers no pixel")
+
+        # K2: its plain version is K1's; held to both on the same inputs
+        p4 = prep_of(v4_scene.get(name, scene), nsub=1 if name in v4_scene
+                     else rc.NSUB, variant=4)
+        args4 = (p4["table"], p4["orig"], p4["order"], p4["counts"],
+                 p4["masks"], p4["zlo"], res, p4["nsub"])
+        out2 = rc.visibility_v4(*args4[:6], p4["fbox"], res, p4["nsub"])
+        torch.cuda.synchronize()
+        err2 = same_outputs(f"K2 {name}", out2, rc.visibility_reference(*args4))
+        same_outputs(f"K2 vs K1 {name}", out2, rc.visibility(*args4))
+        print(f"raster_vis_v4[{name}]: chunk {p4['table'].shape[-1]} nsub "
+              f"{p4['nsub']}: z, face_id and flags identical to the plain "
+              "version and to K1")
+
+        # K3 at the cap of 128 and at 2 (the full-scan loop)
+        caps = (128, 2) if name in ("random", "depth_stack", "recon") \
+            else (128,)
+        for cap in caps:
+            p6 = prep_of(scene, nsub=v6_nsub.get(name, rc.NSUB), variant=6,
+                         v6_cap=cap)
+            args6 = (p6["table"], p6["orig"], p6["units"], p6["counts6"],
+                     p6["zu"], res, p6["nsub"])
+            out3 = rc.visibility_v6(*args6)
+            torch.cuda.synchronize()
+            ref3 = rc.visibility_v6_reference(*args6)
+            err3 = same_outputs(f"K3 {name} cap {cap}", out3, ref3,
+                                ("z", "face_id", "slot flags"))
+            cf = rc.chunk_flags_v6(out3[2], p6["units"], p6["counts6"],
+                                   p6["masks"], p6["nsub"])
+            if not torch.equal(cf, rc.chunk_flags_v6(
+                    ref3[2], p6["units"], p6["counts6"], p6["masks"],
+                    p6["nsub"])):
+                raise AssertionError(f"K3 {name} cap {cap}: chunk flags")
+            k1 = rc.visibility(p6["table"], p6["orig"], p6["order"],
+                               p6["counts"], p6["masks"], p6["zlo"], res,
+                               p6["nsub"])
+            n_k1, _d = v6_against_k1(f"K3 vs K1 {name} cap {cap}", out3, k1,
+                                     p6)
+            n_k1 = f"{n_k1['skip']} (skip) + {n_k1['scan']} (scan)"
+            over = int((p6["counts6"] > p6["S"]).sum())
+            print(f"raster_vis_v6[{name}, cap {cap}]: S {p6['S']}, units per "
+                  f"tile max {int(p6['counts6'].max())} mean "
+                  f"{float(p6['counts6'].float().mean()):.1f}, overflow tiles "
+                  f"(full scan) {over} of {p6['counts6'].numel()}; z, "
+                  "face_id and slot flags identical to the plain version; z "
+                  f"and face_id identical to K1's but at {n_k1} of "
+                  f"{fid.numel()} pixels (`v6_against_k1`)")
         if name not in ("posed_prior", "recon"):
             continue
         ms = statistics.median(cuda_ms(lambda: rc.visibility(*args),
                                        TIMED_RUNS))
+        ms4 = median_ms(lambda: rc.visibility_v4(*args4[:6], p4["fbox"],
+                                                 res, p4["nsub"]), TIMED_RUNS)
+        p6 = prep_of(scene, variant=6)
+        args6 = (p6["table"], p6["orig"], p6["units"], p6["counts6"],
+                 p6["zu"], res, p6["nsub"])
+        ms6 = median_ms(lambda: rc.visibility_v6(*args6), TIMED_RUNS)
         plain_ms = statistics.median(
             cuda_ms(lambda: rc.visibility_reference(*args), 3))
+        plain6_ms = statistics.median(
+            cuda_ms(lambda: rc.visibility_v6_reference(*args6), 3))
         bytes_ms, ops_ms, nbytes, pairs = visibility_bound(
             v_clip, faces, prep, res, visits, (z, fid, flags))
         bound = max(bytes_ms, ops_ms)
-        print(f"visibility[{name}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound:.4f} ms (live bytes {nbytes} -> "
-              f"{bytes_ms:.4f} ms; live bbox pairs {pairs} -> {ops_ms:.4f} "
-              f"ms), kernel/bound {ms / bound:.1f}x")
+        print(f"visibility[{name}]: K1 {ms:.4f} ms, K2 {ms4:.4f} ms, K3 "
+              f"{ms6:.4f} ms; plain {plain_ms:.4f} ms (K1's and K2's), "
+              f"{plain6_ms:.4f} ms (K3's); bound {bound:.4f} ms (live bytes "
+              f"{nbytes} -> {bytes_ms:.4f} ms; live bbox pairs {pairs} -> "
+              f"{ops_ms:.4f} ms); kernel/bound K1 {ms / bound:.1f}x, K2 "
+              f"{ms4 / bound:.1f}x, K3 {ms6 / bound:.1f}x")
         if name != "recon":
             continue
-        entry = {"name": "raster_vis", "route": "cuda",
-                 "source": "animals3d_tpu_torch/csrc/raster_vis.cu",
-                 "replaces": "animals3d_tpu/ops/rasterize_pallas.py:153",
-                 "launches": 0, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound,
-                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-                 "library_ms": None}
-    return entry
+        entries = {
+            "raster_vis": kernel_entry(
+                "raster_vis", "raster_vis.cu", "rasterize_pallas.py:153",
+                err, ms, plain_ms, bytes_ms, ops_ms),
+            "raster_vis_v4": kernel_entry(
+                "raster_vis_v4", "raster_vis_v4.cu",
+                "rasterize_pallas.py:286", err2, ms4, plain_ms, bytes_ms,
+                ops_ms),
+            "raster_vis_v6": kernel_entry(
+                "raster_vis_v6", "raster_vis_v6.cu",
+                "rasterize_pallas.py:513", err3, ms6, plain6_ms, bytes_ms,
+                ops_ms)}
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -440,15 +609,10 @@ def sweep_phase(model):
                       f"{plain_ms:.4f} ms, bound {bound:.4f} ms (operations "
                       f"{k_flops:.4g} -> {ops_ms:.4f} ms; bytes {nbytes} -> "
                       f"{bytes_ms:.4f} ms), kernel/bound {ms / bound:.1f}x")
-                rows.append({
-                    "name": kname, "route": "cuda",
-                    "source": "animals3d_tpu_torch/csrc/fused_mlp.cu",
-                    "replaces": "animals3d_tpu/ops/fused_mlp.py:"
-                    + ("59" if kname.endswith("fwd") else "76"),
-                    "launches": 0, "max_abs_err": kerr, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": "operations" if ops_ms > bytes_ms
-                    else "bytes", "library_ms": None})
+                rows.append(kernel_entry(
+                    kname, "fused_mlp.cu", "fused_mlp.py:"
+                    + ("59" if kname.endswith("fwd") else "76"), kerr, ms,
+                    plain_ms, bytes_ms, ops_ms))
             if not f32:
                 entries = {r["name"]: r for r in rows}
             full = N
@@ -516,7 +680,7 @@ def train_scene(model, batch):
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     from animals3d_tpu_torch.render.camera import xfm_points
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
     with torch.no_grad():
         _loss, (_m, aux) = model.forward(batch, TRAIN_IT, gen)
         shape = aux["shape"]
@@ -596,27 +760,125 @@ def resolve_phase(model, batch):
               f"{bound:.4f} ms (bytes {nbytes} -> {bytes_ms:.4f} ms; "
               f"additions -> {ops_ms:.5f} ms), kernel/bound "
               f"{ms / bound:.1f}x")
-        entry = {"name": "resolve_bwd", "route": "cuda",
-                 "source": "animals3d_tpu_torch/csrc/resolve_bwd.cu",
-                 "replaces": "animals3d_tpu/ops/rasterize_pallas.py:1097",
-                 "launches": 0, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound,
-                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-                 "library_ms": library_ms}
+        entry = kernel_entry("resolve_bwd", "resolve_bwd.cu",
+                             "rasterize_pallas.py:1097", err, ms, plain_ms,
+                             bytes_ms, ops_ms, library_ms)
     return entry
+
+
+def resolve_fwd_phase(model, batch):
+    """K5 against its plain version on the training step's own winner ids
+    with random float32 rows (10, F, 42): exact equality (a copy of a
+    float), zero on background; timed beside its plain version and beside
+    `torch.gather` with the permute to tile order. Returns its `kernels`
+    entry. Bound: bytes — face_id read once, the row of each winning
+    (image, face) read once, the (B, R, T·TP) rows written once."""
+    import torch
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    fid, n_faces = train_scene(model, batch)
+    B, P = fid.shape
+    H = model.out_image_size
+    R = 3 * (4 + 9) + 3
+    gen = torch.Generator(device=fid.device).manual_seed(SEED)
+    pf = torch.randn((B, n_faces, R), generator=gen, device=fid.device)
+    got = rv.resolve_fwd(pf, fid, (H, H))
+    torch.cuda.synchronize()
+    want = rv.resolve_fwd_reference(pf, fid, (H, H))
+    if not torch.equal(got, want):
+        raise AssertionError(f"resolve_fwd differs at {int((got != want).sum())}"
+                             " entries")
+    bg = rv.to_tile_order((fid == 0)[..., None], (H, H))[:, 0]
+    if got[bg[:, None].expand_as(got)].any():
+        raise AssertionError("resolve_fwd: a background row is not zero")
+    sel = torch.clamp(fid.long() - 1, min=0)[..., None].expand(B, P, R)
+
+    def library():
+        rows = torch.gather(pf, 1, sel)
+        return rv.to_tile_order(rows, (H, H)).contiguous()
+    lib = library()
+    fg = (fid > 0)
+    fgt = rv.to_tile_order(fg[..., None], (H, H))[:, 0][:, None]
+    if not torch.equal(torch.where(fgt, lib, 0.0), got):
+        raise AssertionError("resolve_fwd: differs from torch.gather")
+    ms = median_ms(lambda: rv.resolve_fwd(pf, fid, (H, H)))
+    plain_ms = median_ms(lambda: rv.resolve_fwd_reference(pf, fid, (H, H)),
+                         3)
+    library_ms = median_ms(library)
+    n_fg = int(fg.sum())
+    # each winning face's row is read once, however many pixels it won
+    key = fid.long() + torch.arange(B, device=fid.device)[:, None] \
+        * (n_faces + 1)
+    n_rows = int(torch.unique(key[fg]).numel())
+    nbytes = fid.numel() * 4 + n_rows * R * 4 + B * R * P * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"resolve_fwd[train_step]: B={B} P={P} R={R} F={n_faces} "
+          f"foreground px {n_fg}, winning (image, face) rows {n_rows}: "
+          f"identical to the plain version and to "
+          f"torch.gather, background zero; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.gather + permute {library_ms:.4f} ms, "
+          f"bound {bytes_ms:.4f} ms (bytes {nbytes}), kernel/bound "
+          f"{ms / bytes_ms:.1f}x")
+    return kernel_entry("resolve_fwd", "resolve_fwd.cu",
+                        "rasterize_pallas.py:1269", 0.0, ms, plain_ms,
+                        bytes_ms, 0.0, library_ms)
 
 
 # ---------------------------------------------------------------------------
 # models
 # ---------------------------------------------------------------------------
 
-def build(overrides, device):
+def build(overrides, device, **render):
     from animals3d_tpu_torch import config as cfglib
     from animals3d_tpu_torch.models import build_model
     cfg = cfglib.load_config("train_magicpony_horse", overrides=overrides)
     model_cfg = dict(cfg["model"])
     model_cfg["dataset"] = cfg["dataset"]
-    return cfg, build_model(model_cfg, device=device)
+    return cfg, build_model(model_cfg, device=device, **render)
+
+
+# the render selectors of each path the script drives, and the kernels each
+# path launches once per render (the forward) or per step
+PATHS = {
+    "train": ({}, ("raster_vis", "fused_mlp_fwd", "fused_mlp_bwd",
+                   "resolve_bwd")),
+    "train_v6_kernel_rows": (
+        dict(raster_variant=6, resolve_rows="kernel"),
+        ("raster_vis_v6", "resolve_fwd", "resolve_bwd", "fused_mlp_fwd",
+         "fused_mlp_bwd")),
+    "recon": ({}, ("raster_vis",)),
+    "recon_v4": (dict(raster_variant=4), ("raster_vis_v4",)),
+    "recon_v6_kernel_rows": (dict(raster_variant=6, resolve_rows="kernel"),
+                             ("raster_vis_v6", "resolve_fwd")),
+}
+
+
+def counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    return {"raster_vis": rc.visibility, "raster_vis_v4": rc.visibility_v4,
+            "raster_vis_v6": rc.visibility_v6,
+            "fused_mlp_fwd": fm.fused_mlp_fwd,
+            "fused_mlp_bwd": fm.fused_mlp_bwd, "resolve_bwd": rv.resolve_bwd,
+            "resolve_fwd": rv.resolve_fwd}
+
+
+def reset_counts():
+    for k in counters().values():
+        k.launches = 0
+
+
+def check_counts(path, runs):
+    """Every kernel of `path` launched `runs` times since `reset_counts`,
+    every other kernel not at all; returns the counts."""
+    launches = {name: k.launches for name, k in counters().items()}
+    want = PATHS[path][1]
+    for name, n in launches.items():
+        if n != (runs if name in want else 0):
+            raise AssertionError(f"{path}: {name} launched {n} times in "
+                                 f"{runs} runs")
+    return launches
 
 
 def reference_phase():
@@ -661,9 +923,11 @@ def draw_noise(model, gen, n_images):
                  surf_idx=None, surf_u=u(5000, 3))
 
 
-def train_reference_phase():
+def train_reference_phase(path="train"):
     """One training step of a small float32 model on the card against the
-    same step on the CPU, from the same weights, batch and noise: loss to
+    same step on the CPU, from the same weights, batch and noise, on the
+    render path `path` of `PATHS` (the card's kernels against their plain
+    versions on the CPU): loss to
     1e-4 relative (7e-7 seen), every parameter's gradient to
     `REF_GRAD_TOL` of its norm (2e-3; 9.1e-4 seen on the articulation
     leaves, 6.2e-4 on the encoder's, 4.0e-4 on netSDF's), `REF_NOISY_TOL`
@@ -705,19 +969,18 @@ def train_reference_phase():
     import torch
     import torch.nn.functional as F
     from animals3d_tpu_torch.data.synth import fake_batch
-    from animals3d_tpu_torch.ops import fused_mlp as fm
-    from animals3d_tpu_torch.ops import resolve_cuda as rv
     from animals3d_tpu_torch.precision import set_mixed_precision
     from animals3d_tpu_torch.trainer import make_optimizer
     set_mixed_precision(False)
-    _cfg, gpu = build(TRAIN_SMALL_OVERRIDES, "cuda")
+    render, kernels = PATHS[path]
+    _cfg, gpu = build(TRAIN_SMALL_OVERRIDES, "cuda", **render)
     state = {k: v.detach().cpu().clone()
              for k, v in gpu.init_params(SEED).items()}
-    _cfg, cpu = build(TRAIN_SMALL_OVERRIDES, "cpu")
+    _cfg, cpu = build(TRAIN_SMALL_OVERRIDES, "cpu", **render)
     cpu.load_state_dict(state)
     phase = gpu.phase_for_iter(TRAIN_IT)
     if not gpu.netBase._use_fused_sweep(training=True):
-        raise AssertionError("train reference: the fused sweep is off")
+        raise AssertionError(f"train reference [{path}]: the fused sweep is off")
     B = 2
     batches = {"gpu": fake_batch(gpu, B, SEED),
                "cpu": fake_batch(cpu, B, SEED)}
@@ -725,8 +988,7 @@ def train_reference_phase():
         for k in ("images", "dino_features"):
             batch[k] = batch[k] * 0.1
     models = {"gpu": gpu, "cpu": cpu}
-    counts = (fm.fused_mlp_fwd.launches, fm.fused_mlp_bwd.launches,
-              rv.resolve_bwd.launches)
+    reset_counts()
 
     def both(noise, grad):
         out = {}
@@ -758,15 +1020,15 @@ def train_reference_phase():
             | (d("dino_pred").amax(2) > 1e-3) \
             | ((a_gpu["mask_pred"].cpu() > 0) != (a_cpu["mask_pred"] > 0))
         share = float(differ.float().mean())
-        print(f"train reference: seed {seed}: articulation |gpu - cpu| "
+        print(f"train reference [{path}]: seed {seed}: articulation |gpu - cpu| "
               f"{arti:.3g}, share of pixels that differ {share:.4f}")
         if arti <= 1e-4:
             break
     else:
-        raise AssertionError("train reference: no seed of 8 on which the "
+        raise AssertionError(f"train reference [{path}]: no seed of 8 on which the "
                              "card and the CPU pick the same feet")
     if not share <= 0.005:
-        raise AssertionError(f"train reference: {share:.4f} of the pixels "
+        raise AssertionError(f"train reference [{path}]: {share:.4f} of the pixels "
                              "differ between the card and the CPU")
     near = F.max_pool2d(differ.float().flatten(0, 1)[:, None], 5, stride=1,
                         padding=2)[:, 0].reshape(differ.shape)
@@ -777,33 +1039,33 @@ def train_reference_phase():
             * keep[:, :, None]
     out = both(noise, grad=True)
     (l_gpu, _), (l_cpu, _) = out["gpu"], out["cpu"]
-    now = (fm.fused_mlp_fwd.launches, fm.fused_mlp_bwd.launches,
-           rv.resolve_bwd.launches)
-    if any(n <= c for n, c in zip(now, counts)):
-        raise AssertionError(f"train reference: kernel launches {counts} -> "
-                             f"{now}: the card did not go through a kernel")
+    now = {k: c.launches for k, c in counters().items()}
+    if any(now[k] == 0 for k in kernels) or any(
+            now[k] for k in now if k not in kernels):
+        raise AssertionError(f"train reference [{path}]: kernel launches "
+                             f"{now}: the card did not go through its path")
     rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
-    print(f"train reference: loss gpu {float(l_gpu):.6f} cpu "
+    print(f"train reference [{path}]: loss gpu {float(l_gpu):.6f} cpu "
           f"{float(l_cpu):.6f} (rel {rel:.3g})")
     if not rel <= 1e-4:
-        raise AssertionError(f"train reference: loss differs by {rel}")
+        raise AssertionError(f"train reference [{path}]: loss differs by {rel}")
     worst, bad, gap, by_net = (0.0, ""), [], {}, {}
     cpu_params = dict(cpu.named_parameters())
     for name, p in gpu.named_parameters():
         q = cpu_params[name]
         if ".ViT." in name:
             if p.grad is not None or q.grad is not None:
-                raise AssertionError(f"train reference: {name} has a grad")
+                raise AssertionError(f"train reference [{path}]: {name} has a grad")
             continue
         if (p.grad is None) != (q.grad is None):
-            raise AssertionError(f"train reference: {name}: grad on one "
+            raise AssertionError(f"train reference [{path}]: {name}: grad on one "
                                  "device only")
         if p.grad is None:
             if not name.startswith("netInstance.netDeform."):
-                raise AssertionError(f"train reference: {name} has no grad")
+                raise AssertionError(f"train reference [{path}]: {name} has no grad")
             continue
         if not bool(torch.isfinite(p.grad).all()):
-            raise AssertionError(f"train reference: {name}: non-finite grad")
+            raise AssertionError(f"train reference [{path}]: {name}: non-finite grad")
         err = float((p.grad.cpu() - q.grad).norm() / q.grad.norm())
         gap[name] = float((p.grad.cpu() - q.grad).abs().max())
         noisy = name.startswith(REF_NOISY_LEAVES)
@@ -813,11 +1075,11 @@ def train_reference_phase():
         net = ".".join(name.split(".")[:2]) + (" (wide bound)" if noisy
                                                else "")
         by_net[net] = max(by_net.get(net, 0.0), err)
-    print(f"train reference: worst grad |gpu - cpu| / norm = {worst[0]:.3g} "
+    print(f"train reference [{path}]: worst grad |gpu - cpu| / norm = {worst[0]:.3g} "
           f"({worst[1]}); by network "
           + ", ".join(f"{k} {v:.3g}" for k, v in by_net.items()))
     if bad:
-        raise AssertionError("train reference: grads differ by more than "
+        raise AssertionError(f"train reference [{path}]: grads differ by more than "
                              "the bound: " + "; ".join(bad))
     # the optimizer step on both devices. Adam's first update is
     # lr·g/(|g| + 1e-8): ±lr wherever |g| is well above eps and above the
@@ -835,56 +1097,53 @@ def train_reference_phase():
         diff = (p.detach().cpu() - q.detach()).abs()
         if name not in clear:
             if float(diff.max()) != 0.0:
-                raise AssertionError(f"train reference: {name} moved "
+                raise AssertionError(f"train reference [{path}]: {name} moved "
                                      "without a gradient")
             continue
         if float(diff.max()) > 2.1 * lr or \
                 float((diff * clear[name]).max()) > 0.02 * lr:
-            raise AssertionError(f"train reference: {name} differs after the "
+            raise AssertionError(f"train reference [{path}]: {name} differs after the "
                                  f"step by {float(diff.max())}")
         moved = max(moved, float((q.detach() - state[name]).abs().max()))
     if not moved > 0:
-        raise AssertionError("train reference: the step moved no parameter")
-    print(f"train reference: parameters agree after one Adam step (largest "
+        raise AssertionError(f"train reference [{path}]: the step moved no parameter")
+    print(f"train reference [{path}]: parameters agree after one Adam step (largest "
           f"move {moved:.3g})")
 
 
-def train_slice_phase(model, B):
-    """Full-width training steps; returns the launch counts."""
+def train_slice_phase(model, B, path="train", timed=TIMED_RUNS):
+    """Full-width training steps on `path` of `PATHS`: 1 warm-up and
+    `timed` timed steps, the launch counters set to 0 just before and read
+    just after (each kernel of the path once per step, no other); the loss
+    on the batch with fixed draws must fall. Restores the initial weights.
+    Returns (launches, median ms, peak bytes)."""
     import torch
     from animals3d_tpu_torch.data.synth import fake_batch
-    from animals3d_tpu_torch.ops import fused_mlp as fm
-    from animals3d_tpu_torch.ops import rasterize_cuda as rc
-    from animals3d_tpu_torch.ops import resolve_cuda as rv
     from animals3d_tpu_torch.trainer import make_optimizer, train_step
     batch = fake_batch(model, B, SEED)
     phase = model.phase_for_iter(TRAIN_IT)
     grid, v_cap, f_cap = model.grid_for_phase(phase)
     if not model.netBase._use_fused_sweep(training=True):
-        raise AssertionError("train slice: the fused sweep is off")
-    print(f"train slice: iter {TRAIN_IT} phase {phase} grid {grid.res} "
-          f"v_cap {v_cap} f_cap {f_cap} batch {B}")
+        raise AssertionError(f"{path}: the fused sweep is off")
+    print(f"{path}: iter {TRAIN_IT} phase {phase} grid {grid.res} v_cap "
+          f"{v_cap} f_cap {f_cap} batch {B} raster_variant "
+          f"{model.raster_variant} resolve_rows {model.resolve_rows}")
     before = {k: v.clone() for k, v in model.state_dict().items()}
     opt = make_optimizer(model)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
     fixed = draw_noise(model, torch.Generator().manual_seed(SEED), B)
 
     def fixed_loss():
         # the loss on the same batch with the same draws, without a step
-        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        g = torch.Generator(device=model.device).manual_seed(SEED + 1)
         with torch.no_grad():
             loss, _ = model.forward(batch, TRAIN_IT, g, phase, noise=fixed)
         return float(loss)
     first = fixed_loss()
-    kernels = {"raster_vis": rc.visibility,
-               "fused_mlp_fwd": fm.fused_mlp_fwd,
-               "fused_mlp_bwd": fm.fused_mlp_bwd,
-               "resolve_bwd": rv.resolve_bwd}
-    for k in kernels.values():
-        k.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    steps = WARMUP_RUNS + TIMED_RUNS
+    steps = WARMUP_RUNS + timed
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -893,18 +1152,14 @@ def train_slice_phase(model, B):
         if i >= WARMUP_RUNS:
             times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(met["loss"]))
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = check_counts(path, steps)
     peak = torch.cuda.max_memory_allocated()
     last = fixed_loss()
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train slice: non-finite loss in {losses}")
-    for name, n in launches.items():
-        if n != steps:
-            raise AssertionError(f"train slice: {name} launched {n} times in "
-                                 f"{steps} steps")
+        raise AssertionError(f"{path}: non-finite loss in {losses}")
     if not last < first:
-        raise AssertionError(f"train slice: the loss on the trained batch "
-                             f"(same draws) went {first} -> {last}")
+        raise AssertionError(f"{path}: the loss on the trained batch (same "
+                             f"draws) went {first} -> {last}")
     after = model.state_dict()
     changed = sum(not torch.equal(before[k], after[k]) for k in before)
     finite = all(bool(torch.isfinite(v).all()) for v in after.values()
@@ -912,28 +1167,28 @@ def train_slice_phase(model, B):
     vit_same = all(torch.equal(before[k], after[k]) for k in before
                    if ".ViT." in k)
     if not (changed > 40 and finite and vit_same):
-        raise AssertionError(f"train slice: {changed} tensors changed, "
-                             f"finite {finite}, ViT untouched {vit_same}")
+        raise AssertionError(f"{path}: {changed} tensors changed, finite "
+                             f"{finite}, ViT untouched {vit_same}")
     med = statistics.median(times)
-    print(f"train slice: losses per step {[round(x, 4) for x in losses]}; "
-          f"loss on the batch with fixed draws {first:.4f} -> {last:.4f}")
-    print(f"train slice: train_step median {med:.2f} ms per batch of {B} "
+    print(f"{path}: losses per step {[round(x, 4) for x in losses]}; loss on "
+          f"the batch with fixed draws {first:.4f} -> {last:.4f}")
+    print(f"{path}: train_step median {med:.2f} ms per batch of {B} "
           f"({B / med * 1e3:.2f} imgs/s), min {min(times):.2f} max "
           f"{max(times):.2f} ms over {len(times)} steps (spread "
           f"{(max(times) - min(times)) / med * 100:.1f}%), peak memory "
-          f"{peak / 2**30:.2f} GiB, launches in {steps} steps {launches}, "
-          f"{changed} parameter tensors changed; card {card_line()}")
-    # back to the initial weights for the reconstruction slice
+          f"{peak / 2**30:.2f} GiB, launches in {steps} steps "
+          f"{ {k: v for k, v in launches.items() if v} }, {changed} "
+          f"parameter tensors changed; card {card_line()}")
     model.load_state_dict(before)
-    return launches
+    return launches, med, peak
 
 
-def slice_phase():
-    """Full-width reconstruction; returns (launches, renders)."""
+def slice_phase(**render):
+    """The full-width model (with the render selectors `render`), its
+    images and sizes: (model, images, it, B, H)."""
     import torch
-    from animals3d_tpu_torch.ops import rasterize_cuda as rc
     from animals3d_tpu_torch.precision import set_mixed_precision
-    cfg, model = build([], "cuda")
+    cfg, model = build([], "cuda", **render)
     set_mixed_precision(cfg.get("mixed_precision"))
     model.init_params(SEED)
     B = cfg["dataset"]["batch_size"]
@@ -951,20 +1206,80 @@ def slice_phase():
     return model, images, it, B, H
 
 
-def drive(model, images, it, B, H):
-    """The main path: warm-up and timed `reconstruct` runs."""
+def drive(model, images, it, timed=TIMED_RUNS):
+    """Warm-up and timed `reconstruct` runs."""
     import torch
     times = []
     shaded = out = None
     torch.cuda.reset_peak_memory_stats()
-    for i in range(WARMUP_RUNS + TIMED_RUNS):
+    for i in range(WARMUP_RUNS + timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         shaded, out = model.reconstruct(model, images, it)
         torch.cuda.synchronize()
         if i >= WARMUP_RUNS:
             times.append((time.perf_counter() - t0) * 1e3)
-    return shaded, out, times, WARMUP_RUNS + TIMED_RUNS
+    return shaded, out, times, WARMUP_RUNS + timed
+
+
+def recon_path(model, images, it, B, H, path, timed=TIMED_RUNS):
+    """`reconstruct` on `path` of `PATHS`, its launches counted from 0 (each
+    kernel of the path once per render, no other). Returns (shaded,
+    launches, median ms, peak bytes)."""
+    import torch
+    reset_counts()
+    shaded, out, times, renders = drive(model, images, it, timed)
+    launches = check_counts(path, renders)
+    alpha = check_slice(shaded, out, B, H)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{path}: reconstruct median {med:.2f} ms per batch of {B} "
+          f"({B / med * 1e3:.2f} imgs/s), min {min(times):.2f} max "
+          f"{max(times):.2f} ms over {len(times)} runs (spread "
+          f"{(max(times) - min(times)) / med * 100:.1f}%), peak memory "
+          f"{peak / 2**30:.2f} GiB, mask px per image {alpha.tolist()}, "
+          f"launches in {renders} renders "
+          f"{ {k: v for k, v in launches.items() if v} }; card {card_line()}")
+    return shaded, launches, med, peak
+
+
+def renders_against_k1(model, images, it):
+    """One more `reconstruct` of `model` with every render's rasterization
+    recorded, and each render's z and face_id against K1's on the same
+    posed meshes: identical for variant 4; for variant 6 identical but at
+    the pixels `v6_against_k1` allows. Returns (renders, pixels that
+    differ, (B, H, W) mask of them)."""
+    import torch
+    import animals3d_tpu_torch.render.render as rr
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    real, calls = rr.rasterize_cuda, []
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+    rr.rasterize_cuda = recording
+    try:
+        model.reconstruct(model, images, it)
+    finally:
+        rr.rasterize_cuda = real
+    n, mask = 0, None
+    for args, kw, out in calls:
+        variant = kw.get("variant", 3)
+        k1 = real(*args, **dict(kw, variant=3))
+        got = (out.z, out.face_id)
+        if variant == 6:
+            prep = rc.prepare(args[0], kw["v_pos0"], args[1], args[2],
+                              args[3], variant=6)
+            m, diff = v6_against_k1("render with variant 6", got,
+                                    (k1.z, k1.face_id), prep)
+            n += m["skip"] + m["scan"]
+            mask = diff if mask is None else mask | diff
+        else:
+            same_outputs(f"render with variant {variant}", got,
+                         (k1.z, k1.face_id), ("z", "face_id"))
+    torch.cuda.synchronize()
+    return len(calls), n, mask
 
 
 def check_slice(shaded, out, B, H):
@@ -1003,40 +1318,74 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     reference_phase()
-    train_reference_phase()
+    train_reference_phase("train")
+    train_reference_phase("train_v6_kernel_rows")
 
     model, images, it, B, H = slice_phase()
-    entry = visibility_phase(model, images, it, torch.device("cuda"))
+    entries = visibility_phase(model, images, it, torch.device("cuda"))
     from animals3d_tpu_torch.data.synth import fake_batch
-    fwd_entry, bwd_entry = sweep_phase(model)
-    res_entry = resolve_phase(model, fake_batch(model, B, SEED))
-    entries = [entry, fwd_entry, bwd_entry, res_entry]
+    entries["fused_mlp_fwd"], entries["fused_mlp_bwd"] = sweep_phase(model)
+    batch = fake_batch(model, B, SEED)
+    entries["resolve_bwd"] = resolve_phase(model, batch)
+    entries["resolve_fwd"] = resolve_fwd_phase(model, batch)
 
-    # main path 1: the training step
-    launches = train_slice_phase(model, B)
-    for e in entries:
-        e["launches"] = e["launches_train"] = launches[e["name"]]
-        e["launches_recon"] = 0
+    # the paths, each with the launch counters set to 0 just before it
+    state = model.state_dict()
+    by_path, summary = {}, {}
+    by_path["train"], *summary["train"] = train_slice_phase(model, B)
+    _cfg, m6 = build([], "cuda", **PATHS["train_v6_kernel_rows"][0])
+    m6.load_state_dict(state)
+    by_path["train_v6_kernel_rows"], *summary["train_v6_kernel_rows"] = \
+        train_slice_phase(m6, B, "train_v6_kernel_rows", timed=3)
+    shaded, by_path["recon"], *summary["recon"] = recon_path(
+        model, images, it, B, H, "recon")
+    again, _out = model.reconstruct(model, images, it)
+    _cfg, m4 = build([], "cuda", **PATHS["recon_v4"][0])
+    m4.load_state_dict(state)
+    _s4, by_path["recon_v4"], *summary["recon_v4"] = recon_path(
+        m4, images, it, B, H, "recon_v4", timed=3)
+    n, _px, _m = renders_against_k1(m4, images, it)
+    print(f"recon_v4: z and face_id of {n} render(s) identical to K1's on "
+          "the same posed meshes")
+    s6, by_path["recon_v6_kernel_rows"], *summary["recon_v6_kernel_rows"] = \
+        recon_path(m6, images, it, B, H, "recon_v6_kernel_rows", timed=3)
+    n, px, mask = renders_against_k1(m6, images, it)
+    # the antialias pass blends a pixel with its neighbours: leave out the
+    # pixels within 2 of one whose winner differs from K1's
+    keep = torch.ones_like(shaded[:, :1], dtype=torch.bool)
+    if mask is not None:
+        near = torch.nn.functional.max_pool2d(
+            mask.float()[:, None], 5, stride=1, padding=2) > 0
+        keep = ~near
+    own = float((again - shaded).abs().max())
+    gap = float(((s6 - shaded).abs() * keep).max())
+    print(f"recon_v6_kernel_rows: z and face_id of {n} render(s) identical "
+          f"to K1's but at {px} pixels (`v6_against_k1`); shaded max "
+          f"|v6 + kernel rows - default| = {gap:.3g} "
+          f"away from those ({int((~keep).sum())} pixels left out; the "
+          f"default path against itself: {own:.3g}; tolerance "
+          f"{IMAGE_TOL:g})")
+    if not gap <= IMAGE_TOL:
+        raise AssertionError(f"recon_v6_kernel_rows: images differ by {gap}")
+    print("paths (ms, peak GiB): " + ", ".join(
+        f"{k} {ms:.2f} ms {peak / 2**30:.2f} GiB"
+        for k, (ms, peak) in summary.items()) + f"; card {card}")
 
-    # main path 2: reconstruction
-    rc.visibility.launches = 0
-    shaded, out, times, renders = drive(model, images, it, B, H)
-    recon_launches = rc.visibility.launches
-    alpha = check_slice(shaded, out, B, H)
-    if recon_launches != renders:
-        raise AssertionError(f"visibility kernel launched {recon_launches} "
-                             f"times in {renders} renders")
-    entry["launches_recon"] = recon_launches
-    med = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"slice: reconstruct median {med:.2f} ms per batch of {B} "
-          f"({B / med * 1e3:.2f} imgs/s), min {min(times):.2f} max "
-          f"{max(times):.2f} ms over {len(times)} runs (spread "
-          f"{(max(times) - min(times)) / med * 100:.1f}%), peak memory "
-          f"{peak / 2**30:.2f} GiB, mask px per image {alpha.tolist()}, "
-          f"visibility launches {recon_launches} in {renders} renders; "
-          f"card {card}")
-    print(json.dumps({"kernels": entries}))
+    # `launches`: the count on the path that drives the kernel's slice
+    own_path = {"raster_vis_v4": "recon_v4",
+                "raster_vis_v6": "train_v6_kernel_rows",
+                "resolve_fwd": "train_v6_kernel_rows"}
+    order = ("raster_vis", "raster_vis_v4", "raster_vis_v6", "resolve_bwd",
+             "resolve_fwd", "fused_mlp_fwd", "fused_mlp_bwd")
+    kernels = []
+    for name in order:
+        e = entries[name]
+        e["launches"] = by_path[own_path.get(name, "train")][name]
+        e["launches_train"] = by_path["train"][name]
+        e["launches_recon"] = by_path["recon"][name]
+        e["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        kernels.append(e)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

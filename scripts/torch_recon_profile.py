@@ -17,7 +17,9 @@ time. Writes the chrome trace to DIR (default `results/torch_profile/`).
 With `--train` it times instead the stages of `train_step` on
 `fake_batch` at the iter-50000 training phase (forward, backward,
 optimizer step; CUDA events around each, a synchronize between them) and
-traces N whole steps the same way.
+traces N whole steps the same way. `--raster-variant {3,4,6}` and
+`--resolve-rows {gather,kernel}` select the render path (the model's
+`raster_variant` and `resolve_rows`).
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ def train_main(args, card) -> int:
     from torch.profiler import ProfilerActivity, profile
     from animals3d_tpu_torch.data.synth import fake_batch
     from animals3d_tpu_torch.trainer import make_optimizer, train_step
-    model, _images, _it, B, _H = chip_smoke.slice_phase()
+    model, _images, _it, B, _H = chip_smoke.slice_phase(**render_args(args))
     it = chip_smoke.TRAIN_IT
     phase = model.phase_for_iter(it)
     batch = fake_batch(model, B, chip_smoke.SEED)
@@ -96,7 +98,8 @@ def train_main(args, card) -> int:
         span("optimizer", opt_step)
         span("step", lambda: train_step(model, opt, batch, it, gen, phase))
     med = {k: statistics.median(v) for k, v in stages.items()}
-    print(f"card: {card}")
+    print(f"card: {card}; raster_variant {args.raster_variant}, "
+          f"resolve_rows {args.resolve_rows}")
     print(f"train stages (median of {args.runs}, CUDA events, ms): forward "
           f"{med['forward']:.3f}, backward {med['backward']:.3f}, optimizer "
           f"{med['optimizer']:.3f}, train_step {med['step']:.3f}; peak "
@@ -115,10 +118,32 @@ def train_main(args, card) -> int:
     return 0
 
 
+def render_args(args):
+    return dict(raster_variant=args.raster_variant,
+                resolve_rows=args.resolve_rows)
+
+
+def visibility_call(prep, res, variant):
+    """The visibility kernel of `variant` on a prep of `rc.prepare`."""
+    common = (prep["table"], prep["orig"])
+    lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
+    if variant == 3:
+        return lambda: rc.visibility(*common, *lists, res, prep["nsub"])
+    if variant == 4:
+        return lambda: rc.visibility_v4(*common, *lists, prep["fbox"], res,
+                                        prep["nsub"])
+    return lambda: rc.visibility_v6(*common, prep["units"], prep["counts6"],
+                                    prep["zu"], res, prep["nsub"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true",
                     help="profile the training step instead of the recon")
+    ap.add_argument("--raster-variant", type=int, default=3,
+                    choices=(3, 4, 6))
+    ap.add_argument("--resolve-rows", default="gather",
+                    choices=("gather", "kernel"))
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--out", default="results/torch_profile")
     args = ap.parse_args()
@@ -131,7 +156,7 @@ def main() -> int:
     rc.build()
     if args.train:
         return train_main(args, card)
-    model, images, it, _B, H = chip_smoke.slice_phase()
+    model, images, it, _B, H = chip_smoke.slice_phase(**render_args(args))
     phase = model.phase_for_iter(it, is_training=False)
     grid, v_cap, f_cap = model.grid_for_phase(phase)
     with torch.no_grad():
@@ -149,15 +174,14 @@ def main() -> int:
             args.runs)
         v_clip = xfm_points(shape.v_pos, mvp)
         prep, prep_ms = timed(lambda: rc.prepare(
-            v_clip, shape.v_pos[0], shape.t_pos_idx, shape.f_valid, (H, H)),
-            args.runs)
-        vis_args = (prep["table"], prep["orig"], prep["order"],
-                    prep["counts"], prep["masks"], prep["zlo"], (H, H),
-                    prep["nsub"])
-        _v, vis_ms = timed(lambda: rc.visibility(*vis_args), args.runs)
+            v_clip, shape.v_pos[0], shape.t_pos_idx, shape.f_valid, (H, H),
+            variant=args.raster_variant), args.runs)
+        _v, vis_ms = timed(visibility_call(prep, (H, H), args.raster_variant),
+                           args.runs)
         _t, total_ms = timed(lambda: model.reconstruct(model, images, it),
                              args.runs)
-    print(f"card: {card}")
+    print(f"card: {card}; raster_variant {args.raster_variant}, "
+          f"resolve_rows {args.resolve_rows}")
     print(f"stages (median of {args.runs}, CUDA events, ms): netBase "
           f"{base_ms:.3f}, netInstance {inst_ms:.3f}, render {render_ms:.3f}"
           f" (of which visibility prep {prep_ms:.3f}, visibility kernel "

@@ -262,3 +262,93 @@ def test_small_train_step_on_card(card):
             assert same and not p.requires_grad, name
         elif not name.startswith("netInstance.netDeform."):
             assert not same and bool(torch.isfinite(p).all()), name
+
+
+# ---------------------------------------------------------------------------
+# visibility variants 4 and 6 (K2, K3) and the resolve-rows forward (K5)
+# ---------------------------------------------------------------------------
+
+def _depth_stack_copies(rng):
+    """The depth stack with each face repeated 16 times in a row: chunks of
+    32 faces hold one quad each, so variant 4 (sub-blocks of a multiple of
+    32 faces) runs it with nsub 1, and the copies tie exactly in z."""
+    v_clip, v, faces, f_valid, res, _chunk = _depth_stack(rng)
+    faces = np.repeat(faces.reshape(-1, 2, 3), 16, 0).reshape(-1, 3)
+    faces = faces.reshape(9, 16, 2, 3).transpose(0, 2, 1, 3).reshape(-1, 3)
+    return v_clip, v, faces, np.ones(len(faces), bool), res, 32
+
+
+def _prep(card, make, seed, **kw):
+    v_clip, v_pos0, faces, f_valid, res, chunk = make(
+        np.random.default_rng(seed))
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=card)
+    return rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
+                      t(f_valid, torch.bool), res, kw.pop("chunk", chunk),
+                      **kw), res
+
+
+@pytest.mark.parametrize("make,chunk,nsub", [
+    (_random, 256, 8), (_depth_stack_copies, 32, 1), (_sphere, 256, 8)])
+def test_visibility_v4_kernel_equals_plain_version_and_k1(card, make, chunk,
+                                                          nsub):
+    """K2: face_id, z and the chunk flags identical bit for bit to the plain
+    version (`visibility_reference`) and to K1 on the same inputs; one
+    launch counted per call."""
+    prep, res = _prep(card, make, 3, chunk=chunk, nsub=nsub, variant=4)
+    lists = (prep["table"], prep["orig"], prep["order"], prep["counts"],
+             prep["masks"], prep["zlo"])
+    launches = rc.visibility_v4.launches
+    got = rc.visibility_v4(*lists, prep["fbox"], res, prep["nsub"])
+    torch.cuda.synchronize()
+    assert rc.visibility_v4.launches == launches + 1
+    want = rc.visibility_reference(*lists, res, prep["nsub"])
+    k1 = rc.visibility(*lists, res, prep["nsub"])
+    assert int((want[1] > 0).sum()) > 0
+    for a, b, c in zip(got, want, k1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("cap", [128, 2])
+@pytest.mark.parametrize("make,nsub", [(_random, 8), (_depth_stack, 2),
+                                       (_sphere, 8)])
+def test_visibility_v6_kernel_equals_plain_version(card, make, nsub, cap):
+    """K3: face_id, z and the slot flags identical bit for bit to
+    `visibility_v6_reference`, with the unit lists capped at 128 and at 2
+    (the full-scan loop); z and face_id identical to K1's."""
+    prep, res = _prep(card, make, 3, nsub=nsub, variant=6, v6_cap=cap)
+    args = (prep["table"], prep["orig"], prep["units"], prep["counts6"],
+            prep["zu"], res, prep["nsub"])
+    launches = rc.visibility_v6.launches
+    got = rc.visibility_v6(*args)
+    torch.cuda.synchronize()
+    assert rc.visibility_v6.launches == launches + 1
+    want = rc.visibility_v6_reference(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    k1 = rc.visibility(prep["table"], prep["orig"], prep["order"],
+                       prep["counts"], prep["masks"], prep["zlo"], res,
+                       prep["nsub"])
+    assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
+    if cap == 2:
+        assert int((prep["counts6"] > prep["S"]).sum()) > 0
+
+
+def test_resolve_fwd_kernel_equals_plain_version(card):
+    """K5: the rows equal the plain version's exactly (a copy of a float),
+    zero on background; one launch counted per call."""
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    rng = np.random.default_rng(6)
+    B, H, W, R, Fn = 3, 64, 96, 42, 700
+    fid = rng.integers(0, Fn + 1, (B, H * W)).astype(np.int32)
+    fid[:, : H * W // 3] = 0
+    pf = torch.as_tensor(rng.normal(size=(B, Fn, R)).astype(np.float32),
+                         device=card)
+    fid = torch.as_tensor(fid, device=card)
+    n = rv.resolve_fwd.launches
+    got = rv.resolve_fwd(pf, fid, (H, W))
+    torch.cuda.synchronize()
+    assert rv.resolve_fwd.launches == n + 1
+    want = rv.resolve_fwd_reference(pf, fid, (H, W))
+    assert torch.equal(got, want)
+    bg = rv.to_tile_order((fid == 0)[..., None], (H, W))[:, 0]
+    assert not got[bg[:, None].expand_as(got)].any()

@@ -1,0 +1,241 @@
+"""Port parity for the visibility variants 4 and 6 (`raster_variant`, the
+counterpart of the JAX package's `A3D_RASTER_V`): the port's plain versions
+against the Pallas kernels `_raster_kernel_v4` and `_raster_kernel_v6` in
+interpret mode, on the CPU. The selectors of the JAX package are read at
+trace time, so each run sets them and clears `rasterize_pallas`'s cache,
+as `tests/test_rasterize_pallas.py` does. The CUDA kernels are held to the
+same plain versions on the card (`tests/test_torch_cuda.py`)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from animals3d_tpu.ops import rasterize_pallas as jrp
+from animals3d_tpu_torch.ops import rasterize_cuda as rc
+from test_torch_raster import _depth_stack_scene, _random_scene, _sphere_scene
+from torch_parity import assert_same_visibility
+
+
+def _v4_scene():
+    """Random small triangles over two 256-face chunks, so that variant 4
+    runs (sub-blocks of 32 faces); 5% of the faces invalid."""
+    rng = np.random.default_rng(11)
+    B, Fn = 2, 400
+    ctr = rng.uniform(-0.9, 0.9, (B, Fn, 1, 3))
+    v = (ctr + rng.uniform(-0.12, 0.12, (B, Fn, 3, 3))).reshape(B, 3 * Fn, 3)
+    w = rng.uniform(2, 4, (B, 3 * Fn, 1))
+    v_clip = np.concatenate([v * w, w], -1).astype(np.float32)
+    v_pos = rng.normal(size=(B, 3 * Fn, 3)).astype(np.float32)
+    faces = np.arange(3 * Fn).reshape(Fn, 3).astype(np.int32)
+    return v_clip, v_pos, faces, rng.uniform(size=Fn) > 0.05, (32, 64), 256
+
+
+def _sliver_scene():
+    """Faces a hundredth to a thousandth of a pixel across far from the
+    screen origin, where the float32 edge constant c = x1·y2 − x2·y1 is
+    rounded by more than the face is wide: the faces' float32 edge tests
+    accept pixels outside the faces' vertex bboxes."""
+    rng = np.random.default_rng(2)
+    B, Fn, H, W = 1, 3000, 64, 64
+    ctr = rng.uniform(0.5, 0.98, (B, Fn, 1, 2))
+    size = 10.0 ** rng.uniform(-5, -3, (B, Fn, 1, 1))
+    xy = ctr + rng.uniform(-1, 1, (B, Fn, 3, 2)) * size
+    z = rng.uniform(0.2, 0.8, (B, Fn, 3, 1))
+    v = np.concatenate([xy, z], -1).reshape(B, 3 * Fn, 3)
+    v_clip = np.concatenate([v, np.ones((B, 3 * Fn, 1))], -1) \
+        .astype(np.float32)
+    faces = np.arange(3 * Fn).reshape(Fn, 3).astype(np.int32)
+    return (v_clip, v_clip[..., :3], faces, np.ones(Fn, bool), (H, W), 1024)
+
+
+def _jax(monkeypatch, scene, variant, cap="128", nsub=None, kernel=None):
+    """`rasterize_pallas` (interpret, fv_rows path) under A3D_RASTER_V; if
+    `kernel` is given, counts the calls of that Pallas kernel."""
+    v_clip, v_pos, faces, f_valid, res, chunk = scene
+    calls = []
+    if kernel is not None:
+        real = getattr(jrp, kernel)
+
+        def counted(*args, **kw):
+            calls.append(1)
+            return real(*args, **kw)
+        monkeypatch.setattr(jrp, kernel, counted)
+    monkeypatch.setenv("A3D_RASTER_V", str(variant))
+    monkeypatch.setenv("A3D_V6_CAP", cap)
+    if nsub is not None:
+        monkeypatch.setenv("A3D_NSUB", str(nsub))
+    jrp.rasterize_pallas.clear_cache()
+    try:
+        B, V = v_clip.shape[:2]
+        vc = jnp.asarray(v_clip)
+        tab = jnp.concatenate([jnp.asarray(v_pos), vc], -1) \
+            .transpose(1, 0, 2).reshape(V, B * 7)
+        f = jnp.asarray(faces)
+        out = jrp.rasterize_pallas(vc, f, jnp.asarray(f_valid), res,
+                                   chunk=chunk, interpret=True,
+                                   fv_rows=tab[f])
+    finally:
+        monkeypatch.delenv("A3D_RASTER_V")
+        monkeypatch.delenv("A3D_V6_CAP")
+        monkeypatch.delenv("A3D_NSUB", raising=False)
+        jrp.rasterize_pallas.clear_cache()
+    assert kernel is None or calls, f"{kernel} was not traced"
+    return out
+
+
+def _port(scene, variant, cap=128, nsub=rc.NSUB):
+    v_clip, v_pos, faces, f_valid, res, chunk = scene
+    t = torch.from_numpy
+    return rc.rasterize_cuda(t(v_clip), t(faces).long(), t(f_valid), res,
+                             t(v_pos[0]), chunk=chunk, variant=variant,
+                             v6_cap=cap, nsub=nsub)
+
+
+def _assert_flags_cover_winners(rast, scene, variant, nsub=rc.NSUB):
+    """Every (image, tile) flags the chunk that holds each of its final
+    winners, and flags only chunks that overlap it (as
+    `tests/test_torch_raster.py:131`)."""
+    v_clip, v_pos, faces, f_valid, res, chunk = scene
+    t = torch.from_numpy
+    prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
+                      res, chunk, nsub, variant)
+    fid, flags = rast.face_id.numpy(), rast.flags.numpy()
+    assert not (flags & ~(prep["masks"].numpy() > 0)).any()
+    H, W = fid.shape[1:]
+    slot = np.empty(prep["orig"].numel(), np.int64)
+    slot[prep["orig"].numpy()] = np.arange(prep["orig"].numel())
+    ys, xs = np.nonzero(np.ones((H, W), bool))
+    for b in range(fid.shape[0]):
+        f = fid[b, ys, xs]
+        hit = f > 0
+        tiles = (ys[hit] // rc.TILE_H) * (W // rc.TILE_W) + xs[hit] // rc.TILE_W
+        assert flags[b, tiles, slot[f[hit] - 1] // chunk].all()
+
+
+def test_v4_plain_version_matches_pallas_v4_interpret(monkeypatch):
+    """Variant 4 at chunk 256 (sub-blocks of 32 faces, the shape on which
+    the JAX package runs `_raster_kernel_v4`; at chunk 64 it silently runs
+    v3): face_id equal except on float32 ties checked in float64, z within
+    1e-4 (`assert_same_visibility`), flags a superset of the winners."""
+    scene = _v4_scene()
+    want = _jax(monkeypatch, scene, 4, kernel="_raster_kernel_v4")
+    got = _port(scene, 4)
+    assert int((got.face_id > 0).sum()) > 500
+    assert_same_visibility(got.face_id.numpy(), want.face_id, got.z.numpy(),
+                           want.z, scene[0], scene[2])
+    _assert_flags_cover_winners(got, scene, 4)
+
+
+@pytest.mark.parametrize("cap", ["128", "2"])
+def test_v6_plain_version_matches_pallas_v6_interpret(monkeypatch, cap):
+    """Variant 6 on the random scene (chunk 8, units of one face), with the
+    unit lists capped at 128 and at 2 (the full-scan fallback for most
+    tiles): face_id and z as above against `_raster_kernel_v6`, and the
+    port's chunk flags a superset of the winners."""
+    scene = _random_scene()
+    want = _jax(monkeypatch, scene, 6, cap=cap, kernel="_raster_kernel_v6")
+    got = _port(scene, 6, cap=int(cap))
+    assert_same_visibility(got.face_id.numpy(), want.face_id, got.z.numpy(),
+                           want.z, scene[0], scene[2])
+    _assert_flags_cover_winners(got, scene, 6)
+    if cap == "2":
+        v_clip, v_pos, faces, f_valid, res, chunk = scene
+        t = torch.from_numpy
+        prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(),
+                          t(f_valid), res, chunk, variant=6, v6_cap=2)
+        assert int((prep["counts6"] > prep["S"]).sum()) > 0
+
+
+def test_v6_depth_stack_with_two_sub_blocks(monkeypatch):
+    """The exact-z-tie and occlusion stack of
+    `tests/test_rasterize_pallas.py:347` at chunk 2 with nsub 2 (units of
+    one face): identical face_id, z within 1e-5, the tie to the smaller
+    id."""
+    scene = _depth_stack_scene()
+    want = _jax(monkeypatch, scene, 6, nsub=2, kernel="_raster_kernel_v6")
+    got = _port(scene, 6, nsub=2)
+    np.testing.assert_array_equal(got.face_id.numpy(),
+                                  np.asarray(want.face_id))
+    np.testing.assert_allclose(got.z.numpy(), np.asarray(want.z), atol=1e-5)
+    assert set(np.unique(got.face_id.numpy())) <= {1, 2}
+    _assert_flags_cover_winners(got, scene, 6, nsub=2)
+
+
+@pytest.mark.parametrize("cap", [128, 2])
+@pytest.mark.parametrize("make", [_random_scene, _depth_stack_scene,
+                                  _sphere_scene, _v4_scene])
+def test_v6_plain_version_equals_v3_plain_version(make, cap):
+    """Variant 6 computes K1's function: z and face_id identical to the v3
+    plain version, bit for bit, with and without the overflow scan, on
+    scenes where no face's depth at a pixel falls below the least vertex
+    depth its chunk or unit is skipped by (where one does, the per-unit
+    and the per-chunk skip may keep different winners; `chip_smoke.py`
+    checks those pixels on the full-width meshes). The slot flags differ
+    by design: the skip is per unit."""
+    scene = make()
+    nsub = 2 if make is _depth_stack_scene else rc.NSUB
+    got = _port(scene, 6, cap=cap, nsub=nsub)
+    want = _port(scene, 3, nsub=nsub)
+    assert torch.equal(got.face_id, want.face_id)
+    assert torch.equal(got.z, want.z)
+
+
+@pytest.mark.parametrize("make", [_v4_scene, _sliver_scene, _sphere_scene])
+def test_cull_boxes_hold_every_accepted_pixel(make):
+    """Variant 4 tests a face only on the pixels of its cull box. Every
+    pixel centre whose float32 edge tests (a·px + b·py) + c ≥ 0 accept it
+    lies in the box, on the sliver scene too, where the accepted pixels
+    leave the faces' vertex bboxes."""
+    v_clip, v_pos, faces, f_valid, res, chunk = make()
+    t = torch.from_numpy
+    prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
+                      res, chunk, variant=4 if chunk % 256 == 0 else 3)
+    table = prep["table"]
+    box = rc.cull_boxes(table, res).long()
+    B, nch, _rows, chunk = table.shape
+    H, W = res
+    ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    X, Y = xs.reshape(-1).float() + 0.5, ys.reshape(-1).float() + 0.5
+    coef = table.permute(0, 1, 3, 2).reshape(B, nch * chunk, 12)
+    accepted = 0
+    for b in range(B):
+        c = coef[b]
+        e = [rc.affine(c[:, i, None], c[:, i + 4, None], c[:, i + 8, None],
+                       X, Y) >= 0 for i in range(3)]
+        hit = e[0] & e[1] & e[2]
+        bx = box[b]
+        inside = ((xs.reshape(-1) >= bx[:, 0:1]) & (xs.reshape(-1) <= bx[:, 1:2])
+                  & (ys.reshape(-1) >= bx[:, 2:3])
+                  & (ys.reshape(-1) <= bx[:, 3:4]))
+        assert not (hit & ~inside).any()
+        # an invalid face covers nothing and has an empty box
+        empty = (bx[:, 0] > bx[:, 1]) | (bx[:, 2] > bx[:, 3])
+        assert not hit[empty].any()
+        print(f"image {b}: accepted pairs {int(hit.sum())}, box pairs "
+              f"{int(inside.sum())}, empty boxes {int(empty.sum())}")
+        accepted += int(hit.sum())
+    assert accepted > 0
+
+
+def test_variants_reject_shapes_they_cannot_run():
+    """A variant that cannot run raises (the JAX package falls back to v3
+    instead): variant 4 needs sub-blocks of a multiple of 32 faces,
+    variant 6 more than one sub-block per chunk; other variants and
+    selectors are refused too."""
+    v_clip, v_pos, faces, f_valid, res, _chunk = _random_scene()
+    t = torch.from_numpy
+    args = (t(v_clip), t(faces).long(), t(f_valid), res, t(v_pos[0]))
+    for kw in (dict(variant=4, chunk=64), dict(variant=4, chunk=256, nsub=16),
+               dict(variant=6, chunk=2), dict(variant=6, chunk=12),
+               dict(variant=6, chunk=64, nsub=1), dict(variant=5),
+               dict(variant=3, nsub=0)):
+        with pytest.raises(ValueError):
+            rc.rasterize_cuda(*args, **kw)
+    rc.rasterize_cuda(*args, variant=4, chunk=256)
+    rc.rasterize_cuda(*args, variant=6, chunk=16)
+    prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
+                      res, 256, variant=4)
+    with pytest.raises(ValueError):
+        rc.visibility_v4(prep["table"], prep["orig"], prep["order"],
+                         prep["counts"], prep["masks"], prep["zlo"],
+                         prep["fbox"].int(), res, prep["nsub"])
