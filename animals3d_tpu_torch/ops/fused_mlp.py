@@ -5,15 +5,29 @@ Port of the Pallas kernels `_fwd_kernel` and `_bwd_kernel`
 (`animals3d_tpu/ops/fused_mlp.py:59,76`, called through `mlp_sweep`). The
 netSDF trunk — in-layer + bias, relu, L-1 bias-free 256-wide layers with a
 relu between them, a final 256 → 1 layer — is evaluated at every row of
-the embedded lattice (2.1M rows at grid 128) with a tile of rows resident
-in shared memory across all layers, so no (N, 256) activation reaches
-device memory; the backward recomputes the activations per tile and
-accumulates the weight gradients.
+the embedded lattice (2.1M rows at grid 128) without any (N, 256)
+activation of the whole lattice in device memory.
+
+Forward (`fused_mlp_fwd`): one kernel, a tile of rows resident in shared
+memory across all layers. Backward (`fused_mlp_bwd`), bf16: per chunk of
+at most `CHUNK_ROWS` rows (`bwd_plan`), a chain pass recomputes the
+activations per 128-row tile, walks the cotangent back and writes the bf16
+operands of the weight gradients and the input rows (4.7 KB per row) to a
+scratch reused from chunk to chunk (305 MiB at the default C = 67,584
+rows), then a weight-gradient pass multiplies them out as GEMMs over the
+chunk's rows into fixed per-block float32 partials; one reduce sums the
+partials in a fixed order. Both passes run on the tensor cores (wgmma)
+from shared memory; the chain pass reads the weights as `weight_stream`
+lays them out.
+float32: one kernel with per-block partials and its reduce (the first
+design; the float32 policy's references only). The kernels are bound by
+operations: 2·N·(D·256 + (L-1)·256² + 256) forward and about three times
+that backward, 1.20 and 3.53 ms in bf16 on an H100 at full width.
 
 Numerics (the Pallas kernels'): operands in the compute type of the
-precision policy, float32 accumulation, every layer's output rounded to
-the compute type. The kernels are bound by operations (tensor cores in
-bf16); see the note in the source for the design.
+precision policy, float32 accumulation, every layer's output and every
+masked cotangent rounded to the compute type. Two calls give the same
+bits: every sum has a fixed order and no float atomics.
 
 Positions are not differentiated: `mlp_sweep` raises if the embedded input
 requires grad. The Function has no double backward; the eikonal term goes
@@ -24,6 +38,9 @@ launch the kernels or raise.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from animals3d_tpu_torch.precision import compute_dtype
@@ -31,7 +48,27 @@ from animals3d_tpu_torch.precision import compute_dtype
 NF = 256             # hidden width the kernels are written for
 KPAD = 64            # the input width is zero-padded to a multiple of this
 NUM_BLOCKS = 132     # fixed grid: one block per SM of an H100
+TILE_ROWS = 128      # rows per tile of the bf16 chain pass
+# rows per chunk: 4 tiles per block of the chain pass (the scratch, 305
+# MiB, stays under 512 MiB; fewer, larger chunks cut the partials'
+# read-modify-write and the launches, 32 chunks at full width)
+CHUNK_ROWS = 4 * NUM_BLOCKS * TILE_ROWS
+WGRAD_SPLITS = 14    # row splits per weight-gradient tile (9 x 14 blocks)
 _PLAIN_ROWS = 1 << 18
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """`bwd_plan`'s result. chunks: (first row, rows) per chunk; C: rows
+    per chunk (the scratch's plane height); plane_offsets: the element
+    offset of each scratch plane; scratch_elems; chain_blocks: the chain
+    pass's grid; splits: the weight-gradient pass's row splits."""
+    chunks: tuple
+    C: int
+    plane_offsets: tuple
+    scratch_elems: int
+    chain_blocks: int
+    splits: int
 
 
 def _check(e, win, b, ws, wlast):
@@ -135,12 +172,132 @@ def fused_mlp_fwd(e, win, b, ws, wlast):
 fused_mlp_fwd.launches = 0
 
 
+def bwd_plan(N: int, L: int, dp: int = KPAD,
+             chunk_rows: int = CHUNK_ROWS) -> BwdPlan:
+    """How the bf16 backward walks N rows of an L-layer trunk with inputs
+    of width dp: chunks of at most C rows (C = `chunk_rows`, cut to N
+    rounded up to a tile when N is smaller), each run by one chain-pass
+    launch and one weight-gradient launch through one scratch, reused from
+    chunk to chunk: 2L - 1 planes (C, 256) bf16 (a_0 .. a_{L-2}, d_0 ..
+    d_{L-1}) and one (C, dp) plane of the input rows. Pure: no tensor, no
+    device."""
+    if chunk_rows <= 0 or chunk_rows % TILE_ROWS:
+        raise ValueError(f"chunk_rows {chunk_rows}: want a positive "
+                         f"multiple of {TILE_ROWS}")
+    if N < 0 or L < 2:
+        raise ValueError(f"N {N}, L {L}")
+    C = min(chunk_rows, -(-N // TILE_ROWS) * TILE_ROWS)
+    chunks = tuple((r0, min(C, N - r0)) for r0 in range(0, N, C or 1))
+    offsets = tuple(p * C * NF for p in range(2 * L))
+    chain_blocks = min(NUM_BLOCKS, C // TILE_ROWS) if C else 0
+    return BwdPlan(chunks, C, offsets, offsets[-1] + C * dp, chain_blocks,
+                   WGRAD_SPLITS)
+
+
+SLICE_ROWS = 32      # rows of a weight matrix per slice of the stream
+
+
+def slice_layout() -> torch.Tensor:
+    """Where element (k, n) of a (32, 256) weight slice sits in the chain
+    pass's shared-memory image of it: wgmma's MN-major layout with the
+    128-byte swizzle (atoms of 8 rows x 64 columns, 1024 bytes; the 16-byte
+    chunk j of atom row i at chunk j ^ i). (8192,) int64, row-major (k, n)."""
+    k = torch.arange(SLICE_ROWS)[:, None]
+    n = torch.arange(NF)[None, :]
+    return ((k >> 3) * (8 * NF) + (n >> 6) * 512 + (k & 7) * 64
+            + ((((n >> 3) & 7) ^ (k & 7)) << 3) + (n & 7)).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_gather(device) -> torch.Tensor:
+    """The slice element that lands at each position of the image."""
+    return torch.argsort(slice_layout()).to(device)
+
+
+def weight_stream(win, ws) -> torch.Tensor:
+    """The weights in the order the chain pass reads them — win, ws[0 ..
+    L-2] (recomputed forward), ws[L-2 .. 0]^T (the cotangent's way back) —
+    cut into (32, 256) slices, each in its shared-memory image
+    (`slice_layout`), so that one bulk copy brings a slice. A layout
+    change of 0.5 MB; no arithmetic."""
+    rows = torch.cat([win.reshape(-1, SLICE_ROWS * NF),
+                      ws.reshape(-1, SLICE_ROWS * NF),
+                      ws.flip(0).transpose(1, 2).reshape(-1, SLICE_ROWS * NF)])
+    return rows.index_select(1, _slice_gather(win.device))
+
+
+class BwdRun:
+    """The device work of one bf16 `fused_mlp_bwd` call on a plan: its
+    buffers, and one launch function per pass (`chain(i)` and `wgrad(i)`
+    for chunk i, `reduce()`), each one kernel on the current stream."""
+
+    def __init__(self, e, g, win, b, ws, wlast, plan):
+        from animals3d_tpu_torch.ops.rasterize_cuda import library
+        dev = e.device
+        self.plan, self.lib = plan, library()
+        N, self.dp = e.shape
+        self.L = ws.shape[0] + 1
+        self.psz = self.dp * NF + NF + (self.L - 1) * NF * NF + NF
+        self.out = torch.empty((self.psz,), dtype=torch.float32, device=dev)
+        self.scratch = torch.empty((plan.scratch_elems,), dtype=e.dtype,
+                                   device=dev)
+        self.part = torch.empty((plan.splits, self.psz), dtype=torch.float32,
+                                device=dev)
+        self.part2 = torch.empty((plan.chain_blocks, 2 * NF),
+                                 dtype=torch.float32, device=dev)
+        self.wstream = weight_stream(win, ws)
+        with torch.cuda.device(dev):
+            self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.chain_args = [t.data_ptr() for t in (e, g, self.wstream, b,
+                                                  wlast, self.scratch,
+                                                  self.part2)]
+
+    def _check(self, name, err):
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+    def chain(self, i):
+        r0, rows = self.plan.chunks[i]
+        self._check("fused_mlp_bwd_chain", self.lib.fused_mlp_bwd_chain_launch(
+            *self.chain_args, r0, rows, self.plan.C, self.dp, self.L,
+            self.plan.chain_blocks, int(i == 0), self.stream))
+
+    def wgrad(self, i):
+        _r0, rows = self.plan.chunks[i]
+        self._check("fused_mlp_bwd_wgrad", self.lib.fused_mlp_bwd_wgrad_launch(
+            self.scratch.data_ptr(), self.part.data_ptr(), rows, self.plan.C,
+            self.dp, self.L, self.plan.splits, int(i == 0), self.stream))
+
+    def reduce(self):
+        self._check("fused_mlp_bwd_reduce",
+                    self.lib.fused_mlp_bwd_reduce_launch(
+                        self.part.data_ptr(), self.plan.splits,
+                        self.part2.data_ptr(), self.plan.chain_blocks,
+                        self.out.data_ptr(), self.dp, self.L, self.stream))
+
+    def launches(self) -> int:
+        """Device launches of one call: two per chunk and the reduce."""
+        return 2 * len(self.plan.chunks) + 1
+
+
+def _grads(out, dp, nl):
+    """dwin, db, dws, dwlast from the kernels' layout (the transposes,
+    rows = output feature)."""
+    o0, o1, o2 = dp * NF, dp * NF + NF, dp * NF + NF + nl * NF * NF
+    return (out[:o0].view(NF, dp).T, out[o0:o1],
+            out[o1:o2].view(nl, NF, NF).transpose(1, 2), out[o2:])
+
+
 def fused_mlp_bwd(e, g, win, b, ws, wlast):
     """Gradients of sum(out · g) with respect to the weights, as
-    `fused_mlp_bwd_reference` returns them; g (N,) float32. The CUDA kernel
-    for CUDA tensors (a fixed grid and a fixed reduction order: the result
-    does not change from run to run), the plain version for CPU tensors.
-    Adds one to `fused_mlp_bwd.launches` per kernel launch."""
+    `fused_mlp_bwd_reference` returns them; g (N,) float32. The CUDA
+    kernels for CUDA tensors, the plain version for CPU tensors. bf16: the
+    chain pass and the weight-gradient pass per chunk of at most
+    `CHUNK_ROWS` rows (`bwd_plan`), then the reduce; float32: one kernel and
+    its reduce.
+    Both have a fixed grid and a fixed reduction order: the result does
+    not change from run to run. Adds one to `fused_mlp_bwd.launches` per
+    call that launches kernels."""
     dev = e.device
     if dev.type == "cpu":
         return fused_mlp_bwd_reference(e, g, win, b, ws, wlast)
@@ -153,18 +310,27 @@ def fused_mlp_bwd(e, g, win, b, ws, wlast):
         raise ValueError(f"g: want contiguous float32 ({N},) on {dev}")
     from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     nl = ws.shape[0]
+    if e.dtype == torch.bfloat16:
+        plan = bwd_plan(N, nl + 1, dp, CHUNK_ROWS)
+        if not plan.chunks:
+            return _grads(torch.zeros((dp * NF + NF + nl * NF * NF + NF,),
+                                      dtype=torch.float32, device=dev),
+                          dp, nl)
+        run = BwdRun(e, g, win, b, ws, wlast, plan)
+        for i in range(len(plan.chunks)):
+            run.chain(i)
+            run.wgrad(i)
+        run.reduce()
+        fused_mlp_bwd.launches += 1
+        return _grads(run.out, dp, nl)
     psz = dp * NF + NF + nl * NF * NF + NF
     out = torch.empty((psz,), dtype=torch.float32, device=dev)
     partial = torch.zeros((NUM_BLOCKS, psz), dtype=torch.float32, device=dev)
     wts = ws.transpose(1, 2).contiguous()
-    _launch("fused_mlp_bwd", library().fused_mlp_bwd_launch, e, g, win, b,
-            ws, wts, wlast, partial, out, N, dp, nl + 1, NUM_BLOCKS,
-            int(e.dtype == torch.bfloat16))
+    _launch("fused_mlp_bwd", library().fused_mlp_bwd_f32_launch, e, g, win,
+            b, ws, wts, wlast, partial, out, N, dp, nl + 1, NUM_BLOCKS)
     fused_mlp_bwd.launches += 1
-    o0, o1, o2 = dp * NF, dp * NF + NF, dp * NF + NF + nl * NF * NF
-    # the kernel accumulates the transposes (rows = output feature)
-    return (out[:o0].view(NF, dp).T, out[o0:o1],
-            out[o1:o2].view(nl, NF, NF).transpose(1, 2), out[o2:])
+    return _grads(out, dp, nl)
 
 
 fused_mlp_bwd.launches = 0

@@ -605,13 +605,22 @@ def library():
         lib.raster_vis_v6_launch.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
         lib.fused_mlp_fwd_launch.argtypes = [ptr] * 6 + [i64] + [i32] * 4 \
             + [ptr]
-        lib.fused_mlp_bwd_launch.argtypes = [ptr] * 9 + [i64] + [i32] * 4 \
-            + [ptr]
+        lib.fused_mlp_bwd_f32_launch.argtypes = [ptr] * 9 + [i64] \
+            + [i32] * 3 + [ptr]
+        lib.fused_mlp_bwd_chain_launch.argtypes = [ptr] * 7 + [i64] * 3 \
+            + [i32] * 4 + [ptr]
+        lib.fused_mlp_bwd_wgrad_launch.argtypes = [ptr] * 2 + [i64] * 2 \
+            + [i32] * 4 + [ptr]
+        lib.fused_mlp_bwd_reduce_launch.argtypes = [ptr, i32, ptr, i32, ptr,
+                                                    i32, i32, ptr]
         lib.resolve_bwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.resolve_fwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         for fn in (lib.raster_vis_launch, lib.raster_vis_v4_launch,
                    lib.raster_vis_v6_launch, lib.fused_mlp_fwd_launch,
-                   lib.fused_mlp_bwd_launch, lib.resolve_bwd_launch,
+                   lib.fused_mlp_bwd_f32_launch,
+                   lib.fused_mlp_bwd_chain_launch,
+                   lib.fused_mlp_bwd_wgrad_launch,
+                   lib.fused_mlp_bwd_reduce_launch, lib.resolve_bwd_launch,
                    lib.resolve_fwd_launch):
             fn.restype = ctypes.c_int
         _LIB = lib

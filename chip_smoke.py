@@ -29,7 +29,10 @@ Phases, in this order, each fatal on failure:
      the fused netSDF sweep, forward and backward, against its plain
      versions at the full-width shape (the embedded jittered 129³ lattice,
      weights of `init_params(0)`) and at a ragged small N, in bf16 and
-     float32; the resolve backward against its plain version on the
+     float32, the backward also bit-identical across two calls, and the
+     bf16 backward's three passes (chain, weight-gradient, reduce) timed
+     one at a time with its chunk rows, scratch bytes and device launches
+     per call; the resolve backward against its plain version on the
      training step's own winner ids with a random cotangent (10, 65,536,
      42) and on the depth-stack scene, where one face collects hundreds of
      pixels; and the resolve-rows forward K5 against its plain version and
@@ -578,6 +581,10 @@ def sweep_phase(model):
             if not gerr <= gtol:
                 raise AssertionError(f"fused_mlp_bwd[{name}, N={N}] grads "
                                      f"differ by {gerr} of their norm")
+            again = fm.fused_mlp_bwd(ops_[0], g, *ops_[1:])
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"fused_mlp_bwd[{name}, N={N}]: two "
+                                     "calls give different gradients")
             if n_rows is not None:
                 ragged_row_check(fm, ops_, out, want, tol, gtol, name)
                 continue
@@ -615,9 +622,36 @@ def sweep_phase(model):
                     plain_ms, bytes_ms, ops_ms))
             if not f32:
                 entries = {r["name"]: r for r in rows}
+                bwd_passes(fm, ops_, g)
             full = N
     unfused_sweep_line(model, full)
     return entries["fused_mlp_fwd"], entries["fused_mlp_bwd"]
+
+
+def bwd_passes(fm, ops_, g):
+    """K7's passes timed one at a time over all chunks of the default plan
+    (CUDA events, medians), with the plan's chunk rows C, its scratch and
+    partial bytes and the device launches of one call."""
+    import torch
+    ep = ops_[0]
+    N = ep.shape[0]
+    plan = fm.bwd_plan(N, ops_[3].shape[0] + 1, ep.shape[1])
+    run = fm.BwdRun(ep, g, *ops_[1:], plan)
+    nc = len(plan.chunks)
+    chain = median_ms(lambda: [run.chain(i) for i in range(nc)])
+    wgrad = median_ms(lambda: [run.wgrad(i) for i in range(nc)])
+    reduce = median_ms(run.reduce)
+    part = (run.part.numel() + run.part2.numel()) * 4
+    print(f"fused_mlp_bwd[bf16, N={N}] passes: chain {chain:.4f} ms, "
+          f"weight-gradient {wgrad:.4f} ms, reduce {reduce:.4f} ms (each "
+          f"over all {nc} chunks); C {plan.C} rows, scratch "
+          f"{plan.scratch_elems * ep.element_size()} bytes "
+          f"({plan.scratch_elems * ep.element_size() / 2**20:.1f} MiB), "
+          f"partials {part} bytes, weight stream "
+          f"{run.wstream.numel() * ep.element_size()} bytes, device launches "
+          f"per call {run.launches()} ({nc} chain, {nc} weight-gradient, 1 "
+          f"reduce); card {card_line()}")
+    torch.cuda.synchronize()
 
 
 def ragged_row_check(fm, ops_, out, want, tol, gtol, name):

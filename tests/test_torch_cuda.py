@@ -154,6 +154,43 @@ def test_fused_mlp_kernels_equal_plain_version(card, n, dp, nl, dtype):
         assert torch.equal(a, c)       # fixed grid, fixed reduction order
 
 
+@pytest.mark.parametrize("n,nl,chunk_rows", [
+    (1000, 4, 256),       # four chunks, the last ragged, its last tile too
+    (3 * 384 + 77, 2, 384),
+    (50, 4, None),        # fewer rows than one tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_bwd_chunks_equal_plain_version(card, monkeypatch, n, nl,
+                                                  chunk_rows, dtype):
+    """The backward over several chunks of the bf16 plan (`CHUNK_ROWS` set
+    small, so that N spans at least three chunks and ends in a ragged chunk
+    and a ragged tile) and over fewer rows than one tile: every gradient
+    within the limits of `test_fused_mlp_kernels_equal_plain_version` (2e-3
+    of its norm in bf16, 1e-4 in float32, which has no chunks), identical
+    across two calls, one launch counted per call."""
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if chunk_rows is not None:
+        monkeypatch.setattr(fm, "CHUNK_ROWS", chunk_rows)
+        assert len(fm.bwd_plan(n, nl + 1, 64, chunk_rows).chunks) >= 3
+    e, win, b, ws, wlast, g = _mlp_inputs(np.random.default_rng(n + nl), n,
+                                          64, nl, dtype, card)
+    before = fm.fused_mlp_bwd.launches
+    grads = fm.fused_mlp_bwd(e, g, win, b, ws, wlast)
+    again = fm.fused_mlp_bwd(e, g, win, b, ws, wlast)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_bwd.launches == before + 2
+    wgrads = fm.fused_mlp_bwd_reference(e, g, win, b, ws, wlast)
+    f32 = dtype == torch.float32
+    for name, a, w, c in zip(("dwin", "db", "dws", "dwlast"), grads, wgrads,
+                             again):
+        assert torch.isfinite(a).all(), name
+        err = float((a - w).norm() / w.norm())
+        assert err <= (1e-4 if f32 else 2e-3), (name, err)
+        assert torch.equal(a, c), name
+
+
 def test_mlp_sweep_function_on_card(card):
     """`mlp_sweep` through autograd on the card against the plain CoordMLP
     (float32): output rtol 2e-5, every parameter's grad 1e-4 of its norm;

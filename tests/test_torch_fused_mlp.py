@@ -224,3 +224,44 @@ def test_bf16_mode_close_to_f32():
     for name, p in tmlp.named_parameters():
         assert p.grad is not None and p.grad.dtype == torch.float32, name
         assert torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("n,chunk_rows", [
+    (0, fm.CHUNK_ROWS), (77, fm.CHUNK_ROWS), (3 * 512, 512),
+    (3 * 512 + 77, 512), (129 ** 3, fm.CHUNK_ROWS)])
+def test_bwd_plan_covers_every_row_once(n, chunk_rows):
+    """The bf16 backward's chunk plan (a pure function): every row in
+    exactly one chunk, chunks in order and at most C rows each, C a
+    multiple of the chain pass's tile and no larger than N needs, the
+    scratch planes (2L - 1 of (C, 256), then the (C, dp) input rows) side
+    by side without overlap, and the scratch within 512 MiB."""
+    L, dp = 5, 64
+    plan = fm.bwd_plan(n, L, dp, chunk_rows)
+    assert plan.C % fm.TILE_ROWS == 0 and plan.C <= chunk_rows
+    assert plan.C == min(chunk_rows, -(-n // fm.TILE_ROWS) * fm.TILE_ROWS)
+    seen = np.zeros(n, np.int64)
+    end = 0
+    for r0, rows in plan.chunks:
+        assert r0 == end and 0 < rows <= plan.C
+        seen[r0:r0 + rows] += 1
+        end = r0 + rows
+    assert end == n and (seen == 1).all()
+    assert len(plan.chunks) == -(-n // plan.C) if n else not plan.chunks
+    assert len(plan.plane_offsets) == 2 * L
+    widths = [fm.NF] * (2 * L - 1) + [dp]
+    spans = sorted((o, o + plan.C * w)
+                   for o, w in zip(plan.plane_offsets, widths))
+    assert spans[0][0] == 0 and spans[-1][1] == plan.scratch_elems
+    for (_, a_end), (b0, _) in zip(spans, spans[1:]):
+        assert a_end <= b0
+    assert plan.scratch_elems * 2 <= 512 * 2 ** 20
+    assert plan.splits == fm.WGRAD_SPLITS
+    assert plan.chain_blocks == (min(fm.NUM_BLOCKS, plan.C // fm.TILE_ROWS)
+                                 if n else 0)
+
+
+def test_bwd_plan_rejects_bad_chunks():
+    with pytest.raises(ValueError):
+        fm.bwd_plan(1000, 5, 64, fm.TILE_ROWS + 1)
+    with pytest.raises(ValueError):
+        fm.bwd_plan(1000, 5, 64, 0)
