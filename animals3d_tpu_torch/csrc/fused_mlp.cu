@@ -19,12 +19,30 @@
 // cotangent, against N (2 D + 4) bytes: bound by operations (1.20 and
 // 3.53 ms in bf16 at full width).
 //
-// Forward (K6, both types; unchanged since its first version). One block
-// of 256 threads takes a tile of ROWS rows (64 for bf16, 32 for float) and
-// loops over tiles blockIdx.x, blockIdx.x + gridDim.x, ...; two activation
-// buffers ping-pong; weights are read from global memory (L2). bf16
-// products run through nvcuda::wmma (warp w owns output columns [32w, 32w
-// + 32)), float products are FMA loops, thread t owning column t.
+// bf16 forward (K6, fused_mlp_fwd_wgmma_kernel): the forward half of the
+// backward's chain pass below. A persistent grid (one block of two
+// warpgroups per SM) walks 128-row tiles blockIdx.x, blockIdx.x +
+// gridDim.x, ...; each layer's product is a warpgroup MMA (wgmma
+// m64n256k16) with the activations as A in a K-major 128-byte-swizzled
+// tile buffer and the weights as B from the same weight stream, cut to its
+// forward prefix (win, ws[0..L-2]: DP / 32 + 8 (L - 1) slices per tile):
+// one bulk copy per (32, 256) slice into a 4-slot ring, two slices ahead,
+// one slice of products in flight, the stream running on across tiles.
+// Two tile buffers ping-pong. The last layer (256 -> 1) is folded into the
+// epilogue of a_{L-1}, which never reaches shared memory: each thread sums
+// a . wlast over its 64 columns of each of its two rows, and the four
+// threads of a row combine their sums by a fixed butterfly. The first
+// design (wmma 16x16x16 with B fragments straight from L2, a float32
+// staging round trip per fragment, the last layer as a separate pass) ran
+// at 10.5x the bound, this one at 2.2x on an H100 (700 W). What is left:
+// each layer's epilogue runs while the tensor cores wait, since a layer's
+// products need all of the previous layer's output.
+//
+// float32 forward (the float32 policy's card-vs-CPU references; off the
+// bf16 main path; wgmma has no float32 form): the first design, kept as it
+// is. One block of 256 threads takes a tile of 32 rows and loops over
+// tiles; two activation buffers ping-pong; weights are read from global
+// memory (L2) by FMA loops, thread t owning column t.
 //
 // bf16 backward (K7) in three kernels per call, in a loop over chunks of
 // C rows (`bwd_plan` in ops/fused_mlp.py). The TPU kernel accumulates the
@@ -70,18 +88,13 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 #define NF 256
 #define NTHREADS 256
 #define NWARPS 8
 #define PAD 8            // elements of padding per shared-memory row
 #define LDA (NF + PAD)
-#define STAGE_LD 20
-#define STAGE_SZ (16 * STAGE_LD)
 
 __device__ __forceinline__ float tof(float x) { return x; }
 __device__ __forceinline__ float tof(__nv_bfloat16 x) {
@@ -105,8 +118,7 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 // ep(r, c, value) is called once per element by the thread that owns it.
 template <int ROWS, class Ep>
 __device__ __forceinline__ void gemm_rows(const float* A, int lda, int K,
-                                          const float* B, float* /*stage*/,
-                                          Ep ep) {
+                                          const float* B, Ep ep) {
   const int t = threadIdx.x;
   float acc[ROWS];
 #pragma unroll
@@ -118,51 +130,6 @@ __device__ __forceinline__ void gemm_rows(const float* A, int lda, int K,
   }
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) ep(r, t, acc[r]);
-}
-
-template <int ROWS, class Ep>
-__device__ __forceinline__ void gemm_rows(const __nv_bfloat16* A, int lda,
-                                          int K, const __nv_bfloat16* B,
-                                          float* stage, Ep ep) {
-  constexpr int RT = ROWS / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = warp * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT][2];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fb[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(fb[j], B + (size_t)k * NF + col0 + 16 * j, NF);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, A + (size_t)(16 * i) * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa, fb[j],
-                                                 acc[i][j]);
-    }
-  }
-  float* st = stage + warp * STAGE_SZ;
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], STAGE_LD, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int idx = lane + 32 * q;
-        const int r = idx >> 4, c = idx & 15;
-        ep(16 * i + r, col0 + 16 * j + c, st[r * STAGE_LD + c]);
-      }
-      __syncwarp();
-    }
 }
 
 // PT[c][k] += sum_r DT[c][r] A[r][k] for c < 256, k < KIN: DT (256 x ROWS,
@@ -205,7 +172,6 @@ fused_mlp_fwd_kernel(const T* __restrict__ e, const T* __restrict__ win,
   T* buf0 = reinterpret_cast<T*>(smem_raw);
   T* buf1 = buf0 + ROWS * LDA;
   T* E = buf1 + ROWS * LDA;
-  float* stage = reinterpret_cast<float*>(E + ROWS * lde);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const long ntiles = (N + ROWS - 1) / ROWS;
   for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -215,13 +181,13 @@ fused_mlp_fwd_kernel(const T* __restrict__ e, const T* __restrict__ win,
     __syncthreads();
     T* cur = buf0;
     T* nxt = buf1;
-    gemm_rows<ROWS>(E, lde, DP, win, stage, [&](int r, int c, float v) {
+    gemm_rows<ROWS>(E, lde, DP, win, [&](int r, int c, float v) {
       const float z = rnd<T>(rnd<T>(v) + rnd<T>(b[c]));
       cur[r * LDA + c] = fromf<T>(fmaxf(z, 0.0f));
     });
     __syncthreads();
     for (int li = 0; li < L - 1; ++li) {
-      gemm_rows<ROWS>(cur, LDA, NF, ws + (size_t)li * NF * NF, stage,
+      gemm_rows<ROWS>(cur, LDA, NF, ws + (size_t)li * NF * NF,
                       [&](int r, int c, float v) {
                         nxt[r * LDA + c] = fromf<T>(fmaxf(rnd<T>(v), 0.0f));
                       });
@@ -252,8 +218,7 @@ fused_mlp_bwd_kernel(const T* __restrict__ e, const float* __restrict__ g,
   const int lde = DP + PAD;
   T* acts = reinterpret_cast<T*>(smem_raw);            // L x ROWS x LDA
   T* E = acts + (size_t)L * ROWS * LDA;
-  float* stage = reinterpret_cast<float*>(E + ROWS * lde);
-  float* gs = stage + NWARPS * STAGE_SZ;               // ROWS
+  float* gs = reinterpret_cast<float*>(E + ROWS * lde);  // ROWS
   const int ldt = ROWS + PAD;
   T* dT = reinterpret_cast<T*>(gs + ROWS);             // 256 x ldt
   const int t = threadIdx.x;
@@ -271,7 +236,7 @@ fused_mlp_bwd_kernel(const T* __restrict__ e, const float* __restrict__ g,
     if (t < ROWS) gs[t] = row0 + t < N ? rnd<T>(g[row0 + t]) : 0.0f;
     __syncthreads();
     // ---- recompute the activations a_0 .. a_{L-1} ----
-    gemm_rows<ROWS>(E, lde, DP, win, stage, [&](int r, int c, float v) {
+    gemm_rows<ROWS>(E, lde, DP, win, [&](int r, int c, float v) {
       const float z = rnd<T>(rnd<T>(v) + rnd<T>(b[c]));
       acts[r * LDA + c] = fromf<T>(fmaxf(z, 0.0f));
     });
@@ -279,7 +244,7 @@ fused_mlp_bwd_kernel(const T* __restrict__ e, const float* __restrict__ g,
     for (int li = 0; li < L - 1; ++li) {
       const T* cur = acts + (size_t)li * ROWS * LDA;
       T* nxt = acts + (size_t)(li + 1) * ROWS * LDA;
-      gemm_rows<ROWS>(cur, LDA, NF, ws + (size_t)li * NF * NF, stage,
+      gemm_rows<ROWS>(cur, LDA, NF, ws + (size_t)li * NF * NF,
                       [&](int r, int c, float v) {
                         nxt[r * LDA + c] = fromf<T>(fmaxf(rnd<T>(v), 0.0f));
                       });
@@ -306,7 +271,7 @@ fused_mlp_bwd_kernel(const T* __restrict__ e, const float* __restrict__ g,
       const T* d = acts + (size_t)(li + 1) * ROWS * LDA;
       accum_dta<ROWS>(dT, ldt, a, LDA, NF, P_w + (size_t)li * NF * NF);
       __syncthreads();
-      gemm_rows<ROWS>(d, LDA, NF, wts + (size_t)li * NF * NF, stage,
+      gemm_rows<ROWS>(d, LDA, NF, wts + (size_t)li * NF * NF,
                       [&](int r, int c, float v) {
                         const float av = tof(a[r * LDA + c]);
                         const T dv = fromf<T>(av > 0.0f ? v : 0.0f);
@@ -553,12 +518,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// The chain pass's weight stream: the K-slices (32 x 256) of the weight
-// matrices in the order the tile's products read them (win, ws[0..L-2]
-// for the recomputed forward, ws[L-2..0]^T for the cotangent), laid out by
-// the caller as the ring's own image of each slice (`moff`), so that one
-// bulk copy by thread 0 brings a slice; repeated for each of the block's
-// tiles, two slices ahead of the products, each slot with its mbarrier.
+// The weight stream of the chain pass and of the bf16 forward: the
+// K-slices (32 x 256) of the weight matrices in the order a tile's
+// products read them (win, ws[0..L-2] for the forward, ws[L-2..0]^T for
+// the cotangent), laid out by the caller as the ring's own image of each
+// slice (`moff`), so that one bulk copy by thread 0 brings a slice; its
+// first per_tile slices (all of them for the chain pass, the forward's for
+// the forward) repeated for each of the block's tiles, two slices ahead of
+// the products, each slot with its mbarrier.
 struct WeightStream {
   const bf16* src;
   bf16* ring;
@@ -656,6 +623,111 @@ __device__ __forceinline__ float column_sums(const float (&x)[128],
   return s;
 }
 
+// Rows [lr0, lr0 + 128) of e (DP wide, DP a multiple of 32) into the
+// K-major tile buffer E (`koff`), 16 bytes per thread and load; rows at or
+// past `rows` are zero.
+__device__ __forceinline__ void load_tile_rows(bf16* E,
+                                               const bf16* __restrict__ e,
+                                               long lr0, long rows, int DP) {
+  const int lane = threadIdx.x & 31, DC = DP / 8;
+  for (int c = threadIdx.x; c < CH_ROWS * DC; c += NTHREADS) {
+    const int w = c >> 5, gi = w / (DC / 4);
+    const int kc = 4 * (w % (DC / 4)) + (lane >> 3), r = 8 * gi + (lane & 7);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (lr0 + r < rows)
+      v = *reinterpret_cast<const uint4*>(e + (size_t)(lr0 + r) * DP + 8 * kc);
+    *reinterpret_cast<uint4*>(E + koff(r, 8 * kc)) = v;
+  }
+}
+
+// bf16 forward (K6) over the N rows of e: per 128-row tile, the in-layer
+// and the L - 1 hidden layers as chain_gemm products from the forward
+// prefix of the weight stream, a_li in buf[li % 2] (the input rows sit in
+// buf[1] while the first product runs). Each thread's elements are rows
+// r0, r0 + 8 and columns 8 j + 2 (lane % 4) + q, the same for every
+// layer. The last layer (256 -> 1) is folded into the epilogue of
+// a_{L-1}: a thread's 64 products per row summed in column order, then
+// over the row's four threads by a fixed butterfly; thread lane % 4 == 0
+// writes the row's output, rounded to bf16, for rows < N.
+__global__ void __launch_bounds__(NTHREADS, 1)
+fused_mlp_fwd_wgmma_kernel(const bf16* __restrict__ e,
+                           const bf16* __restrict__ wstream,
+                           const float* __restrict__ b,
+                           const bf16* __restrict__ wlast,
+                           float* __restrict__ out, long N, int DP, int L) {
+  extern __shared__ __align__(1024) unsigned char smem_sw[];
+  bf16* buf[2];
+  buf[0] = reinterpret_cast<bf16*>(smem_sw);         // 128 x 256 each
+  buf[1] = buf[0] + TILE_ELEMS;
+  bf16* ring = buf[1] + TILE_ELEMS;                   // CH_NST slices
+  float* sb = reinterpret_cast<float*>(ring + CH_NST * CH_SLICE);  // bias
+  float* sw = sb + NF;                                // wlast
+  uint64_t* full = reinterpret_cast<uint64_t*>(sw + NF);
+  const int t = threadIdx.x, lane = t & 31, tq = lane & 3;
+  const int r0 = 64 * (t >> 7) + 16 * ((t >> 5) & 3) + (lane >> 2);
+  const long ntiles = (N + CH_ROWS - 1) / CH_ROWS;
+  const int mine = ntiles > (long)blockIdx.x
+      ? (int)((ntiles - 1 - (long)blockIdx.x) / gridDim.x) + 1 : 0;
+  const int nwin = DP / CH_KS;
+  WeightStream st;
+  st.src = wstream; st.ring = ring; st.full = full;
+  st.per_tile = nwin + (L - 1) * (NF / CH_KS);
+  st.left = mine * st.per_tile;
+  st.slot = 0; st.put = 0; st.get = 0; st.used = 0;
+  if (t == 0) {
+    for (int i = 0; i < CH_NST; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < CH_NST - 2; ++i) st.issue();
+  sb[t] = rnd<bf16>(b[t]);
+  sw[t] = tof(wlast[t]);
+  float acc[128];
+  for (int it = 0; it < mine; ++it) {
+    const long lr0 = ((long)blockIdx.x + (long)it * gridDim.x) * CH_ROWS;
+    // both warpgroups' last products of the previous tile are done
+    __syncthreads();
+    load_tile_rows(buf[1], e, lr0, N, DP);
+    for (int li = 0; li < L - 1; ++li) {
+      chain_gemm(st, buf[(li + 1) & 1], li ? NF / CH_KS : nwin, acc,
+                 nullptr);
+      bf16* o = buf[li & 1];
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h, c = 8 * j + 2 * tq;
+          float x0 = acc[i], x1 = acc[i + 1];
+          if (li == 0) {
+            x0 = rnd<bf16>(x0) + sb[c];
+            x1 = rnd<bf16>(x1) + sb[c + 1];
+          }
+          *reinterpret_cast<__nv_bfloat162*>(o + koff(r0 + 8 * h, c)) =
+              __floats2bfloat162_rn(fmaxf(x0, 0.0f), fmaxf(x1, 0.0f));
+        }
+    }
+    // ---- a_{L-1} and the last layer ----
+    chain_gemm(st, buf[L & 1], NF / CH_KS, acc, nullptr);
+    float s[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = 4 * j + 2 * h + q, c = 8 * j + 2 * tq + q;
+          s[h] = fmaf(rnd<bf16>(fmaxf(acc[i], 0.0f)), sw[c], s[h]);
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+      const long row = lr0 + r0 + 8 * h;
+      if (tq == 0 && row < N) out[row] = rnd<bf16>(s[h]);
+    }
+  }
+}
+
 // Chain pass over the rows [row0, row0 + rows) of one chunk (rows <= C):
 // per 128-row tile, recompute a_0 .. a_{L-1} and walk the cotangent back.
 // The bf16 operands of the weight gradients go to the scratch (2L - 1
@@ -713,22 +785,13 @@ fused_mlp_chain_kernel(const bf16* __restrict__ e, const float* __restrict__ g,
   sw[t] = tof(wlast[t]);
   float acc[128];
   float db_sum = 0.0f, dwl_sum = 0.0f;
-  const int DC = DP / 8;
   for (int it = 0; it < mine; ++it) {
     const long lr0 = (long)(blockIdx.x + it * gridDim.x) * CH_ROWS;
     bf16* const blk = scratch + (size_t)lr0 * NF;     // this tile's blocks
     // buf[1]'s last bulk store (d_1 of the previous tile) has read it
     if (t == 0) bulk_wait_read<1>();
     __syncthreads();
-    for (int c = t; c < CH_ROWS * DC; c += NTHREADS) {
-      const int w = c >> 5, gi = w / (DC / 4);
-      const int kc = 4 * (w % (DC / 4)) + (lane >> 3), r = 8 * gi + (lane & 7);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (lr0 + r < rows)
-        v = *reinterpret_cast<const uint4*>(e + (size_t)(row0 + lr0 + r) *
-                                                    DP + 8 * kc);
-      *reinterpret_cast<uint4*>(E + koff(r, 8 * kc)) = v;
-    }
+    load_tile_rows(E, e + (size_t)row0 * DP, lr0, rows, DP);
     if (t < CH_ROWS)
       gs[t] = lr0 + t < rows ? rnd<bf16>(g[row0 + lr0 + t]) : 0.0f;
     // ---- recompute a_0 .. a_{L-2}: a_li in buf[li % 2] ----
@@ -981,37 +1044,50 @@ __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ part,
 
 #define MAX_SMEM 232448
 
-template <typename T, int ROWS>
-static int launch_fwd(const void* e, const void* win, const float* b,
-                      const void* ws, const void* wlast, float* out, long N,
-                      int DP, int L, int nblk, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * ROWS * LDA * sizeof(T) +
-                      (size_t)ROWS * (DP + PAD) * sizeof(T) +
-                      (size_t)NWARPS * STAGE_SZ * sizeof(float);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+// bf16 forward (K6) over e (N, DP); wstream: `weight_stream`, of which the
+// kernel reads the first DP / 32 + 8 (L - 1) slices; out (N) float.
+// Returns a cudaError.
+extern "C" int fused_mlp_fwd_bf16_launch(const void* e, const void* wstream,
+                                         const float* b, const void* wlast,
+                                         float* out, long N, int DP, int L,
+                                         int nblk, void* stream) {
+  if (DP % 64 || DP <= 0 || DP > NF || L < 2 || nblk <= 0 || N <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * TILE_ELEMS * sizeof(bf16) +
+                      (size_t)CH_NST * CH_SLICE * sizeof(bf16) +
+                      (size_t)2 * NF * sizeof(float) +
+                      CH_NST * sizeof(uint64_t);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<T, ROWS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_mlp_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mlp_fwd_kernel<T, ROWS><<<nblk, NTHREADS, smem, stream>>>(
-      (const T*)e, (const T*)win, b, (const T*)ws, (const T*)wlast, out, N,
-      DP, L);
+  fused_mlp_fwd_wgmma_kernel<<<nblk, NTHREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)e, (const bf16*)wstream, b, (const bf16*)wlast, out, N, DP,
+      L);
   return (int)cudaGetLastError();
 }
 
-// is_bf16: operands are __nv_bfloat16 (else float). Returns a cudaError.
-extern "C" int fused_mlp_fwd_launch(const void* e, const void* win,
-                                    const float* b, const void* ws,
-                                    const void* wlast, float* out, long N,
-                                    int DP, int L, int nblk, int is_bf16,
-                                    void* stream) {
+// float32 forward: the first design (see the note at the top), 32-row
+// tiles. Returns a cudaError.
+extern "C" int fused_mlp_fwd_f32_launch(const float* e, const float* win,
+                                        const float* b, const float* ws,
+                                        const float* wlast, float* out, long N,
+                                        int DP, int L, int nblk,
+                                        void* stream) {
+  constexpr int ROWS = 32;
   if (DP % 16 || DP <= 0 || L < 2 || nblk <= 0)
     return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return launch_fwd<__nv_bfloat16, 64>(e, win, b, ws, wlast, out, N, DP, L,
-                                         nblk, (cudaStream_t)stream);
-  return launch_fwd<float, 32>(e, win, b, ws, wlast, out, N, DP, L, nblk,
-                               (cudaStream_t)stream);
+  const size_t smem = (size_t)2 * ROWS * LDA * sizeof(float) +
+                      (size_t)ROWS * (DP + PAD) * sizeof(float);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_fwd_kernel<float, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_mlp_fwd_kernel<float, ROWS><<<nblk, NTHREADS, smem,
+                                      (cudaStream_t)stream>>>(
+      e, win, b, ws, wlast, out, N, DP, L);
+  return (int)cudaGetLastError();
 }
 
 // float32 policy: the first design (see the note at the top).
@@ -1027,7 +1103,6 @@ extern "C" int fused_mlp_bwd_f32_launch(const float* e, const float* g,
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)L * ROWS * LDA * sizeof(float) +
                       (size_t)ROWS * (DP + PAD) * sizeof(float) +
-                      (size_t)NWARPS * STAGE_SZ * sizeof(float) +
                       (size_t)ROWS * sizeof(float) +
                       (size_t)NF * (ROWS + PAD) * sizeof(float);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;

@@ -8,21 +8,29 @@ relu between them, a final 256 → 1 layer — is evaluated at every row of
 the embedded lattice (2.1M rows at grid 128) without any (N, 256)
 activation of the whole lattice in device memory.
 
-Forward (`fused_mlp_fwd`): one kernel, a tile of rows resident in shared
-memory across all layers. Backward (`fused_mlp_bwd`), bf16: per chunk of
-at most `CHUNK_ROWS` rows (`bwd_plan`), a chain pass recomputes the
-activations per 128-row tile, walks the cotangent back and writes the bf16
-operands of the weight gradients and the input rows (4.7 KB per row) to a
-scratch reused from chunk to chunk (305 MiB at the default C = 67,584
-rows), then a weight-gradient pass multiplies them out as GEMMs over the
-chunk's rows into fixed per-block float32 partials; one reduce sums the
-partials in a fixed order. Both passes run on the tensor cores (wgmma)
-from shared memory; the chain pass reads the weights as `weight_stream`
-lays them out.
-float32: one kernel with per-block partials and its reduce (the first
-design; the float32 policy's references only). The kernels are bound by
-operations: 2·N·(D·256 + (L-1)·256² + 256) forward and about three times
-that backward, 1.20 and 3.53 ms in bf16 on an H100 at full width.
+Both directions read the weights from one weight stream (`weight_stream`):
+win, ws[0 .. L-2], ws[L-2 .. 0]^T cut into (32, 256) slices, each laid out
+as its image in shared memory, so that one bulk copy brings a slice. The
+autograd Function builds it once per forward and hands it to the backward.
+
+Forward (`fused_mlp_fwd`), bf16: one persistent kernel over 128-row tiles,
+every layer a tensor-core product (wgmma) from shared memory with the
+weights from the stream's forward prefix (`stream_slices`), the 256 → 1
+layer folded into the last layer's epilogue. Backward (`fused_mlp_bwd`),
+bf16: per chunk of at most `CHUNK_ROWS` rows (`bwd_plan`), a chain pass
+recomputes the activations per 128-row tile, walks the cotangent back and
+writes the bf16 operands of the weight gradients and the input rows (4.7
+KB per row) to a scratch reused from chunk to chunk (305 MiB at the default
+C = 67,584 rows), then a weight-gradient pass multiplies them out as GEMMs
+over the chunk's rows into fixed per-block float32 partials; one reduce
+sums the partials in a fixed order. Both passes run on wgmma from shared
+memory too.
+float32 (the float32 policy's references only; wgmma has no float32
+form): the first design, a forward kernel of FMA loops with the weights
+read from L2, and one backward kernel with per-block partials and its
+reduce. The kernels are bound by operations: 2·N·(D·256 + (L-1)·256² +
+256) forward and about three times that backward, 1.20 and 3.53 ms in
+bf16 on an H100 at full width.
 
 Numerics (the Pallas kernels'): operands in the compute type of the
 precision policy, float32 accumulation, every layer's output and every
@@ -144,13 +152,15 @@ def fused_mlp_bwd_reference(e, g, win, b, ws, wlast):
     return dwin, db, dws, dwlast
 
 
-def fused_mlp_fwd(e, win, b, ws, wlast):
+def fused_mlp_fwd(e, win, b, ws, wlast, wstream=None):
     """Trunk output (N,) float32 for embedded rows e (N, DP).
 
     e, win (DP, 256), ws (L-1, 256, 256) and wlast (256,) are in the
-    compute type with rows = input feature; b (256,) is float32. The CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors. Adds one to
-    `fused_mlp_fwd.launches` per kernel launch."""
+    compute type with rows = input feature; b (256,) is float32. bf16 on
+    the card reads the weights from `wstream`, `weight_stream(win, ws)`,
+    built here when not given. The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Adds one to `fused_mlp_fwd.launches` per
+    kernel launch."""
     dev = e.device
     if dev.type == "cpu":
         return fused_mlp_fwd_reference(e, win, b, ws, wlast)
@@ -159,12 +169,17 @@ def fused_mlp_fwd(e, win, b, ws, wlast):
     _check(e, win, b, ws, wlast)
     from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     N, dp = e.shape
+    L = ws.shape[0] + 1
     out = torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    _launch("fused_mlp_fwd", library().fused_mlp_fwd_launch, e, win, b, ws,
-            wlast, out, N, dp, ws.shape[0] + 1, NUM_BLOCKS,
-            int(e.dtype == torch.bfloat16))
+    if e.dtype == torch.bfloat16:
+        wstream = _stream_for(win, ws, wstream)
+        _launch("fused_mlp_fwd", library().fused_mlp_fwd_bf16_launch, e,
+                wstream, b, wlast, out, N, dp, L, NUM_BLOCKS)
+    else:
+        _launch("fused_mlp_fwd", library().fused_mlp_fwd_f32_launch, e, win,
+                b, ws, wlast, out, N, dp, L, NUM_BLOCKS)
     fused_mlp_fwd.launches += 1
     return out
 
@@ -214,24 +229,50 @@ def _slice_gather(device) -> torch.Tensor:
     return torch.argsort(slice_layout()).to(device)
 
 
+def stream_slices(dp: int, L: int) -> tuple:
+    """(forward, total): the slices of `weight_stream` for inputs of width
+    dp and an L-layer trunk that the forward reads (win, ws[0 .. L-2]: its
+    prefix) and that the stream holds (the forward's, then ws[L-2 .. 0]^T
+    for the backward's cotangent)."""
+    fwd = dp // SLICE_ROWS + (L - 1) * (NF // SLICE_ROWS)
+    return fwd, fwd + (L - 1) * (NF // SLICE_ROWS)
+
+
 def weight_stream(win, ws) -> torch.Tensor:
-    """The weights in the order the chain pass reads them — win, ws[0 ..
-    L-2] (recomputed forward), ws[L-2 .. 0]^T (the cotangent's way back) —
-    cut into (32, 256) slices, each in its shared-memory image
-    (`slice_layout`), so that one bulk copy brings a slice. A layout
-    change of 0.5 MB; no arithmetic."""
+    """The weights in the order the kernels read them — win, ws[0 .. L-2]
+    (the forward, and the backward's recomputed forward), ws[L-2 .. 0]^T
+    (the cotangent's way back) — cut into (32, 256) slices, each in its
+    shared-memory image (`slice_layout`), so that one bulk copy brings a
+    slice. (slices, 8192); a layout change of 0.5 MB, no arithmetic."""
     rows = torch.cat([win.reshape(-1, SLICE_ROWS * NF),
                       ws.reshape(-1, SLICE_ROWS * NF),
                       ws.flip(0).transpose(1, 2).reshape(-1, SLICE_ROWS * NF)])
     return rows.index_select(1, _slice_gather(win.device))
 
 
+def _stream_for(win, ws, wstream):
+    """`wstream` after a check of its shape, type and device against win
+    and ws, or `weight_stream(win, ws)` when it is None."""
+    if wstream is None:
+        return weight_stream(win, ws)
+    want = (stream_slices(win.shape[0], ws.shape[0] + 1)[1],
+            SLICE_ROWS * NF)
+    if tuple(wstream.shape) != want or wstream.dtype != win.dtype \
+            or wstream.device != win.device or not wstream.is_contiguous():
+        raise ValueError(f"wstream: want contiguous {win.dtype} {want} on "
+                         f"{win.device}, got {wstream.dtype} "
+                         f"{tuple(wstream.shape)} on {wstream.device}")
+    return wstream
+
+
 class BwdRun:
     """The device work of one bf16 `fused_mlp_bwd` call on a plan: its
     buffers, and one launch function per pass (`chain(i)` and `wgrad(i)`
-    for chunk i, `reduce()`), each one kernel on the current stream."""
+    for chunk i, `reduce()`), each one kernel on the current stream. The
+    weights come from `wstream` (`weight_stream(win, ws)`), built here when
+    not given."""
 
-    def __init__(self, e, g, win, b, ws, wlast, plan):
+    def __init__(self, e, g, win, b, ws, wlast, plan, wstream=None):
         from animals3d_tpu_torch.ops.rasterize_cuda import library
         dev = e.device
         self.plan, self.lib = plan, library()
@@ -245,7 +286,7 @@ class BwdRun:
                                 device=dev)
         self.part2 = torch.empty((plan.chain_blocks, 2 * NF),
                                  dtype=torch.float32, device=dev)
-        self.wstream = weight_stream(win, ws)
+        self.wstream = _stream_for(win, ws, wstream)
         with torch.cuda.device(dev):
             self.stream = torch.cuda.current_stream(dev).cuda_stream
         self.chain_args = [t.data_ptr() for t in (e, g, self.wstream, b,
@@ -288,13 +329,14 @@ def _grads(out, dp, nl):
             out[o1:o2].view(nl, NF, NF).transpose(1, 2), out[o2:])
 
 
-def fused_mlp_bwd(e, g, win, b, ws, wlast):
+def fused_mlp_bwd(e, g, win, b, ws, wlast, wstream=None):
     """Gradients of sum(out · g) with respect to the weights, as
     `fused_mlp_bwd_reference` returns them; g (N,) float32. The CUDA
     kernels for CUDA tensors, the plain version for CPU tensors. bf16: the
     chain pass and the weight-gradient pass per chunk of at most
-    `CHUNK_ROWS` rows (`bwd_plan`), then the reduce; float32: one kernel and
-    its reduce.
+    `CHUNK_ROWS` rows (`bwd_plan`), then the reduce, with the weights from
+    `wstream` as `fused_mlp_fwd` takes it; float32: one kernel and its
+    reduce.
     Both have a fixed grid and a fixed reduction order: the result does
     not change from run to run. Adds one to `fused_mlp_bwd.launches` per
     call that launches kernels."""
@@ -316,7 +358,7 @@ def fused_mlp_bwd(e, g, win, b, ws, wlast):
             return _grads(torch.zeros((dp * NF + NF + nl * NF * NF + NF,),
                                       dtype=torch.float32, device=dev),
                           dp, nl)
-        run = BwdRun(e, g, win, b, ws, wlast, plan)
+        run = BwdRun(e, g, win, b, ws, wlast, plan, wstream)
         for i in range(len(plan.chunks)):
             run.chain(i)
             run.wgrad(i)
@@ -340,7 +382,8 @@ class _Sweep(torch.autograd.Function):
     """The trunk over every row of e, differentiable in the weights only.
     Inputs are the float32 parameters in `nn.Linear` layout; the casts to
     the compute type happen inside, so autograd stores nothing of size
-    (N, 256)."""
+    (N, 256). bf16 on the card builds the weight stream once, for the
+    forward and the backward."""
 
     @staticmethod
     def forward(ctx, e, in_w, in_b, *layer_ws):
@@ -355,15 +398,17 @@ class _Sweep(torch.autograd.Function):
             .contiguous()
         wlast = layer_ws[-1].detach()[0].to(cd).contiguous()
         b = in_b.detach().float().contiguous()
-        ctx.save_for_backward(ep, win, b, ws, wlast)
+        wstream = weight_stream(win, ws) \
+            if e.is_cuda and cd == torch.bfloat16 else None
+        ctx.save_for_backward(ep, win, b, ws, wlast, wstream)
         ctx.d = d
-        return fused_mlp_fwd(ep, win, b, ws, wlast)
+        return fused_mlp_fwd(ep, win, b, ws, wlast, wstream)
 
     @staticmethod
     def backward(ctx, g):
-        ep, win, b, ws, wlast = ctx.saved_tensors
+        ep, win, b, ws, wlast, wstream = ctx.saved_tensors
         dwin, db, dws, dwlast = fused_mlp_bwd(
-            ep, g.float().contiguous(), win, b, ws, wlast)
+            ep, g.float().contiguous(), win, b, ws, wlast, wstream)
         grads = [dwin[:ctx.d].T, db] + [dw.T for dw in dws] + [dwlast[None]]
         return (None, *grads)
 

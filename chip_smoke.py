@@ -29,10 +29,13 @@ Phases, in this order, each fatal on failure:
      the fused netSDF sweep, forward and backward, against its plain
      versions at the full-width shape (the embedded jittered 129³ lattice,
      weights of `init_params(0)`) and at a ragged small N, in bf16 and
-     float32, the backward also bit-identical across two calls, and the
-     bf16 backward's three passes (chain, weight-gradient, reduce) timed
-     one at a time with its chunk rows, scratch bytes and device launches
-     per call; the resolve backward against its plain version on the
+     float32, both bit-identical across two calls, the bf16 forward also
+     launched alone with a prebuilt weight stream (its rate, its share of
+     the bound, the stream's build time), the bf16 backward's three passes
+     (chain, weight-gradient, reduce) timed one at a time with its chunk
+     rows, scratch bytes and device launches per call, and the unfused
+     `get_sdf` forward and forward + backward for orientation; the resolve
+     backward against its plain version on the
      training step's own winner ids with a random cotangent (10, 65,536,
      42) and on the depth-stack scene, where one face collects hundreds of
      pixels; and the resolve-rows forward K5 against its plain version and
@@ -540,7 +543,8 @@ def sweep_phase(model):
     bound is 2 bf16 ulps (2^-8 relative each) of the output's magnitude,
     where this check observes 0.62, and 2e-3 of each gradient's norm,
     where it observes 2.2e-4 to 3.6e-4 (a rounded activation that lands
-    on the other side of a bf16 step). At N = 4097 the last row is a tile
+    on the other side of a bf16 step). Two calls of either direction give
+    the same bits. At N = 4097 the last row is a tile
     of its own: its output is held on its own, and a cotangent that is
     non-zero on that row alone must give the plain version's gradients,
     so a dropped or mis-masked ragged row cannot hide in a norm over all
@@ -581,6 +585,9 @@ def sweep_phase(model):
             if not gerr <= gtol:
                 raise AssertionError(f"fused_mlp_bwd[{name}, N={N}] grads "
                                      f"differ by {gerr} of their norm")
+            if not torch.equal(out, fm.fused_mlp_fwd(*ops_)):
+                raise AssertionError(f"fused_mlp_fwd[{name}, N={N}]: two "
+                                     "calls give different outputs")
             again = fm.fused_mlp_bwd(ops_[0], g, *ops_[1:])
             if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                 raise AssertionError(f"fused_mlp_bwd[{name}, N={N}]: two "
@@ -622,10 +629,30 @@ def sweep_phase(model):
                     plain_ms, bytes_ms, ops_ms))
             if not f32:
                 entries = {r["name"]: r for r in rows}
+                fwd_alone(fm, ops_, flops, entries["fused_mlp_fwd"])
                 bwd_passes(fm, ops_, g)
             full = N
     unfused_sweep_line(model, full)
     return entries["fused_mlp_fwd"], entries["fused_mlp_bwd"]
+
+
+def fwd_alone(fm, ops_, flops, entry):
+    """K6 (bf16) launched alone with a prebuilt weight stream, beside the
+    wrapper call of the `kernels` line and the stream's build (CUDA events,
+    medians); its rate and its share of the bound."""
+    ep, win, b, ws, wlast = ops_
+    wstream = fm.weight_stream(win, ws)
+    stream_ms = median_ms(lambda: fm.weight_stream(win, ws))
+    alone = median_ms(lambda: fm.fused_mlp_fwd(*ops_, wstream))
+    print(f"fused_mlp_fwd[bf16, N={ep.shape[0]}]: launch with a prebuilt "
+          f"stream {alone:.4f} ms ({flops / alone / 1e9:.1f} TFLOP/s, "
+          f"{entry['bound_ms'] / alone * 100:.1f}% of the bound "
+          f"{entry['bound_ms']:.4f} ms); wrapper call {entry['ms']:.4f} ms; "
+          f"weight stream build {stream_ms:.4f} ms "
+          f"({wstream.numel() * wstream.element_size()} bytes, "
+          f"{fm.stream_slices(ep.shape[1], ws.shape[0] + 1)[0]} of "
+          f"{wstream.shape[0]} slices read by the forward); card "
+          f"{card_line()}")
 
 
 def bwd_passes(fm, ops_, g):
@@ -683,8 +710,10 @@ def ragged_row_check(fm, ops_, out, want, tol, gtol, name):
 
 
 def unfused_sweep_line(model, N):
-    """For orientation only: the unfused path (`get_sdf` over the lattice
-    under autograd, forward and backward, bf16) with its peak memory."""
+    """For orientation only: the unfused path (`get_sdf` over the lattice,
+    bf16: a chain of library matrix products) forward alone under
+    `torch.no_grad()`, the yardstick K6 must beat, and forward and
+    backward under autograd with its peak memory."""
     import torch
     from animals3d_tpu_torch.precision import (compute_dtype,
                                                set_mixed_precision)
@@ -694,9 +723,14 @@ def unfused_sweep_line(model, N):
     grid, _v, _f = model.grid_for_phase(model.phase_for_iter(TRAIN_IT))
     pos = grid.verts * shape.spatial_scale
 
+    def fwd():
+        with torch.no_grad():
+            model.netBase.get_sdf(pos)
+
     def run():
         model.netBase.get_sdf(pos)[..., 0].sum().backward()
         model.zero_grad(set_to_none=True)
+    fwd_ms = median_ms(fwd, 5)
     run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -704,9 +738,10 @@ def unfused_sweep_line(model, N):
     ms = statistics.median(cuda_ms(run, 5))
     peak = torch.cuda.max_memory_allocated() - base
     set_mixed_precision(None if was == torch.float32 else "bf16")
-    print(f"unfused sweep (get_sdf under autograd, fwd + bwd, bf16, N={N}; "
-          f"not a kernel of the port, for orientation): {ms:.3f} ms, peak "
-          f"memory above the model {peak / 2**30:.2f} GiB")
+    print(f"unfused sweep (get_sdf, bf16, N={N}; not a kernel of the port, "
+          f"for orientation): forward alone under no_grad {fwd_ms:.3f} ms; "
+          f"forward + backward under autograd {ms:.3f} ms, peak memory "
+          f"above the model {peak / 2**30:.2f} GiB; card {card_line()}")
 
 
 def train_scene(model, batch):

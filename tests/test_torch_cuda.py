@@ -191,6 +191,111 @@ def test_fused_mlp_bwd_chunks_equal_plain_version(card, monkeypatch, n, nl,
         assert torch.equal(a, c), name
 
 
+@pytest.mark.parametrize("n,nl", [(50, 4), (77, 1), (3 * 128 + 1, 4),
+                                  (132 * 128 + 1, 4)])
+def test_fused_mlp_fwd_ragged_tiles_bf16(card, n, nl):
+    """The bf16 forward with fewer rows than one 128-row tile, and with
+    N = k·128 + 1, so that the last tile holds a single row (at k = 132 the
+    first block's second tile): every output within 2 bf16 ulps of the
+    output's magnitude of the plain version (the limit of
+    `test_fused_mlp_kernels_equal_plain_version`), the last row on its own
+    too and not left at zero; one launch counted per call; a second call
+    gives the same bits."""
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    e, win, b, ws, wlast, _g = _mlp_inputs(np.random.default_rng(n + nl), n,
+                                           64, nl, torch.bfloat16, card)
+    before = fm.fused_mlp_fwd.launches
+    out = fm.fused_mlp_fwd(e, win, b, ws, wlast)
+    again = fm.fused_mlp_fwd(e, win, b, ws, wlast)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_fwd.launches == before + 2
+    want = fm.fused_mlp_fwd_reference(e, win, b, ws, wlast)
+    tol = 2 * 2 ** -8 * float(want.abs().max())
+    assert torch.isfinite(out).all()
+    assert float((out - want).abs().max()) <= tol
+    assert float((out[-1] - want[-1]).abs()) <= tol and float(out[-1]) != 0
+    assert torch.equal(out, again)
+
+
+def test_fused_mlp_prebuilt_weight_stream_bf16(card):
+    """`fused_mlp_fwd` and `fused_mlp_bwd` with a prebuilt `weight_stream`
+    give the same bits as without one; a stream of the wrong shape
+    raises."""
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    e, win, b, ws, wlast, g = _mlp_inputs(np.random.default_rng(7), 3001, 64,
+                                          4, torch.bfloat16, card)
+    wstream = fm.weight_stream(win, ws)
+    assert torch.equal(fm.fused_mlp_fwd(e, win, b, ws, wlast, wstream),
+                       fm.fused_mlp_fwd(e, win, b, ws, wlast))
+    for a, c in zip(fm.fused_mlp_bwd(e, g, win, b, ws, wlast, wstream),
+                    fm.fused_mlp_bwd(e, g, win, b, ws, wlast)):
+        assert torch.equal(a, c)
+    with pytest.raises(ValueError):
+        fm.fused_mlp_fwd(e, win, b, ws, wlast, wstream[1:])
+
+
+def test_mlp_sweep_bf16_on_card(card, monkeypatch):
+    """`mlp_sweep` through autograd on the card in bf16 against the plain
+    versions on the operands the Function builds: output within 2 bf16
+    ulps of its magnitude, every parameter's gradient within 2e-3 of its
+    norm (the limits of `test_fused_mlp_kernels_equal_plain_version`);
+    `weight_stream` is built once for the forward and the backward."""
+    from animals3d_tpu_torch.networks.mlp import CoordMLP
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    built = []
+    real = fm.weight_stream
+
+    def counting(win, ws):
+        built.append(1)
+        return real(win, ws)
+    monkeypatch.setattr(fm, "weight_stream", counting)
+    net = CoordMLP(3, 1, 5, nf=256, n_harmonic_functions=8,
+                   embedder_scalar=0.8)
+    gen = torch.Generator().manual_seed(0)
+    for m in net.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    net.to(card)
+    pts = torch.as_tensor(np.random.default_rng(0).uniform(
+        -3, 3, (3001, 3)).astype(np.float32), device=card)
+    w = torch.as_tensor(np.random.default_rng(1).normal(size=3001)
+                        .astype(np.float32), device=card)
+    set_mixed_precision("bf16")
+    try:
+        e = net.embed(pts)
+        got = fm.mlp_sweep(net, e, num_layers=5)
+        (got * w).sum().backward()
+        torch.cuda.synchronize()
+        assert len(built) == 1
+        cd = torch.bfloat16
+        d = e.shape[1]
+        ep = torch.zeros((e.shape[0], fm.KPAD), dtype=cd, device=card)
+        ep[:, :d] = e
+        win = torch.zeros((fm.KPAD, fm.NF), dtype=cd, device=card)
+        win[:d] = net.in_layer.weight.detach().T
+        ws = torch.stack([getattr(net.mlp, f"layer_{i}").weight.detach().T
+                          for i in range(4)]).to(cd).contiguous()
+        wlast = net.mlp.layer_4.weight.detach()[0].to(cd).contiguous()
+        b = net.in_layer.bias.detach().float().contiguous()
+        want = fm.fused_mlp_fwd_reference(ep, win, b, ws, wlast)
+        dwin, db, dws, dwlast = fm.fused_mlp_bwd_reference(ep, w, win, b, ws,
+                                                           wlast)
+    finally:
+        set_mixed_precision(None)
+    assert float((got.detach() - want).abs().max()) <= 2 * 2 ** -8 * float(
+        want.abs().max())
+    wgrads = {"in_layer.weight": dwin[:d].T, "in_layer.bias": db,
+              "mlp.layer_4.weight": dwlast[None]}
+    for i in range(4):
+        wgrads[f"mlp.layer_{i}.weight"] = dws[i].T
+    for k, p in net.named_parameters():
+        err = float((p.grad - wgrads[k]).norm() / wgrads[k].norm())
+        assert err <= 2e-3, (k, err)
+
+
 def test_mlp_sweep_function_on_card(card):
     """`mlp_sweep` through autograd on the card against the plain CoordMLP
     (float32): output rtol 2e-5, every parameter's grad 1e-4 of its norm;

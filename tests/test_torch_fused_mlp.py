@@ -265,3 +265,37 @@ def test_bwd_plan_rejects_bad_chunks():
         fm.bwd_plan(1000, 5, 64, fm.TILE_ROWS + 1)
     with pytest.raises(ValueError):
         fm.bwd_plan(1000, 5, 64, 0)
+
+
+@pytest.mark.parametrize("dp,nl", [(64, 4), (128, 1)])
+def test_weight_stream_layout(dp, nl):
+    """`weight_stream` (a pure layout change): undoing `slice_layout` gives
+    back, slice by slice of 32 rows, win, then ws[0 .. L-2], then
+    ws[L-2 .. 0]^T; the forward reads exactly the first dp / 32 + 8 (L - 1)
+    slices (`stream_slices`). The layout is a permutation whose strides are
+    the kernels' wgmma descriptor's: 8 elements per 16-byte chunk swizzled
+    by the row, 512 to the next 64 columns, 2048 to the next 8 rows."""
+    rng = np.random.default_rng(dp + nl)
+    win = torch.from_numpy(rng.normal(size=(dp, fm.NF)).astype(np.float32))
+    ws = torch.from_numpy(rng.normal(size=(nl, fm.NF, fm.NF))
+                          .astype(np.float32))
+    stream = fm.weight_stream(win, ws)
+    fwd, total = fm.stream_slices(dp, nl + 1)
+    assert fwd == dp // 32 + 8 * nl and total == fwd + 8 * nl
+    assert tuple(stream.shape) == (total, fm.SLICE_ROWS * fm.NF)
+    layout = fm.slice_layout()
+    assert torch.equal(torch.sort(layout).values,
+                       torch.arange(fm.SLICE_ROWS * fm.NF))
+    pos = lambda k, n: int(layout[k * fm.NF + n])
+    assert (pos(0, 0), pos(0, 8), pos(1, 0), pos(1, 8), pos(0, 64),
+            pos(8, 0), pos(9, 70)) == (0, 8, 72, 64, 512, 2048, 2638)
+    undone = stream[:, layout].reshape(total, fm.SLICE_ROWS, fm.NF)
+    mats = [win] + list(ws) + [w.T for w in ws.flip(0)]
+    want = [m[r:r + fm.SLICE_ROWS] for m in mats
+            for r in range(0, m.shape[0], fm.SLICE_ROWS)]
+    assert len(want) == total
+    for i, w in enumerate(want):
+        assert torch.equal(undone[i], w), i
+    forward = [m[r:r + fm.SLICE_ROWS] for m in [win] + list(ws)
+               for r in range(0, m.shape[0], fm.SLICE_ROWS)]
+    assert len(forward) == fwd
