@@ -1,7 +1,9 @@
 """Tile visibility rasterizer: a hand-written CUDA kernel for Hopper
-(`csrc/raster_vis.cu`) and its plain PyTorch version; and the build of the
-package's kernel library (`build`, `library`: every `csrc/*.cu`, one nvcc
-call, loaded with ctypes), which the other kernel modules load from here.
+(`csrc/raster_vis.cu`) and its plain PyTorch version, with the per-face
+cull boxes it reads (`csrc/cull_boxes.cu`, plain version `cull_boxes`);
+and the build of the package's kernel library (`build`, `library`: every
+`csrc/*.cu`, one nvcc call, loaded with ctypes), which the other kernel
+modules load from here.
 
 Port of the Pallas kernel `_raster_kernel`
 (`animals3d_tpu/ops/rasterize_pallas.py:153`, launched from
@@ -17,7 +19,10 @@ around the kernel is plain PyTorch, as the JAX package left it to XLA:
   * per chunk and per 128-face sub-block: screen bboxes, and the chunk's
     quantized z-min (`_zq`);
   * per (image, 16×32 tile): the chunks whose bbox overlaps it, sorted
-    front to back by z-min, with an 8-bit mask of overlapping sub-blocks.
+    front to back by z-min, with an 8-bit mask of overlapping sub-blocks;
+  * per face and image, a cull box (`cull_boxes`; on the card the kernel
+    `cull`): a bound of every pixel centre its float32 edge tests can
+    accept. Variants 3 and 4 test a face only on its box.
 
 The kernel (or `visibility_reference`) then computes, per pixel, the
 nearest covering face — ties on exactly equal z go to the smallest
@@ -30,16 +35,21 @@ function as (a·px + b·py) + c with no fused multiply-add
 contracts the JAX package's coefficient math into FMAs, so against the
 JAX package a pixel on an edge shared by two faces may flip.)
 
+K1 (`visibility`, variant 3) spreads each live sub-block's (face, pixel)
+pairs, the pixels of each face's cull box in the tile, over its warps'
+lanes (a large face's over the whole block), and keeps each pixel's winner
+as a 64-bit (z, id) key in shared memory with `atomicMin`; a producer warp
+brings the sub-blocks' rows by bulk copy into a shared-memory ring (see
+its source note).
+
 Two more kernels compute the same function (`variant` of `prepare` and
 `rasterize_cuda`, the counterpart of the JAX package's `A3D_RASTER_V`):
 
   * variant 4, `visibility_v4` (`csrc/raster_vis_v4.cu`, port of
     `_raster_kernel_v4`): K1's lists and visiting order with one thread
-    per face; each face tests only the pixels of its cull box (`fbox`, a
-    bound of every pixel centre its float32 edge tests can accept) and
-    keeps each pixel's winner as a 64-bit (z, id) key in shared memory
-    with `atomicMin`. Its outputs equal K1's bit for bit, flags included,
-    so its plain version is `visibility_reference`;
+    per face; each face tests only the pixels of its cull box and keeps
+    each pixel's winner in K1's key. Its outputs equal K1's bit for bit,
+    flags included, so its plain version is `visibility_reference`;
   * variant 6, `visibility_v6` (`csrc/raster_vis_v6.cu`, port of
     `_raster_kernel_v6`): per (image, tile), the overlapping 128-face
     sub-blocks ("units") in ascending quantized z-min, at most
@@ -140,9 +150,9 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
     sorted slot; order (B, T, nch) int32 chunk ids front to back
     (overlapping ones first); counts (B, T) int32; masks (B, T, nch) int32
     sub-block overlap bits by chunk id; zlo (B, nch) int32 quantized chunk
-    z-min; nsub. Variant 4 adds fbox (B, nch·chunk, 4) int16 per-face cull
-    boxes (`cull_boxes`); variant 6 adds zu (B, U) int32 quantized unit
-    z-min, units (B, T, S) int32 unit lists, counts6 (B, T) int32 and S.
+    z-min; nsub. Variants 3 and 4 add fbox (B, nch·chunk, 4) int16
+    per-face cull boxes (`cull`); variant 6 adds zu (B, U) int32 quantized
+    unit z-min, units (B, T, S) int32 unit lists, counts6 (B, T) int32 and S.
     Raises ValueError for a variant that cannot run on these shapes (the
     JAX package falls back to variant 3 there).
     """
@@ -267,8 +277,8 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
            "order": order.contiguous(), "counts": counts.contiguous(),
            "masks": masks.contiguous(), "zlo": zlo.contiguous(),
            "nsub": nsub}
-    if variant == 4:
-        out["fbox"] = cull_boxes(table, resolution)
+    if variant in (3, 4):
+        out["fbox"] = cull(table, resolution)
     if variant == 6:
         # units (sub-blocks) per tile in ascending (quantized z-min, unit
         # id): the stable sort of `_rasterize_pallas_T` (:843-858), without
@@ -340,6 +350,28 @@ def cull_boxes(table, resolution):
     return box.to(torch.int16).contiguous()
 
 
+def cull(table, resolution):
+    """`cull_boxes` on the table's device: the CUDA kernel
+    (`csrc/cull_boxes.cu`) for a CUDA table, the plain version for a CPU
+    one; the same int16 boxes bit for bit. Adds one to `cull.launches` per
+    kernel launch."""
+    if _device(table).type == "cpu":
+        return cull_boxes(table, resolution)
+    B, nch, _rows, chunk = table.shape
+    _check({"table": (table, torch.float32, (B, nch, 12, chunk))},
+           table.device)
+    height, width = resolution
+    out = torch.empty((B, nch * chunk, 4), dtype=torch.int16,
+                      device=table.device)
+    _launch("cull_boxes", library().cull_boxes_launch, table, out, B, nch,
+            chunk, height, width)
+    cull.launches += 1
+    return out
+
+
+cull.launches = 0
+
+
 def _check(tensors, device):
     """tensors: name → (tensor, dtype, shape); each must match, be
     contiguous and lie on `device`."""
@@ -370,12 +402,18 @@ def _check_table(table, orig, resolution, nsub):
     return B, nch, chunk, (height // TILE_H) * (width // TILE_W)
 
 
-def _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub):
-    B, nch, _chunk, T = _check_table(table, orig, resolution, nsub)
-    _check({"order": (order, torch.int32, (B, T, nch)),
+def _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub,
+                  fbox=None):
+    """The visibility inputs' types, shapes and device; and the cull boxes
+    (B, nch·chunk, 4) int16 where given (K1's and K2's)."""
+    B, nch, chunk, T = _check_table(table, orig, resolution, nsub)
+    want = {"order": (order, torch.int32, (B, T, nch)),
             "counts": (counts, torch.int32, (B, T)),
             "masks": (masks, torch.int32, (B, T, nch)),
-            "zlo": (zlo, torch.int32, (B, nch))}, table.device)
+            "zlo": (zlo, torch.int32, (B, nch))}
+    if fbox is not None:
+        want["fbox"] = (fbox, torch.int16, (B, nch * chunk, 4))
+    _check(want, table.device)
 
 
 def _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub):
@@ -600,7 +638,10 @@ def library():
         build()
         lib = ctypes.CDLL(library_path())
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.raster_vis_launch.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+        lib.raster_vis_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+        lib.raster_vis_smem.argtypes = [i32] * 3
+        lib.raster_vis_smem.restype = i64
+        lib.cull_boxes_launch.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]
         lib.raster_vis_v4_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
         lib.raster_vis_v6_launch.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
         lib.fused_mlp_fwd_bf16_launch.argtypes = [ptr] * 5 + [i64] \
@@ -617,7 +658,8 @@ def library():
                                                     i32, i32, ptr]
         lib.resolve_bwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.resolve_fwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        for fn in (lib.raster_vis_launch, lib.raster_vis_v4_launch,
+        for fn in (lib.raster_vis_launch, lib.cull_boxes_launch,
+                   lib.raster_vis_v4_launch,
                    lib.raster_vis_v6_launch, lib.fused_mlp_fwd_bf16_launch,
                    lib.fused_mlp_fwd_f32_launch,
                    lib.fused_mlp_bwd_f32_launch,
@@ -658,22 +700,38 @@ def _outputs_cuda(B, resolution, nflags, device):
     return z, fid, flags
 
 
-def visibility(table, orig, order, counts, masks, zlo, resolution,
+# the largest dynamic shared memory a block may have on the H100
+SMEM_MAX = 227 * 1024
+# K1's shared memory per block, which sets the depth of its ring of staged
+# sub-blocks: two at chunk 1024, nsub 8, and eight blocks on an SM (1,056
+# of the 1,280 blocks of 10 images at 256² at once)
+K1_SMEM = 22 * 1024
+
+
+def visibility(table, orig, order, counts, masks, zlo, fbox, resolution,
                nsub: int):
     """Visibility on the tensors' device: the CUDA kernel K1 for CUDA
-    tensors, `visibility_reference` for CPU tensors. Adds one to
-    `visibility.launches` per kernel launch."""
+    tensors, `visibility_reference` for CPU tensors. fbox: the cull boxes
+    of `prepare` (`cull`), checked on either device. Raises ValueError on
+    inputs the kernel does not take: a sub-block and chunk list that
+    overflow shared memory. Adds one to `visibility.launches` per kernel
+    launch."""
+    _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub,
+                  fbox)
     if _device(table).type == "cpu":
         return visibility_reference(table, orig, order, counts, masks, zlo,
                                     resolution, nsub)
-    _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub)
     height, width = resolution
     B, nch, _, chunk = table.shape
+    lib = library()
+    if lib.raster_vis_smem(chunk, nsub, nch) > SMEM_MAX:
+        raise ValueError(f"K1: sub-block of {chunk // nsub} faces and "
+                         f"{nch} chunks exceed shared memory")
     T = (height // TILE_H) * (width // TILE_W)
     z, fid, flags = _outputs_cuda(B, resolution, nch, table.device)
-    _launch("raster_vis", library().raster_vis_launch, table, orig, order,
-            counts, masks, zlo, z, fid, flags, B, T, width // TILE_W, nch,
-            chunk, nsub, height, width)
+    _launch("raster_vis", lib.raster_vis_launch, table, orig, order, counts,
+            masks, zlo, fbox, z, fid, flags, B, T, width // TILE_W, nch,
+            chunk, nsub, height, width, K1_SMEM)
     visibility.launches += 1
     return z, fid, flags
 
@@ -685,11 +743,11 @@ def visibility_v4(table, orig, order, counts, masks, zlo, fbox, resolution,
                   nsub: int):
     """Variant 4 (face-parallel) visibility: the CUDA kernel K2 for CUDA
     tensors, `visibility_reference` for CPU tensors; the same outputs as
-    `visibility`. fbox: `cull_boxes(table, resolution)`. Adds one to
+    `visibility`. fbox: the cull boxes of `prepare`. Adds one to
     `visibility_v4.launches` per kernel launch."""
-    _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub)
+    _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub,
+                  fbox)
     B, nch, _, chunk = table.shape
-    _check({"fbox": (fbox, torch.int16, (B, nch * chunk, 4))}, table.device)
     if _device(table).type == "cpu":
         return visibility_reference(table, orig, order, counts, masks, zlo,
                                     resolution, nsub)
@@ -744,7 +802,8 @@ def rasterize_cuda(v_clip, faces, f_valid, resolution, v_pos0,
     common = (prep["table"], prep["orig"])
     lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
     if variant == 3:
-        z, fid, flags = visibility(*common, *lists, resolution, prep["nsub"])
+        z, fid, flags = visibility(*common, *lists, prep["fbox"], resolution,
+                                   prep["nsub"])
     elif variant == 4:
         z, fid, flags = visibility_v4(*common, *lists, prep["fbox"],
                                       resolution, prep["nsub"])

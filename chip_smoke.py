@@ -18,14 +18,19 @@ Phases, in this order, each fatal on failure:
      card — the tile visibility kernels K1, K2 (variant 4) and K3 (variant
      6) on a random scene, the exact-z depth-stack scene, the prior mesh of
      the full-width model posed by 10 cameras at 256² (face capacity
-     196,608) and the full-width recon's own posed meshes (the inputs
-     `reconstruct` rasterizes): K1 and K2 against `visibility_reference`
-     and K2 against K1 (z, face_id and chunk flags bit for bit), K3 against
+     196,608), the full-width recon's own posed meshes (the inputs
+     `reconstruct` rasterizes) and the training forward's own posed
+     meshes: K1 and K2 against `visibility_reference` and K2 against K1
+     (z, face_id and chunk flags bit for bit), K3 against
      `visibility_v6_reference` (z, face_id, slot flags) and its z and
      face_id against K1's, also with the unit lists capped at 2 (the
-     full-scan loop). Times the three and their plain versions (CUDA
-     events, medians) on the last two scenes and computes the bound from
-     this run's inputs; the `kernels` line reports the recon scene. Then
+     full-scan loop), and the cull kernel's boxes against `cull_boxes`
+     (bit for bit). Times the three and their plain versions (CUDA
+     events, medians) on the last three scenes, computes the bound from
+     this run's inputs, and reads the walk's work (chunks per tile, live
+     sub-block visits, cull-box pairs) and the peak memory of `prepare`
+     for variants 3 and 4 there; times the cull kernel and `cull_boxes`
+     on the recon scene; the `kernels` line reports the recon scene. Then
      the fused netSDF sweep, forward and backward, against its plain
      versions at the full-width shape (the embedded jittered 129³ lattice,
      weights of `init_params(0)`) and at a ragged small N, in bf16 and
@@ -47,16 +52,16 @@ Phases, in this order, each fatal on failure:
      compute; random weights from `init_params(0)`), each with the launch
      counters set to 0 just before it and read just after it (each kernel
      of the path once per step or render, no other kernel):
-     `train_step` on the default path (1 warm-up and 5 timed steps: K1,
-     K6, K7, K4) and on `raster_variant=6, resolve_rows="kernel"` (1 + 3:
-     K3, K5, K4, K6, K7), the loss on the batch with fixed draws falling;
-     `reconstruct` on the default path (1 + 5: K1), with
-     `raster_variant=4` (1 + 3: K2; every render's z and face_id equal to
-     K1's on the same posed meshes) and with `raster_variant=6,
-     resolve_rows="kernel"` (1 + 3: K3, K5; the images equal to the
-     default path's within 1e-3).
+     `train_step` on the default path (1 warm-up and 5 timed steps: the
+     cull kernel, K1, K6, K7, K4) and on `raster_variant=6,
+     resolve_rows="kernel"` (1 + 3: K3, K5, K4, K6, K7), the loss on the
+     batch with fixed draws falling; `reconstruct` on the default path
+     (1 + 5: the cull kernel, K1), with `raster_variant=4` (1 + 3: the
+     cull kernel, K2; every render's z and face_id equal to K1's on the
+     same posed meshes) and with `raster_variant=6, resolve_rows="kernel"`
+     (1 + 3: K3, K5; the images equal to the default path's within 1e-6).
 
-Prints a `kernels` JSON line (all seven kernels; `launches` is the count on
+Prints a `kernels` JSON line (all eight kernels; `launches` is the count on
 the path that drives the kernel — `recon_v4` for K2,
 `train_v6_kernel_rows` for K3 and K5, the default training path for the
 others — and `launches_by_path` the counts on every path), the card's name
@@ -74,6 +79,7 @@ import time
 import numpy as np
 
 F32_PEAK_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
+F64_PEAK_FLOPS = 34e12        # H100 SXM float64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores
 SEED = 0
@@ -276,6 +282,107 @@ def visibility_bound(v_clip, faces, prep, res, visits, outputs):
             nbytes, pairs)
 
 
+# float64 operations `cull_boxes` does per face: 21 for the padded edge
+# constants, 23 for each of the three corners (4 products, the cross
+# product, 2 quotients, the 2 error pads, the 4 bounds), 12 for the
+# extrema, 8 for the box
+CULL_OPS_PER_FACE = 21 + 3 * 23 + 12 + 8
+
+
+def walk_readings(name, prep, visits, res):
+    """What the tile walk asks of a kernel on a prep and the live visits of
+    `visibility_reference(stats=)`: chunks per (image, tile), the (tile,
+    chunk) pairs walked and live (not skipped by the occlusion test), live
+    sub-block visits, and cull-box pairs — over the live visits, the
+    (face, pixel) pairs of each face's cull box clipped to the tile, the
+    work of a kernel that tests each face on its box alone — in all, on
+    the busiest tile and per tile on average; prints them."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    height, width = res
+    ntx = width // rc.TILE_W
+    T = (height // rc.TILE_H) * ntx
+    chunk = prep["table"].shape[-1]
+    sub = chunk // prep["nsub"]
+    B = prep["table"].shape[0]
+    fbox = rc.cull_boxes(prep["table"], res).long()
+    b, t, cid, g = visits.unbind(1)
+    slots = (cid * chunk + g * sub)[:, None] + torch.arange(
+        sub, device=visits.device)
+    bx = fbox[b[:, None], slots]                          # (n, sub, 4)
+    tx0 = ((t % ntx) * rc.TILE_W)[:, None]
+    ty0 = ((t // ntx) * rc.TILE_H)[:, None]
+    w = (torch.minimum(bx[..., 1], tx0 + rc.TILE_W - 1)
+         - torch.maximum(bx[..., 0], tx0) + 1).clamp(min=0)
+    h = (torch.minimum(bx[..., 3], ty0 + rc.TILE_H - 1)
+         - torch.maximum(bx[..., 2], ty0) + 1).clamp(min=0)
+    area = w * h
+    pairs = area.sum(1)                                   # (n,)
+    tile = b * T + t
+    per_tile = torch.zeros(B * T, dtype=torch.int64, device=visits.device)
+    per_tile.index_add_(0, tile, pairs)
+    visits_tile = torch.bincount(tile, minlength=B * T)
+    live = torch.unique(visits[:, :3], dim=0)
+    live_tile = torch.bincount(live[:, 0] * T + live[:, 1], minlength=B * T)
+    counts = prep["counts"]
+    print(f"walk[{name}]: chunks per tile max {int(counts.max())} mean "
+          f"{float(counts.float().mean()):.2f}; (tile, chunk) pairs walked "
+          f"{int(counts.sum())}, live {live.shape[0]} (busiest tile "
+          f"{int(live_tile.max())}); live sub-block visits "
+          f"{visits.shape[0]} (busiest tile {int(visits_tile.max())}, mean "
+          f"{visits.shape[0] / (B * T):.2f}); cull-box pairs "
+          f"{int(pairs.sum())} (busiest tile {int(per_tile.max())}, mean "
+          f"{float(per_tile.float().mean()):.1f}) from "
+          f"{int((area > 0).sum())} faces whose box meets the tile (over 32 "
+          f"pixels {int((area > 32).sum())}, over 128 "
+          f"{int((area > 128).sum())}), of {visits.shape[0] * sub} faces "
+          "visited")
+
+
+def prepare_peak(scene, variant):
+    """`rc.prepare` of `scene` for `variant` and its peak device memory
+    (bytes) above what was allocated before the call."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    v_clip, v_pos0, faces, f_valid, res, chunk = scene
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prep = rc.prepare(v_clip, v_pos0, faces, f_valid, res, chunk,
+                      variant=variant)
+    torch.cuda.synchronize()
+    return prep, torch.cuda.max_memory_allocated() - base
+
+
+def cull_entry(prep, res):
+    """The cull kernel on a prep's table against `cull_boxes` (bit for
+    bit), timed beside it; returns its `kernels` entry. Bound: bytes — the
+    table's 9 edge rows read once (the boxes do not depend on the 3 depth
+    rows) and the boxes written once — against the float64 operations at
+    the card's float64 rate."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    table = prep["table"]
+    got = rc.cull(table, res)
+    torch.cuda.synchronize()
+    same_outputs("cull kernel", (got,), (rc.cull_boxes(table, res),),
+                 ("boxes",))
+    ms = median_ms(lambda: rc.cull(table, res))
+    plain_ms = median_ms(lambda: rc.cull_boxes(table, res), 3)
+    faces = got.shape[0] * got.shape[1]
+    nbytes = table.numel() // 12 * 9 * 4 + got.numel() * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = CULL_OPS_PER_FACE * faces / F64_PEAK_FLOPS * 1e3
+    print(f"cull_boxes[recon]: {faces} (image, face) boxes identical to "
+          f"`cull_boxes`; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {nbytes} -> "
+          f"{bytes_ms:.4f} ms; float64 operations -> {ops_ms:.4f} ms), "
+          f"kernel/bound {ms / max(bytes_ms, ops_ms):.1f}x")
+    return kernel_entry("cull_boxes", "cull_boxes.cu",
+                        "rasterize_pallas.py:960", 0.0, ms, plain_ms,
+                        bytes_ms, ops_ms)
+
+
 def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_ms,
                  ops_ms, library_ms=None):
     return {"name": name, "route": "cuda",
@@ -355,20 +462,27 @@ def v6_against_k1(name, got, k1, prep):
     return {"skip": int(skip.sum()), "scan": int((scan & ~skip).sum())}, diff
 
 
-def visibility_phase(model, images, it, device):
-    """K1 against its plain version on the four scenes, K2 against the same
+def visibility_phase(model, images, it, device, batch):
+    """K1 against its plain version on the five scenes, K2 against the same
     plain version and against K1, K3 against its plain version (and its z
     and face_id against K1's), each bit for bit; a second K3 pass with the
-    unit lists capped at 2 runs its full-scan loop. Returns the `kernels`
-    entries of K1, K2 and K3, timed and bounded on the recon scene (K2's
-    and K3's bound is K1's: the same function on the same inputs)."""
+    unit lists capped at 2 runs its full-scan loop; the cull boxes of
+    every scene against `cull_boxes`. On the three full-width scenes the
+    kernels are timed and bounded, with the work the walk offers (chunks
+    per tile, live sub-block visits, the faces' cull-box pairs) and the
+    peak memory of `prepare` for variants 3 and 4. Returns the `kernels`
+    entries of the cull kernel, K1, K2 and K3, timed and bounded on the
+    recon scene (K2's and K3's bound is K1's: the same function on the
+    same inputs), K1's and K2's with their time on the training poses."""
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     rng = np.random.default_rng(SEED)
     scenes = {"random": random_scene(rng),
               "depth_stack": depth_stack_scene(),
               "posed_prior": posed_prior_scene(model),
-              "recon": recon_scene(model, images, it)}
+              "recon": recon_scene(model, images, it),
+              "train": train_pose_scene(model, batch)}
+    full_width = ("posed_prior", "recon", "train")
     # (chunk, nsub) of variants 4 and 6 where a scene's own do not run them
     v4_scene = {"depth_stack": depth_stack_copies_scene()}
     v6_nsub = {"depth_stack": 2}
@@ -380,13 +494,19 @@ def visibility_phase(model, images, it, device):
         return rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
                           t(f_valid, torch.bool), res, chunk, **kw)
 
+    def k1(p, res):
+        return rc.visibility(p["table"], p["orig"], p["order"], p["counts"],
+                             p["masks"], p["zlo"], p["fbox"], res, p["nsub"])
+
     for name, scene in scenes.items():
         v_clip, v_pos0, faces, f_valid, res, chunk = scene
         v_clip, faces = t(v_clip), t(faces, torch.int64)
         prep = prep_of(scene)
+        same_outputs(f"cull kernel {name}", (prep["fbox"],),
+                     (rc.cull_boxes(prep["table"], res),), ("boxes",))
         args = (prep["table"], prep["orig"], prep["order"], prep["counts"],
                 prep["masks"], prep["zlo"], res, prep["nsub"])
-        out1 = rc.visibility(*args)
+        out1 = k1(prep, res)
         torch.cuda.synchronize()
         stats = {}
         ref1 = rc.visibility_reference(*args, stats=stats)
@@ -394,14 +514,12 @@ def visibility_phase(model, images, it, device):
         z, fid, flags = out1
         covered = int((fid > 0).sum())
         visits = stats["visits"]
-        # the design's own work: every face of a visited sub-block against
-        # every pixel of the tile
-        design_pairs = visits.shape[0] * (chunk // prep["nsub"]) * rc.TP
         print(f"visibility[{name}]: B={fid.shape[0]} res={res} "
               f"faces={faces.shape[0]} chunk={chunk} covered_px={covered} "
-              f"live_subblock_visits={visits.shape[0]} "
-              f"design_face_pixel_tests={design_pairs} identical")
-        if name in ("posed_prior", "recon") and covered == 0:
+              f"live_subblock_visits={visits.shape[0]}: K1's z, face_id and "
+              "flags identical to the plain version; cull boxes identical "
+              "to `cull_boxes`")
+        if name in full_width and covered == 0:
             raise AssertionError(f"{name}: the mesh covers no pixel")
 
         # K2: its plain version is K1's; held to both on the same inputs
@@ -412,7 +530,7 @@ def visibility_phase(model, images, it, device):
         out2 = rc.visibility_v4(*args4[:6], p4["fbox"], res, p4["nsub"])
         torch.cuda.synchronize()
         err2 = same_outputs(f"K2 {name}", out2, rc.visibility_reference(*args4))
-        same_outputs(f"K2 vs K1 {name}", out2, rc.visibility(*args4))
+        same_outputs(f"K2 vs K1 {name}", out2, k1(p4, res))
         print(f"raster_vis_v4[{name}]: chunk {p4['table'].shape[-1]} nsub "
               f"{p4['nsub']}: z, face_id and flags identical to the plain "
               "version and to K1")
@@ -436,11 +554,9 @@ def visibility_phase(model, images, it, device):
                     ref3[2], p6["units"], p6["counts6"], p6["masks"],
                     p6["nsub"])):
                 raise AssertionError(f"K3 {name} cap {cap}: chunk flags")
-            k1 = rc.visibility(p6["table"], p6["orig"], p6["order"],
-                               p6["counts"], p6["masks"], p6["zlo"], res,
-                               p6["nsub"])
-            n_k1, _d = v6_against_k1(f"K3 vs K1 {name} cap {cap}", out3, k1,
-                                     p6)
+            out1_6 = k1(dict(p6, fbox=rc.cull(p6["table"], res)), res)
+            n_k1, _d = v6_against_k1(f"K3 vs K1 {name} cap {cap}", out3,
+                                     out1_6, p6)
             n_k1 = f"{n_k1['skip']} (skip) + {n_k1['scan']} (scan)"
             over = int((p6["counts6"] > p6["S"]).sum())
             print(f"raster_vis_v6[{name}, cap {cap}]: S {p6['S']}, units per "
@@ -450,10 +566,9 @@ def visibility_phase(model, images, it, device):
                   "face_id and slot flags identical to the plain version; z "
                   f"and face_id identical to K1's but at {n_k1} of "
                   f"{fid.numel()} pixels (`v6_against_k1`)")
-        if name not in ("posed_prior", "recon"):
+        if name not in full_width:
             continue
-        ms = statistics.median(cuda_ms(lambda: rc.visibility(*args),
-                                       TIMED_RUNS))
+        ms = median_ms(lambda: k1(prep, res), TIMED_RUNS)
         ms4 = median_ms(lambda: rc.visibility_v4(*args4[:6], p4["fbox"],
                                                  res, p4["nsub"]), TIMED_RUNS)
         p6 = prep_of(scene, variant=6)
@@ -467,15 +582,23 @@ def visibility_phase(model, images, it, device):
         bytes_ms, ops_ms, nbytes, pairs = visibility_bound(
             v_clip, faces, prep, res, visits, (z, fid, flags))
         bound = max(bytes_ms, ops_ms)
+        walk_readings(name, prep, visits, res)
+        _p, peak3 = prepare_peak(scene, 3)
+        _p, peak4 = prepare_peak(scene, 4)
+        print(f"visibility[{name}]: prepare peak memory variant 3 "
+              f"{peak3 / 2**30:.3f} GiB, variant 4 {peak4 / 2**30:.3f} GiB")
         print(f"visibility[{name}]: K1 {ms:.4f} ms, K2 {ms4:.4f} ms, K3 "
               f"{ms6:.4f} ms; plain {plain_ms:.4f} ms (K1's and K2's), "
               f"{plain6_ms:.4f} ms (K3's); bound {bound:.4f} ms (live bytes "
               f"{nbytes} -> {bytes_ms:.4f} ms; live bbox pairs {pairs} -> "
               f"{ops_ms:.4f} ms); kernel/bound K1 {ms / bound:.1f}x, K2 "
               f"{ms4 / bound:.1f}x, K3 {ms6 / bound:.1f}x")
+        if name == "train":
+            train_ms = {"raster_vis": ms, "raster_vis_v4": ms4}
         if name != "recon":
             continue
         entries = {
+            "cull_boxes": cull_entry(prep, res),
             "raster_vis": kernel_entry(
                 "raster_vis", "raster_vis.cu", "rasterize_pallas.py:153",
                 err, ms, plain_ms, bytes_ms, ops_ms),
@@ -487,6 +610,9 @@ def visibility_phase(model, images, it, device):
                 "raster_vis_v6", "raster_vis_v6.cu",
                 "rasterize_pallas.py:513", err3, ms6, plain6_ms, bytes_ms,
                 ops_ms)}
+    # K1 and K2 on the training forward's own posed meshes too
+    for name, ms in train_ms.items():
+        entries[name]["ms_train_poses"] = ms
     return entries
 
 
@@ -744,21 +870,31 @@ def unfused_sweep_line(model, N):
           f"above the model {peak / 2**30:.2f} GiB; card {card_line()}")
 
 
-def train_scene(model, batch):
-    """Winner ids of the training forward's own render: (B, H·W) int32."""
+def train_pose_scene(model, batch):
+    """The posed meshes the full-width training forward rasterizes (grid
+    jitter and pose draws from SEED)."""
     import torch
-    from animals3d_tpu_torch.ops import rasterize_cuda as rc
     from animals3d_tpu_torch.render.camera import xfm_points
     gen = torch.Generator(device=model.device).manual_seed(SEED)
     with torch.no_grad():
         _loss, (_m, aux) = model.forward(batch, TRAIN_IT, gen)
-        shape = aux["shape"]
-        H = model.out_image_size
-        rast = rc.rasterize_cuda(xfm_points(shape.v_pos, aux["mvp"]),
-                                 shape.t_pos_idx, shape.f_valid, (H, H),
-                                 v_pos0=shape.v_pos[0])
+    shape = aux["shape"]
+    H = model.out_image_size
+    v_clip = xfm_points(shape.v_pos, aux["mvp"]).contiguous()
+    return (v_clip, shape.v_pos[0], shape.t_pos_idx, shape.f_valid, (H, H),
+            1024)
+
+
+def train_scene(model, batch):
+    """Winner ids of the training forward's own render: (B, H·W) int32."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    v_clip, v_pos0, faces, f_valid, res, _chunk = train_pose_scene(model,
+                                                                   batch)
+    with torch.no_grad():
+        rast = rc.rasterize_cuda(v_clip, faces, f_valid, res, v_pos0=v_pos0)
     fid = rast.face_id.reshape(rast.face_id.shape[0], -1).contiguous()
-    return fid, shape.t_pos_idx.shape[0]
+    return fid, faces.shape[0]
 
 
 def resolve_phase(model, batch):
@@ -908,14 +1044,14 @@ def build(overrides, device, **render):
 # the render selectors of each path the script drives, and the kernels each
 # path launches once per render (the forward) or per step
 PATHS = {
-    "train": ({}, ("raster_vis", "fused_mlp_fwd", "fused_mlp_bwd",
-                   "resolve_bwd")),
+    "train": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                   "fused_mlp_bwd", "resolve_bwd")),
     "train_v6_kernel_rows": (
         dict(raster_variant=6, resolve_rows="kernel"),
         ("raster_vis_v6", "resolve_fwd", "resolve_bwd", "fused_mlp_fwd",
          "fused_mlp_bwd")),
-    "recon": ({}, ("raster_vis",)),
-    "recon_v4": (dict(raster_variant=4), ("raster_vis_v4",)),
+    "recon": ({}, ("cull_boxes", "raster_vis")),
+    "recon_v4": (dict(raster_variant=4), ("cull_boxes", "raster_vis_v4")),
     "recon_v6_kernel_rows": (dict(raster_variant=6, resolve_rows="kernel"),
                              ("raster_vis_v6", "resolve_fwd")),
 }
@@ -926,7 +1062,8 @@ def counters():
     from animals3d_tpu_torch.ops import fused_mlp as fm
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     from animals3d_tpu_torch.ops import resolve_cuda as rv
-    return {"raster_vis": rc.visibility, "raster_vis_v4": rc.visibility_v4,
+    return {"cull_boxes": rc.cull, "raster_vis": rc.visibility,
+            "raster_vis_v4": rc.visibility_v4,
             "raster_vis_v6": rc.visibility_v6,
             "fused_mlp_fwd": fm.fused_mlp_fwd,
             "fused_mlp_bwd": fm.fused_mlp_bwd, "resolve_bwd": rv.resolve_bwd,
@@ -1296,6 +1433,8 @@ def recon_path(model, images, it, B, H, path, timed=TIMED_RUNS):
     kernel of the path once per render, no other). Returns (shaded,
     launches, median ms, peak bytes)."""
     import torch
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     reset_counts()
     shaded, out, times, renders = drive(model, images, it, timed)
     launches = check_counts(path, renders)
@@ -1306,7 +1445,9 @@ def recon_path(model, images, it, B, H, path, timed=TIMED_RUNS):
           f"({B / med * 1e3:.2f} imgs/s), min {min(times):.2f} max "
           f"{max(times):.2f} ms over {len(times)} runs (spread "
           f"{(max(times) - min(times)) / med * 100:.1f}%), peak memory "
-          f"{peak / 2**30:.2f} GiB, mask px per image {alpha.tolist()}, "
+          f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB allocated "
+          f"before the path: the models built so far), mask px per image "
+          f"{alpha.tolist()}, "
           f"launches in {renders} renders "
           f"{ {k: v for k, v in launches.items() if v} }; card {card_line()}")
     return shaded, launches, med, peak
@@ -1391,10 +1532,10 @@ def main() -> int:
     train_reference_phase("train_v6_kernel_rows")
 
     model, images, it, B, H = slice_phase()
-    entries = visibility_phase(model, images, it, torch.device("cuda"))
     from animals3d_tpu_torch.data.synth import fake_batch
-    entries["fused_mlp_fwd"], entries["fused_mlp_bwd"] = sweep_phase(model)
     batch = fake_batch(model, B, SEED)
+    entries = visibility_phase(model, images, it, torch.device("cuda"), batch)
+    entries["fused_mlp_fwd"], entries["fused_mlp_bwd"] = sweep_phase(model)
     entries["resolve_bwd"] = resolve_phase(model, batch)
     entries["resolve_fwd"] = resolve_fwd_phase(model, batch)
 
@@ -1444,8 +1585,8 @@ def main() -> int:
     own_path = {"raster_vis_v4": "recon_v4",
                 "raster_vis_v6": "train_v6_kernel_rows",
                 "resolve_fwd": "train_v6_kernel_rows"}
-    order = ("raster_vis", "raster_vis_v4", "raster_vis_v6", "resolve_bwd",
-             "resolve_fwd", "fused_mlp_fwd", "fused_mlp_bwd")
+    order = ("cull_boxes", "raster_vis", "raster_vis_v4", "raster_vis_v6",
+             "resolve_bwd", "resolve_fwd", "fused_mlp_fwd", "fused_mlp_bwd")
     kernels = []
     for name in order:
         e = entries[name]

@@ -128,7 +128,8 @@ def visibility_call(prep, res, variant):
     common = (prep["table"], prep["orig"])
     lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
     if variant == 3:
-        return lambda: rc.visibility(*common, *lists, res, prep["nsub"])
+        return lambda: rc.visibility(*common, *lists, prep["fbox"], res,
+                                     prep["nsub"])
     if variant == 4:
         return lambda: rc.visibility_v4(*common, *lists, prep["fbox"], res,
                                         prep["nsub"])

@@ -61,41 +61,170 @@ def _sphere(rng):
             out.f_valid.numpy(), (64, 64), 256)
 
 
-@pytest.mark.parametrize("make", [_random, _depth_stack, _sphere])
-def test_visibility_kernel_equals_plain_version(card, make):
-    """face_id, z and the chunk flags identical bit for bit; one launch
-    counted per call."""
+def _sliver(rng):
+    """Faces a hundredth to a thousandth of a pixel across far from the
+    screen origin, where the float32 edge constant is rounded by more than
+    the face is wide: the accepted pixels leave the faces' vertex bboxes
+    (`tests/test_torch_raster_variants.py` `_sliver_scene`)."""
+    Fn = 3000
+    ctr = rng.uniform(0.5, 0.98, (1, Fn, 1, 2))
+    size = 10.0 ** rng.uniform(-5, -3, (1, Fn, 1, 1))
+    xy = ctr + rng.uniform(-1, 1, (1, Fn, 3, 2)) * size
+    z = rng.uniform(0.2, 0.8, (1, Fn, 3, 1))
+    v = np.concatenate([xy, z], -1).reshape(1, 3 * Fn, 3)
+    v_clip = np.concatenate([v, np.ones((1, 3 * Fn, 1))], -1) \
+        .astype(np.float32)
+    faces = np.arange(3 * Fn).reshape(Fn, 3)
+    return v_clip, v_clip[0, :, :3], faces, np.ones(Fn, bool), (64, 64), 1024
+
+
+def _big_and_small(rng):
+    """The load balance: 3,000 faces a fraction of a pixel across and, in
+    the middle of the face order, one face that covers the whole screen
+    behind most of them, so that one face of a sub-block holds every pixel
+    of the tile."""
+    B, Fn = 2, 3000
+    ctr = rng.uniform(-0.9, 0.9, (B, Fn, 1, 3))
+    v = ctr + rng.uniform(-0.004, 0.004, (B, Fn, 3, 3))
+    v[..., 2] = rng.uniform(-0.5, 0.5, (B, Fn, 3))
+    v[:, Fn // 2] = [[-4.0, -4.0, 0.3], [4.0, -4.0, 0.3], [0.0, 4.0, 0.3]]
+    v = v.reshape(B, 3 * Fn, 3)
+    w = np.full((B, 3 * Fn, 1), 2.0)
+    v_clip = np.concatenate([v * w, w], -1).astype(np.float32)
+    faces = np.arange(3 * Fn).reshape(Fn, 3)
+    return (v_clip, v[0].astype(np.float32), faces, np.ones(Fn, bool),
+            (64, 96), 256)
+
+
+def _depth_stack_copies(rng):
+    """The depth stack with each face repeated 16 times in a row: chunks of
+    32 faces hold one quad each, so variant 4 (sub-blocks of a multiple of
+    32 faces) runs it with nsub 1, and the copies tie exactly in z."""
+    v_clip, v, faces, f_valid, res, _chunk = _depth_stack(rng)
+    faces = np.repeat(faces.reshape(-1, 2, 3), 16, 0).reshape(-1, 3)
+    faces = faces.reshape(9, 16, 2, 3).transpose(0, 2, 1, 3).reshape(-1, 3)
+    return v_clip, v, faces, np.ones(len(faces), bool), res, 32
+
+
+def _prep(card, make, seed, **kw):
     v_clip, v_pos0, faces, f_valid, res, chunk = make(
-        np.random.default_rng(3))
+        np.random.default_rng(seed))
     t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=card)
-    prep = rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
-                      t(f_valid, torch.bool), res, chunk)
-    args = (prep["table"], prep["orig"], prep["order"], prep["counts"],
-            prep["masks"], prep["zlo"], res, prep["nsub"])
+    return rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
+                      t(f_valid, torch.bool), res, kw.pop("chunk", chunk),
+                      **kw), res
+
+
+def _bits(masks):
+    """Set bits of each int32 sub-block mask."""
+    return sum((masks >> g) & 1 for g in range(16))
+
+
+# (scene, chunk, nsub): sub-blocks of 16, 32 and 1,024 faces, of 12, 6 and
+# 5 (not a multiple of 32; 6 and 5 are not a multiple of 4 either, so
+# their rows are staged with plain loads), one sub-block per chunk at chunk
+# 32 and at chunk 2, sixteen sub-blocks (more live sub-blocks in a chunk
+# than one batch takes), the load balance and the slivers
+K1_CASES = [(_random, 128, 8), (_random, 96, 8), (_random, 96, 16),
+            (_random, 20, 4), (_random, 256, 16), (_depth_stack, 2, 8),
+            (_depth_stack_copies, 32, 1), (_sphere, 256, 8),
+            (_sphere, 1024, 1), (_big_and_small, 256, 8),
+            (_sliver, 1024, 8)]
+
+
+@pytest.mark.parametrize("make,chunk,nsub", K1_CASES,
+                         ids=[f"{m.__name__[1:]}-{c}-{n}"
+                              for m, c, n in K1_CASES])
+def test_visibility_kernel_equals_plain_version(card, make, chunk, nsub):
+    """K1: face_id, z and the chunk flags identical bit for bit to
+    `visibility_reference`; one launch counted per call."""
+    prep, res = _prep(card, make, 3, chunk=chunk, nsub=nsub)
+    lists = (prep["table"], prep["orig"], prep["order"], prep["counts"],
+             prep["masks"], prep["zlo"])
     launches = rc.visibility.launches
-    got = rc.visibility(*args)
+    got = rc.visibility(*lists, prep["fbox"], res, prep["nsub"])
     torch.cuda.synchronize()
     assert rc.visibility.launches == launches + 1
-    want = rc.visibility_reference(*args)
+    want = rc.visibility_reference(*lists, res, prep["nsub"])
     assert int((want[1] > 0).sum()) > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    if nsub == 16:
+        assert _most_live_sub_blocks(prep) > 8
+    if make is _big_and_small:
+        assert int((want[1] == 1501).sum()) > 100
+
+
+def _most_live_sub_blocks(prep):
+    """The most sub-blocks of one listed chunk that overlap its tile."""
+    listed = torch.arange(prep["order"].shape[-1], device=prep["order"].device) \
+        < prep["counts"][..., None]
+    bits = _bits(prep["masks"].gather(-1, prep["order"].long()))
+    return int(bits[listed].max())
+
+
+@pytest.mark.parametrize("make,chunk,nsub", [
+    (_random, 256, 16), (_sphere, 256, 8), (_big_and_small, 256, 8),
+    (_depth_stack, 2, 8)])
+def test_visibility_kernel_with_a_ring_of_one_slot(card, monkeypatch, make,
+                                                    chunk, nsub):
+    """K1 with the least shared memory, a ring of one slot: every live
+    sub-block of a chunk after its first waits for the slot to be
+    released, and the drained loads of skipped chunks too; the outputs are
+    the plain version's bit for bit."""
+    monkeypatch.setattr(rc, "K1_SMEM", 0)
+    prep, res = _prep(card, make, 5, chunk=chunk, nsub=nsub)
+    lists = (prep["table"], prep["orig"], prep["order"], prep["counts"],
+             prep["masks"], prep["zlo"])
+    got = rc.visibility(*lists, prep["fbox"], res, prep["nsub"])
+    want = rc.visibility_reference(*lists, res, prep["nsub"])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert make is _depth_stack or _most_live_sub_blocks(prep) > 1
+
+
+@pytest.mark.parametrize("make,chunk,nsub", [
+    (_random, 128, 8), (_depth_stack, 2, 8), (_sphere, 256, 8),
+    (_big_and_small, 256, 8), (_sliver, 1024, 8)])
+def test_cull_kernel_equals_cull_boxes(card, make, chunk, nsub):
+    """The cull kernel's boxes equal `cull_boxes`' (float64 PyTorch on the
+    card) bit for bit; `prepare` calls it for variants 3 and 4, one launch
+    each."""
+    launches = rc.cull.launches
+    prep, res = _prep(card, make, 3, chunk=chunk, nsub=nsub)
+    assert rc.cull.launches == launches + 1
+    want = rc.cull_boxes(prep["table"], res)
+    assert torch.equal(prep["fbox"], want)
+    assert torch.equal(rc.cull(prep["table"], res), want)
+    empty = (want[..., 0] > want[..., 1]) | (want[..., 2] > want[..., 3])
+    assert 0 < int(empty.sum()) < empty.numel() or make is _depth_stack
 
 
 def test_visibility_kernel_rejects_bad_inputs(card):
-    v_clip, v_pos0, faces, f_valid, res, chunk = _random(
-        np.random.default_rng(4))
-    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=card)
-    prep = rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
-                      t(f_valid, torch.bool), res, chunk)
+    """A table or cull boxes off the card, of the wrong type, shape or
+    layout, and a sub-block too large for shared memory, raise before any
+    launch."""
+    prep, res = _prep(card, _random, 4)
+    lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
+    fbox = prep["fbox"]
+    launches = rc.visibility.launches
     with pytest.raises(ValueError):
-        rc.visibility(prep["table"].cpu(), prep["orig"], prep["order"],
-                      prep["counts"], prep["masks"], prep["zlo"], res,
+        rc.visibility(prep["table"].cpu(), prep["orig"], *lists, fbox, res,
                       prep["nsub"])
     with pytest.raises(ValueError):
         rc.visibility(prep["table"][:, :, :, ::2].contiguous(), prep["orig"],
-                      prep["order"], prep["counts"], prep["masks"],
-                      prep["zlo"], res, prep["nsub"])
+                      *lists, fbox, res, prep["nsub"])
+    for bad in (fbox.cpu(), fbox.int(), fbox[:, :-1].contiguous(),
+                fbox.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError):
+            rc.visibility(prep["table"], prep["orig"], *lists, bad, res,
+                          prep["nsub"])
+    big, res = _prep(card, _sphere, 4, chunk=4096, nsub=1)
+    with pytest.raises(ValueError):
+        rc.visibility(big["table"], big["orig"], big["order"],
+                      big["counts"], big["masks"], big["zlo"], big["fbox"],
+                      res, big["nsub"])
+    assert rc.visibility.launches == launches
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +518,7 @@ def test_small_train_step_on_card(card):
                         device="cuda")
     model.init_params(0)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    kernels = (rc.visibility, fm.fused_mlp_fwd, fm.fused_mlp_bwd,
+    kernels = (rc.cull, rc.visibility, fm.fused_mlp_fwd, fm.fused_mlp_bwd,
                rv.resolve_bwd)
     counts = [k.launches for k in kernels]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -410,25 +539,6 @@ def test_small_train_step_on_card(card):
 # visibility variants 4 and 6 (K2, K3) and the resolve-rows forward (K5)
 # ---------------------------------------------------------------------------
 
-def _depth_stack_copies(rng):
-    """The depth stack with each face repeated 16 times in a row: chunks of
-    32 faces hold one quad each, so variant 4 (sub-blocks of a multiple of
-    32 faces) runs it with nsub 1, and the copies tie exactly in z."""
-    v_clip, v, faces, f_valid, res, _chunk = _depth_stack(rng)
-    faces = np.repeat(faces.reshape(-1, 2, 3), 16, 0).reshape(-1, 3)
-    faces = faces.reshape(9, 16, 2, 3).transpose(0, 2, 1, 3).reshape(-1, 3)
-    return v_clip, v, faces, np.ones(len(faces), bool), res, 32
-
-
-def _prep(card, make, seed, **kw):
-    v_clip, v_pos0, faces, f_valid, res, chunk = make(
-        np.random.default_rng(seed))
-    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=card)
-    return rc.prepare(t(v_clip), t(v_pos0), t(faces, torch.int64),
-                      t(f_valid, torch.bool), res, kw.pop("chunk", chunk),
-                      **kw), res
-
-
 @pytest.mark.parametrize("make,chunk,nsub", [
     (_random, 256, 8), (_depth_stack_copies, 32, 1), (_sphere, 256, 8)])
 def test_visibility_v4_kernel_equals_plain_version_and_k1(card, make, chunk,
@@ -444,7 +554,7 @@ def test_visibility_v4_kernel_equals_plain_version_and_k1(card, make, chunk,
     torch.cuda.synchronize()
     assert rc.visibility_v4.launches == launches + 1
     want = rc.visibility_reference(*lists, res, prep["nsub"])
-    k1 = rc.visibility(*lists, res, prep["nsub"])
+    k1 = rc.visibility(*lists, prep["fbox"], res, prep["nsub"])
     assert int((want[1] > 0).sum()) > 0
     for a, b, c in zip(got, want, k1):
         assert torch.equal(a, b) and torch.equal(a, c)
@@ -468,8 +578,8 @@ def test_visibility_v6_kernel_equals_plain_version(card, make, nsub, cap):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     k1 = rc.visibility(prep["table"], prep["orig"], prep["order"],
-                       prep["counts"], prep["masks"], prep["zlo"], res,
-                       prep["nsub"])
+                       prep["counts"], prep["masks"], prep["zlo"],
+                       rc.cull(prep["table"], res), res, prep["nsub"])
     assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
     if cap == 2:
         assert int((prep["counts6"] > prep["S"]).sum()) > 0

@@ -80,7 +80,7 @@ def _port_visibility(v_clip, v_pos, faces, f_valid, res, chunk):
                       torch.from_numpy(f_valid), res, chunk)
     z, fid, flags = rc.visibility(prep["table"], prep["orig"], prep["order"],
                                   prep["counts"], prep["masks"], prep["zlo"],
-                                  res, prep["nsub"])
+                                  prep["fbox"], res, prep["nsub"])
     return prep, z.numpy(), fid.numpy(), flags.numpy()
 
 
@@ -164,16 +164,38 @@ def test_render_rasterizer_matches_reference_on_cpu():
 
 
 def test_visibility_checks_inputs():
+    """The wrapper refuses, on the CPU as on the card, a table of the wrong
+    type, a chunk list of the wrong shape, and cull boxes of the wrong
+    type, shape or layout."""
     v_clip, v_pos, faces, f_valid, res, chunk = _random_scene()
     prep, *_ = _port_visibility(v_clip, v_pos, faces, f_valid, res, chunk)
+    lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
+    fbox = prep["fbox"]
     with pytest.raises(ValueError):
-        rc.visibility(prep["table"].double(), prep["orig"], prep["order"],
-                      prep["counts"], prep["masks"], prep["zlo"], res,
-                      prep["nsub"])
+        rc.visibility(prep["table"].double(), prep["orig"], *lists, fbox,
+                      res, prep["nsub"])
     with pytest.raises(ValueError):
         rc.visibility(prep["table"], prep["orig"], prep["order"][:, :1],
-                      prep["counts"], prep["masks"], prep["zlo"], res,
-                      prep["nsub"])
+                      *lists[1:], fbox, res, prep["nsub"])
+    for bad in (fbox.int(), fbox[:, :-1].contiguous(), fbox[..., :3],
+                fbox.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError):
+            rc.visibility(prep["table"], prep["orig"], *lists, bad, res,
+                          prep["nsub"])
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_prepare_gives_variant_3_its_cull_boxes(scene):
+    """`prepare` gives the default variant the per-face cull boxes its
+    kernel reads; on the CPU they are `cull_boxes` of the table."""
+    v_clip, v_pos, faces, f_valid, res, chunk = SCENES[scene]()
+    prep = rc.prepare(torch.from_numpy(v_clip), torch.from_numpy(v_pos[0]),
+                      torch.from_numpy(faces).long(),
+                      torch.from_numpy(f_valid), res, chunk)
+    B, nch, _rows, chunk = prep["table"].shape
+    assert prep["fbox"].dtype == torch.int16
+    assert tuple(prep["fbox"].shape) == (B, nch * chunk, 4)
+    assert torch.equal(prep["fbox"], rc.cull_boxes(prep["table"], res))
 
 
 def test_cuda_request_without_card_raises():

@@ -180,18 +180,23 @@ def test_v6_plain_version_equals_v3_plain_version(make, cap):
     assert torch.equal(got.z, want.z)
 
 
-@pytest.mark.parametrize("make", [_v4_scene, _sliver_scene, _sphere_scene])
+@pytest.mark.parametrize("make", [_v4_scene, _sliver_scene, _sphere_scene,
+                                  _depth_stack_scene])
 def test_cull_boxes_hold_every_accepted_pixel(make):
-    """Variant 4 tests a face only on the pixels of its cull box. Every
-    pixel centre whose float32 edge tests (a·px + b·py) + c ≥ 0 accept it
-    lies in the box, on the sliver scene too, where the accepted pixels
-    leave the faces' vertex bboxes."""
+    """Variants 3 and 4 test a face only on the pixels of its cull box.
+    Every pixel centre whose float32 edge tests (a·px + b·py) + c ≥ 0
+    accept it lies in the box, on the sliver scene too, where the accepted
+    pixels leave the faces' vertex bboxes, and on the depth stack, a
+    variant-3 scene of one sub-block per chunk (nsub 1)."""
     v_clip, v_pos, faces, f_valid, res, chunk = make()
     t = torch.from_numpy
     prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
                       res, chunk, variant=4 if chunk % 256 == 0 else 3)
+    if make is _depth_stack_scene:
+        assert prep["nsub"] == 1
     table = prep["table"]
-    box = rc.cull_boxes(table, res).long()
+    box = prep["fbox"].long()
+    assert torch.equal(prep["fbox"], rc.cull_boxes(table, res))
     B, nch, _rows, chunk = table.shape
     H, W = res
     ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
