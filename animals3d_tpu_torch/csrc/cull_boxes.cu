@@ -1,4 +1,5 @@
-// Per-face cull boxes for the tile visibility kernels K1 and K2 (sm_90a).
+// Per-face cull boxes for the tile visibility kernels K1, K2 and K3, and
+// per-unit boxes for K3 (sm_90a).
 //
 // Computes `rasterize_cuda.cull_boxes` (its plain version, in float64
 // PyTorch), bit for bit: per image and sorted face slot, the pixel index
@@ -21,6 +22,15 @@
 // bytes a face); 1.97M faces at full width move 86.5 MB, 0.026 ms at 3.35
 // TB/s. The float64 arithmetic (about 110 operations and 6 divisions a
 // face) is below that at the card's float64 rate.
+
+//
+// The unit boxes (`unit_boxes_kernel`) compute `rasterize_cuda.unit_boxes`
+// bit for bit: per image and unit (a sub-block of `sub` consecutive slots)
+// the union of its faces' non-empty boxes, (W, -1, H, -1) where all are
+// empty. One warp a unit: its lanes fold the boxes with integer min and
+// max, then the warp reduces by shuffles. Bound: bytes — the face boxes
+// read once and the unit boxes written once (15.9 MB at full width, 0.005
+// ms at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,5 +129,44 @@ extern "C" int cull_boxes_launch(const float* table, void* out, int B,
   const dim3 grid((unsigned)(B * nch), (unsigned)((chunk + NT - 1) / NT));
   cull_boxes_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       table, (short4*)out, chunk, H, W);
+  return (int)cudaGetLastError();
+}
+
+#define UB_WARPS 8
+
+// fbox: (n_units * sub) face boxes, unit-major; ubox: (n_units) unions
+__global__ void __launch_bounds__(UB_WARPS * 32)
+unit_boxes_kernel(const short4* __restrict__ fbox, short4* __restrict__ ubox,
+                  int n_units, int sub, int H, int W) {
+  const int u = blockIdx.x * UB_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (u >= n_units) return;
+  const short4* src = fbox + (size_t)u * sub;
+  int x0 = W, x1 = -1, y0 = H, y1 = -1;
+  for (int f = lane; f < sub; f += 32) {
+    const short4 bx = src[f];
+    if (bx.x <= bx.y && bx.z <= bx.w) {
+      x0 = min(x0, (int)bx.x);
+      x1 = max(x1, (int)bx.y);
+      y0 = min(y0, (int)bx.z);
+      y1 = max(y1, (int)bx.w);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    x0 = min(x0, __shfl_xor_sync(0xffffffffu, x0, o));
+    x1 = max(x1, __shfl_xor_sync(0xffffffffu, x1, o));
+    y0 = min(y0, __shfl_xor_sync(0xffffffffu, y0, o));
+    y1 = max(y1, __shfl_xor_sync(0xffffffffu, y1, o));
+  }
+  if (lane == 0)
+    ubox[u] = make_short4((short)x0, (short)x1, (short)y0, (short)y1);
+}
+
+extern "C" int unit_boxes_launch(const void* fbox, void* ubox, int n_units,
+                                 int sub, int H, int W, void* stream) {
+  if (n_units == 0) return 0;
+  const int grid = (n_units + UB_WARPS - 1) / UB_WARPS;
+  unit_boxes_kernel<<<grid, UB_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const short4*)fbox, (short4*)ubox, n_units, sub, H, W);
   return (int)cudaGetLastError();
 }

@@ -79,131 +79,13 @@
 // of an SM share; the boxes (8 bytes a face) and every face of a live
 // sub-block are read, not only those that cover a pixel.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
-
-#define TILE_H 16
-#define TILE_W 32
-#define TP (TILE_H * TILE_W)
-#define NT 128
-#define NWARP (NT / 32)
-#define MAX_RING 16
-#define BIG 3.0e38f
-
-static __device__ __forceinline__ int zq(float z) {
-  z = fminf(fmaxf(z, -8.0f), 8.0f);
-  return (int)floorf(z * 1048576.0f);
-}
-
-static __device__ __forceinline__ float affine(float a, float b, float c,
-                                               float px, float py) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
-}
-
-// order-preserving float -> unsigned map; -0.0 maps as +0.0
-static __device__ __forceinline__ unsigned zkey(float z) {
-  const unsigned u = __float_as_uint(z == 0.0f ? 0.0f : z);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-static __device__ __forceinline__ float zval(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-static __device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-static __device__ __forceinline__ void mbar_init(uint64_t* bar,
-                                                 unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-static __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                                      unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-static __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
-                                                 unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra.uni DONE;\n"
-      "bra.uni LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-static __device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                                 unsigned bytes,
-                                                 uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-static __host__ __device__ __forceinline__ size_t round16(size_t n) {
-  return (n + 15) & ~(size_t)15;
-}
-
-static __host__ __device__ __forceinline__ size_t round128(size_t n) {
-  return (n + 127) & ~(size_t)127;
-}
-
-// a (sub x 12) box of the table seen as a 2-D tensor of rows of `chunk`
-// floats, by the tensor memory accelerator, completing on `bar`
-static __device__ __forceinline__ void tensor_load(void* dst,
-                                                   const CUtensorMap* map,
-                                                   int x, int y,
-                                                   uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x),
-      "r"(y)
-      : "memory");
-}
-
-// A face whose clipped box holds more pixels than four passes of a warp's
-// lanes is "large": its pairs go to the block's list, at most BIG_CAP a
-// chunk.
-#define BIG_AREA 128
-#define BIG_CAP 32
-
-// A large face, copied out of its slot so that the slot can be released.
-struct BigFace {
-  float c[12];
-  int id, area;
-  short4 box;
-};
+#include "raster_tile.cuh"
 
 // Shared-memory layout, the same on host and device: fixed part (keys,
 // chunk list, mbarriers, the slots' list positions) then `ring` slots of a
-// sub-block each.
+// sub-block each (`SlotLayout`).
 struct Layout {
-  size_t key, cid, zl, mask, full, empty, qpos, coef, id, box, slot, total;
+  size_t key, cid, zl, mask, full, empty, qpos, coef, total;
   __host__ __device__ Layout(int sub, int nch, int ring) {
     key = 0;
     cid = key + (size_t)TP * 8;
@@ -212,53 +94,10 @@ struct Layout {
     full = mask + round16((size_t)nch * 2);
     empty = full + MAX_RING * 8;
     qpos = empty + MAX_RING * 8;
-    // per slot, 128-byte aligned for the tensor copy: 12 rows of sub
-    // floats, sub ids, sub boxes of 8 bytes
     coef = round128(qpos + MAX_RING * 4);
-    id = (size_t)12 * sub * 4;
-    box = id + round16((size_t)sub * 4);
-    slot = round128(box + round16((size_t)sub * 8));
-    total = coef + (size_t)ring * slot;
+    total = coef + (size_t)ring * SlotLayout(sub).bytes;
   }
 };
-
-static __device__ __forceinline__ int clipped_area(short4 bx, int tx0,
-                                                   int ty0) {
-  const int xa = max((int)bx.x, tx0), xb = min((int)bx.y, tx0 + TILE_W - 1);
-  const int ya = max((int)bx.z, ty0), yb = min((int)bx.w, ty0 + TILE_H - 1);
-  return (xa <= xb && ya <= yb) ? (xb - xa + 1) * (yb - ya + 1) : 0;
-}
-
-// the consumer warps' barrier (the producer warp does not take part)
-static __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
-}
-
-// Pixel r (row-major) of a face's box clipped to the tile, tested against
-// the face's coefficients c[row * stride]; the winner's key falls by
-// atomicMin. Returns whether it fell.
-static __device__ __forceinline__ bool test_pixel(
-    const float* c, int stride, unsigned id, short4 bb, int r, int tx0,
-    int ty0, const unsigned* magic, unsigned long long* keys) {
-  const int xa = max((int)bb.x, tx0), xb = min((int)bb.y, tx0 + TILE_W - 1);
-  const int ya = max((int)bb.z, ty0);
-  const int w = xb - xa + 1;
-  const int dy = (int)(((unsigned)r * magic[w]) >> 16);   // r / w
-  const int y = ya + dy, x = xa + (r - dy * w);
-  const float px = (float)x + 0.5f, py = (float)y + 0.5f;
-  const float e0 = affine(c[0], c[4 * stride], c[8 * stride], px, py);
-  const float e1 = affine(c[stride], c[5 * stride], c[9 * stride], px, py);
-  const float e2 = affine(c[2 * stride], c[6 * stride], c[10 * stride], px,
-                          py);
-  if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f)) return false;
-  const float zz = affine(c[3 * stride], c[7 * stride], c[11 * stride], px,
-                          py);
-  if (!(zz < BIG)) return false;          // K1 takes only z < BIG
-  const unsigned negz = (zz == 0.0f && (__float_as_uint(zz) >> 31)) ? 1u : 0u;
-  const unsigned long long key =
-      ((unsigned long long)zkey(zz) << 32) | ((id + 1u) << 1) | negz;
-  return key < atomicMin(&keys[(y - ty0) * TILE_W + (x - tx0)], key);
-}
 
 // table: (B, nch, 12, chunk) rows a0 a1 a2 az b0 b1 b2 bz c0 c1 c2 cz
 // orig: (nch*chunk) original face id of each sorted slot
@@ -280,17 +119,14 @@ raster_vis_kernel(const __grid_constant__ CUtensorMap rows,
                   int nch, int chunk, int nsub, int H, int W, int ring,
                   int mode) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ BigFace s_big[BIG_CAP];
-  __shared__ int s_bigstart[BIG_CAP + 1];
-  __shared__ int s_nbig;
+  __shared__ BigList s_big;
   __shared__ float s_wmax[NWARP];
   __shared__ int s_wany[NWARP];
-  // ceil(2^16 / w) for w = 1 ... 32: r / w = (r * magic[w]) >> 16 for
-  // 0 <= r < 512, the pixels of a box clipped to the tile
   __shared__ unsigned s_magic[TILE_W + 1];
   __shared__ volatile int s_zq;      // the consumers' zq_max, for the producer
   const int sub = chunk / nsub;
   const Layout L(sub, nch, ring);
+  const SlotLayout SL(sub);
   unsigned long long* s_key =
       reinterpret_cast<unsigned long long*>(smem + L.key);
   int* s_cid = reinterpret_cast<int*>(smem + L.cid);
@@ -307,7 +143,7 @@ raster_vis_kernel(const __grid_constant__ CUtensorMap rows,
   const int n = counts[bt];
   const unsigned long long empty_key = (unsigned long long)zkey(BIG) << 32;
   for (int i = tid; i < TP; i += NT + 32) s_key[i] = empty_key;
-  if (tid <= TILE_W) s_magic[tid] = tid ? (65536u + tid - 1) / tid : 0u;
+  if (tid <= TILE_W) s_magic[tid] = magic_of(tid);
   const unsigned allbits = (1u << nsub) - 1u;
   for (int k = tid; k < n; k += NT + 32) {
     const int cid = order[bt * nch + k];
@@ -322,7 +158,7 @@ raster_vis_kernel(const __grid_constant__ CUtensorMap rows,
       mbar_init(empty + s, NWARP);
     }
     s_zq = zq(BIG);
-    s_nbig = 0;
+    s_big.n = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -351,45 +187,9 @@ raster_vis_kernel(const __grid_constant__ CUtensorMap rows,
       const int g = __ffs(pm) - 1;
       pm &= pm - 1;
       if (lane == 0) s_qpos[s] = pk;
-      const int cid = s_cid[pk];
-      unsigned char* slot = smem + L.coef + (size_t)s * L.slot;
-      float* dc = reinterpret_cast<float*>(slot);
-      int* di = reinterpret_cast<int*>(slot + L.id);
-      short4* db = reinterpret_cast<short4*>(slot + L.box);
-      const float* src = table + ((size_t)b * nch + cid) * 12 * chunk
-                         + (size_t)g * sub;
-      const int* isrc = orig + (size_t)cid * chunk + (size_t)g * sub;
-      const short4* bsrc = fbox + ((size_t)b * nch + cid) * chunk
-                           + (size_t)g * sub;
-      if (mode) {
-        // the consumers' generic reads of this slot are ordered before the
-        // copy engine's writes; the expected bytes before any copy lands
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        if (lane == 0)
-          mbar_expect_tx(full + s, (unsigned)(sub * (12 * 4 + 4 + 8)));
-        __syncwarp();
-        // each copy is one request to the copy engine, which takes them
-        // one at a time: the 12 rows as one tensor box where the box fits
-        // (mode 2), else a copy a row
-        if (lane == 0 && mode == 2)
-          tensor_load(dc, &rows, g * sub, (b * nch + cid) * 12, full + s);
-        else if (lane < 12 && mode == 1)
-          bulk_load(dc + (size_t)lane * sub, src + (size_t)lane * chunk,
-                    (unsigned)sub * 4, full + s);
-        else if (lane == 12)
-          bulk_load(di, isrc, (unsigned)sub * 4, full + s);
-        else if (lane == 13)
-          bulk_load(db, bsrc, (unsigned)sub * 8, full + s);
-      } else if (lane == 0) {
-        for (int r = 0; r < 12; ++r)
-          for (int f = 0; f < sub; ++f)
-            dc[(size_t)r * sub + f] = src[(size_t)r * chunk + f];
-        for (int f = 0; f < sub; ++f) {
-          di[f] = isrc[f];
-          db[f] = bsrc[f];
-        }
-        mbar_arrive(full + s);
-      }
+      stage_subblock(smem + L.coef + (size_t)s * SL.bytes, SL, full + s,
+                     &rows, table, orig, fbox, b, nch, chunk, sub, s_cid[pk],
+                     g, mode, lane);
     }
   }
 
@@ -413,84 +213,13 @@ raster_vis_kernel(const __grid_constant__ CUtensorMap rows,
     for (unsigned m = mk; m; m &= m - 1, ++q) {
       const int s = q % ring;
       mbar_wait(full + s, (unsigned)((q / ring) & 1));
-      const unsigned char* slot = smem + L.coef + (size_t)s * L.slot;
-      const float* cf = reinterpret_cast<const float*>(slot);
-      const int* ids = reinterpret_cast<const int*>(slot + L.id);
-      const short4* bx = reinterpret_cast<const short4*>(slot + L.box);
-      // the warps take the faces in turn, a face a lane, so that the
-      // faces of one 32-face Morton block, which tend to meet the same
-      // tile, spread over the warps
-      for (int base = 0; base < sub; base += NT) {
-        const int f = base + lane * NWARP + warp;
-        const short4 bb = f < sub ? bx[f] : make_short4(0, -1, 0, -1);
-        int a = clipped_area(bb, tx0, ty0);
-        if (a > BIG_AREA) {
-          // a large face: its pairs go to the block at the chunk's end
-          const int e = atomicAdd(&s_nbig, 1);
-          if (e < BIG_CAP) {
-            for (int r = 0; r < 12; ++r) s_big[e].c[r] = cf[r * sub + f];
-            s_big[e].id = ids[f];
-            s_big[e].area = a;
-            s_big[e].box = bb;
-            a = 0;
-          }
-        }
-        // the warp's exclusive scan of the areas; its lanes stride over
-        // the warp's flattened (face, pixel) pairs
-        int inc = a;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int v = __shfl_up_sync(0xffffffffu, inc, o);
-          if (lane >= o) inc += v;
-        }
-        const int total = __shfl_sync(0xffffffffu, inc, 31);
-        const int start = inc - a;
-        for (int p0 = 0; p0 < total; p0 += 32) {
-          const int p = p0 + lane;
-          int src = 0;             // the last lane whose pairs start <= p
-          for (int step = 16; step > 0; step >>= 1) {
-            const int v = __shfl_sync(0xffffffffu, start, src + step);
-            if (v <= p) src += step;
-          }
-          const int r = p - __shfl_sync(0xffffffffu, start, src);
-          const int fs = base + src * NWARP + warp;
-          if (p < total &&
-              test_pixel(cf + fs, sub, (unsigned)ids[fs], bx[fs], r, tx0, ty0,
-                         s_magic, s_key))
-            took = 1;
-        }
-      }
+      took |= consume_subblock(smem + L.coef + (size_t)s * SL.bytes, SL, sub,
+                               tx0, ty0, lane, warp, s_big, s_magic, s_key);
       __syncwarp();      // this warp is done with the slot
       if (lane == 0) mbar_arrive(empty + s);
     }
     consumers_sync();    // every sub-block of the chunk is done
-    const int nbig = min(s_nbig, BIG_CAP);
-    if (nbig > 0) {
-      // the large faces' pairs flattened over the whole block
-      if (warp == 0) {
-        const int a = lane < nbig ? s_big[lane].area : 0;
-        int inc = a;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int v = __shfl_up_sync(0xffffffffu, inc, o);
-          if (lane >= o) inc += v;
-        }
-        s_bigstart[lane] = inc - a;
-        if (lane == 31) s_bigstart[BIG_CAP] = inc;
-      }
-      consumers_sync();
-      const int total = s_bigstart[BIG_CAP];
-      int e = 0;
-      for (int i = tid; i < total; i += NT) {
-        int hi = nbig - 1;
-        while (e < hi) {
-          const int mid = (e + hi + 1) >> 1;
-          if (s_bigstart[mid] <= i) e = mid; else hi = mid - 1;
-        }
-        if (test_pixel(s_big[e].c, 1, (unsigned)s_big[e].id, s_big[e].box,
-                       i - s_bigstart[e], tx0, ty0, s_magic, s_key))
-          took = 1;
-      }
-      consumers_sync();
-    }
+    took |= consume_big(s_big, tid, lane, warp, tx0, ty0, s_magic, s_key);
     // the chunk's flag and the tile's new z max
     float v = -BIG;
     for (int i = tid; i < TP; i += NT)
@@ -502,7 +231,7 @@ raster_vis_kernel(const __grid_constant__ CUtensorMap rows,
       s_wmax[warp] = v;
       s_wany[warp] = any;
     }
-    if (tid == 0) s_nbig = 0;
+    if (tid == 0) s_big.n = 0;
     consumers_sync();
     float zmax = s_wmax[0];
     int anyb = s_wany[0];
@@ -516,44 +245,14 @@ raster_vis_kernel(const __grid_constant__ CUtensorMap rows,
       if (anyb) flags[bt * nch + s_cid[k]] = 1;
     }
   }
-  for (int i = tid; i < TP; i += NT) {
-    const unsigned long long key = s_key[i];
-    const unsigned lo = (unsigned)key;
-    const int id = (int)(lo >> 1);
-    const float z = (lo & 1u) ? -0.0f : zval((unsigned)(key >> 32));
-    const size_t o = (size_t)b * H * W + (size_t)(ty0 + i / TILE_W) * W
-                     + tx0 + i % TILE_W;
-    z_out[o] = id > 0 ? z : 0.0f;
-    id_out[o] = id;
-  }
+  for (int i = tid; i < TP; i += NT)
+    write_pixel(s_key[i], i, b, tx0, ty0, H, W, z_out, id_out);
 }
 
 // Shared memory the kernel needs with a ring of one slot (bytes); the
 // wrapper refuses shapes above the card's 227 KB.
 extern "C" long raster_vis_smem(int chunk, int nsub, int nch) {
   return (long)Layout(chunk / nsub, nch, 1).total;
-}
-
-// cuTensorMapEncodeTiled of the CUDA driver API, looked up through the
-// runtime, so that the library links the runtime alone
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess
-        && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 extern "C" int raster_vis_launch(const float* table, const int* orig,
@@ -572,27 +271,11 @@ extern "C" int raster_vis_launch(const float* table, const int* orig,
   ring = ring < 1 ? 1 : (ring > MAX_RING ? MAX_RING : ring);
   while (ring > 1 && Layout(sub, nch, ring).total > 227 * 1024) --ring;
   const size_t smem = Layout(sub, nch, ring).total;
-  // bulk copies need 16-byte aligned sources and sizes (mode 1); a tensor
-  // box is at most 256 elements a side (mode 2); else plain loads (mode 0)
-  int mode = chunk % 4 == 0 && sub % 4 == 0
-             && ((uintptr_t)table | (uintptr_t)orig | (uintptr_t)fbox)
-                % 16 == 0;
   CUtensorMap rows;
-  memset(&rows, 0, sizeof(rows));
-  if (mode && sub <= 256) {
-    EncodeTiled encode = encode_tiled();
-    if (!encode) return (int)cudaErrorNotSupported;
-    const cuuint64_t dim[2] = {(cuuint64_t)chunk, (cuuint64_t)B * nch * 12};
-    const cuuint64_t stride[1] = {(cuuint64_t)chunk * 4};
-    const cuuint32_t box[2] = {(cuuint32_t)sub, 12};
-    const cuuint32_t step[2] = {1, 1};
-    if (encode(&rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)table, dim,
-               stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-    mode = 2;
-  }
+  int err = 0;
+  const int mode = staging_mode(&rows, table, orig, fbox, B, nch, chunk, sub,
+                                &err);
+  if (mode < 0) return err;
   cudaError_t e = cudaFuncSetAttribute(
       raster_vis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

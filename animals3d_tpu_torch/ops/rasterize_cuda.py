@@ -22,7 +22,9 @@ around the kernel is plain PyTorch, as the JAX package left it to XLA:
     front to back by z-min, with an 8-bit mask of overlapping sub-blocks;
   * per face and image, a cull box (`cull_boxes`; on the card the kernel
     `cull`): a bound of every pixel centre its float32 edge tests can
-    accept. Variants 3 and 4 test a face only on its box.
+    accept. Every variant tests a face only on its box;
+  * variant 6 also: per unit (sub-block) and image, the union of its
+    faces' boxes (`unit_boxes`; on the card `unit_cull`).
 
 The kernel (or `visibility_reference`) then computes, per pixel, the
 nearest covering face — ties on exactly equal z go to the smallest
@@ -56,7 +58,10 @@ Two more kernels compute the same function (`variant` of `prepare` and
     S = min(128, U, `v6_cap`) of them; the occlusion skip is per unit, the
     flags per list slot (scattered back to chunks by `chunk_flags_v6`),
     and a tile with more than S units scans every sub-block with no skip.
-    Its plain version is `visibility_v6_reference`. Its z and face_id
+    Its plain version is `visibility_v6_reference`. K3 walks the lists
+    with K1's structure, and a tile with more than S units only over the
+    units whose box meets it, split over a cluster of blocks
+    (`K3_SPLIT`); see its source note. Its z and face_id
     equal K1's wherever the skips are conservative; they are not where the
     plane equation's float32 rounding puts a face's depth below the
     least vertex depth its chunk or unit is skipped by, and there the two
@@ -150,9 +155,10 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
     sorted slot; order (B, T, nch) int32 chunk ids front to back
     (overlapping ones first); counts (B, T) int32; masks (B, T, nch) int32
     sub-block overlap bits by chunk id; zlo (B, nch) int32 quantized chunk
-    z-min; nsub. Variants 3 and 4 add fbox (B, nch·chunk, 4) int16
-    per-face cull boxes (`cull`); variant 6 adds zu (B, U) int32 quantized
-    unit z-min, units (B, T, S) int32 unit lists, counts6 (B, T) int32 and S.
+    z-min; nsub; fbox (B, nch·chunk, 4) int16 per-face cull boxes
+    (`cull`). Variant 6 adds zu (B, U) int32 quantized unit z-min, units
+    (B, T, S) int32 unit lists, counts6 (B, T) int32, S and ubox (B, U, 4)
+    int16 per-unit boxes (`unit_cull`).
     Raises ValueError for a variant that cannot run on these shapes (the
     JAX package falls back to variant 3 there).
     """
@@ -277,8 +283,7 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
            "order": order.contiguous(), "counts": counts.contiguous(),
            "masks": masks.contiguous(), "zlo": zlo.contiguous(),
            "nsub": nsub}
-    if variant in (3, 4):
-        out["fbox"] = cull(table, resolution)
+    out["fbox"] = cull(table, resolution)
     if variant == 6:
         # units (sub-blocks) per tile in ascending (quantized z-min, unit
         # id): the stable sort of `_rasterize_pallas_T` (:843-858), without
@@ -292,7 +297,8 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
         units = torch.argsort(ukey, dim=-1, stable=True)[..., :S]
         out.update(zu=zu.contiguous(),
                    units=units.to(torch.int32).contiguous(),
-                   counts6=ovu.sum(-1).to(torch.int32).contiguous(), S=S)
+                   counts6=ovu.sum(-1).to(torch.int32).contiguous(), S=S,
+                   ubox=unit_cull(out["fbox"], sub, resolution))
     return out
 
 
@@ -372,6 +378,48 @@ def cull(table, resolution):
 cull.launches = 0
 
 
+def unit_boxes(fbox, sub: int, resolution):
+    """Per image and unit (each `sub` consecutive sorted slots, a sub-block),
+    the union (B, U, 4) int16 of its faces' non-empty cull boxes
+    (`cull_boxes`): every pixel centre any of its faces' float32 edge tests
+    can accept lies in it. (W, -1, H, -1), empty, where every face's box is
+    empty."""
+    height, width = resolution
+    B, F, _four = fbox.shape
+    bx = fbox.long().reshape(B, F // sub, sub, 4)
+    some = (bx[..., 0] <= bx[..., 1]) & (bx[..., 2] <= bx[..., 3])
+
+    def fold(i, fill, red):
+        v = torch.where(some, bx[..., i], torch.full_like(bx[..., i], fill))
+        return v.amin(-1) if red == "min" else v.amax(-1)
+    box = torch.stack([fold(0, width, "min"), fold(1, -1, "max"),
+                       fold(2, height, "min"), fold(3, -1, "max")], -1)
+    return box.to(torch.int16).contiguous()
+
+
+def unit_cull(fbox, sub: int, resolution):
+    """`unit_boxes` on the boxes' device: the CUDA kernel
+    (`csrc/cull_boxes.cu`, `unit_boxes_kernel`) for CUDA boxes, the plain
+    version for CPU ones; the same int16 boxes bit for bit. Adds one to
+    `unit_cull.launches` per kernel launch."""
+    if _device(fbox).type == "cpu":
+        return unit_boxes(fbox, sub, resolution)
+    B, F, _four = fbox.shape
+    if sub < 1 or F % sub:
+        raise ValueError(f"units of {sub} faces do not divide {F} slots")
+    _check({"fbox": (fbox, torch.int16, (B, F, 4))}, fbox.device)
+    height, width = resolution
+    out = torch.empty((B, F // sub, 4), dtype=torch.int16,
+                      device=fbox.device)
+    _launch("unit_boxes", library().unit_boxes_launch, fbox, out,
+            B * (F // sub), sub, height, width)
+    unit_cull.launches += 1
+    return out
+
+
+unit_cull.launches = 0
+
+
 def _check(tensors, device):
     """tensors: name → (tensor, dtype, shape); each must match, be
     contiguous and lie on `device`."""
@@ -416,13 +464,20 @@ def _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub,
     _check(want, table.device)
 
 
-def _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub):
-    B, nch, _chunk, T = _check_table(table, orig, resolution, nsub)
+def _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub,
+                     fbox=None, ubox=None):
+    """Variant 6's inputs; and the face and unit cull boxes where given
+    (K3's)."""
+    B, nch, chunk, T = _check_table(table, orig, resolution, nsub)
     if nsub < 2 or units.ndim != 3:
         raise ValueError(f"variant 6: nsub {nsub}, units {tuple(units.shape)}")
-    _check({"units": (units, torch.int32, (B, T, units.shape[-1])),
+    want = {"units": (units, torch.int32, (B, T, units.shape[-1])),
             "counts6": (counts6, torch.int32, (B, T)),
-            "zu": (zu, torch.int32, (B, nch * nsub))}, table.device)
+            "zu": (zu, torch.int32, (B, nch * nsub))}
+    if fbox is not None:
+        want["fbox"] = (fbox, torch.int16, (B, nch * chunk, 4))
+        want["ubox"] = (ubox, torch.int16, (B, nch * nsub, 4))
+    _check(want, table.device)
 
 
 def _subblock_winners(table, orig, px, py, b, t, cid, g, sub):
@@ -513,17 +568,19 @@ def visibility_reference(table, orig, order, counts, masks, zlo, resolution,
 
 
 def visibility_v6_reference(table, orig, units, counts6, zu, resolution,
-                            nsub: int):
-    """Plain PyTorch version of variant 6's kernel (same signature and
-    outputs): z, face_id as `visibility_reference`, and slot flags
-    (B, T, S) uint8 — whether any pixel took a face from the unit in list
-    slot k (0 where the unit was skipped).
+                            nsub: int, stats: Optional[dict] = None):
+    """Plain PyTorch version of variant 6's kernel (same outputs): z,
+    face_id as `visibility_reference`, and slot flags (B, T, S) uint8 —
+    whether any pixel took a face from the unit in list slot k (0 where
+    the unit was skipped).
 
     A tile with at most S units walks its list front to back and skips a
     unit whose quantized z-min is behind every pixel's winner. A tile with
     more scans every sub-block of every chunk with no skip and no flags
     (`_raster_kernel_v6` :603-628); `chunk_flags_v6` gives it the overlap
-    row."""
+    row. If `stats` is given it receives `visits`, an int64 (n, 3) tensor
+    of the dense tiles' live (image, tile, unit) visits, those the
+    occlusion skip keeps."""
     _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub)
     height, width = resolution
     B, nch, _, chunk = table.shape
@@ -540,6 +597,7 @@ def visibility_v6_reference(table, orig, units, counts6, zu, resolution,
     dense = counts_f <= S
     n_dense = int(torch.where(dense, counts_f, 0).max()) \
         if counts_f.numel() else 0
+    visits = []
     for k in range(n_dense):
         r = torch.nonzero(dense & (counts_f > k))[:, 0]
         unit = units_f[r, k]
@@ -549,6 +607,8 @@ def visibility_v6_reference(table, orig, units, counts6, zu, resolution,
         if act.numel() == 0:
             continue
         ua = unit[act]
+        if stats is not None:
+            visits.append(torch.stack([b[act], t[act], ua], 1))
         gz, gi = _subblock_winners(table, orig, px, py, b[act], t[act],
                                    ua // nsub, ua % nsub, sub)
         zr[act], idr[act], tk = _take(gz, gi, zr[act], idr[act])
@@ -565,6 +625,9 @@ def visibility_v6_reference(table, orig, units, counts6, zu, resolution,
                     torch.full_like(b, g), sub)
                 zr, idr, _tk = _take(gz, gi, zr, idr)
         z[r], fid[r] = zr, idr
+    if stats is not None:
+        stats["visits"] = torch.cat(visits) if visits else \
+            torch.zeros((0, 3), dtype=torch.int64, device=dev)
     return (*_outputs(z, fid, B, height, width), sflags.reshape(B, T, S))
 
 
@@ -594,16 +657,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def _sources() -> list:
-    """Every kernel source of the package, in a fixed order."""
+def _sources(suffixes=(".cu",)) -> list:
+    """Every kernel source of the package (with `(".cu", ".cuh")`, the
+    headers they include too), in a fixed order."""
     csrc = os.path.join(_PKG_DIR, "csrc")
     return [os.path.join(csrc, n) for n in sorted(os.listdir(csrc))
-            if n.endswith(".cu")]
+            if n.endswith(suffixes)]
 
 
 def library_path() -> str:
+    """The library's path in `BUILD_DIR`, named by a hash of the compiler
+    flags and of every source and header, so that an edit of any builds
+    anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources((".cu", ".cuh")):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libkernels-{h.hexdigest()[:12]}.so")
@@ -642,8 +709,11 @@ def library():
         lib.raster_vis_smem.argtypes = [i32] * 3
         lib.raster_vis_smem.restype = i64
         lib.cull_boxes_launch.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]
+        lib.unit_boxes_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
         lib.raster_vis_v4_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
-        lib.raster_vis_v6_launch.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
+        lib.raster_vis_v6_launch.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
+        lib.raster_vis_v6_smem.argtypes = [i32] * 5
+        lib.raster_vis_v6_smem.restype = i64
         lib.fused_mlp_fwd_bf16_launch.argtypes = [ptr] * 5 + [i64] \
             + [i32] * 3 + [ptr]
         lib.fused_mlp_fwd_f32_launch.argtypes = [ptr] * 6 + [i64] \
@@ -659,6 +729,7 @@ def library():
         lib.resolve_bwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.resolve_fwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         for fn in (lib.raster_vis_launch, lib.cull_boxes_launch,
+                   lib.unit_boxes_launch,
                    lib.raster_vis_v4_launch,
                    lib.raster_vis_v6_launch, lib.fused_mlp_fwd_bf16_launch,
                    lib.fused_mlp_fwd_f32_launch,
@@ -706,6 +777,12 @@ SMEM_MAX = 227 * 1024
 # sub-blocks: two at chunk 1024, nsub 8, and eight blocks on an SM (1,056
 # of the 1,280 blocks of 10 images at 256² at once)
 K1_SMEM = 22 * 1024
+# K3's: a ring of two units at chunk 1024, nsub 8 and a split of 4
+K3_SMEM = 24 * 1024
+# the blocks (a cluster) over which K3 splits a tile of more than S units:
+# its units by cull box (404 at most on the full-width meshes) split to
+# about a dense tile's S = 128 (1, 2, 4 or 8)
+K3_SPLIT = 4
 
 
 def visibility(table, orig, order, counts, masks, zlo, fbox, resolution,
@@ -764,23 +841,34 @@ def visibility_v4(table, orig, order, counts, masks, zlo, fbox, resolution,
 visibility_v4.launches = 0
 
 
-def visibility_v6(table, orig, units, counts6, zu, resolution, nsub: int):
+def visibility_v6(table, orig, units, counts6, zu, fbox, ubox, resolution,
+                  nsub: int):
     """Variant 6 (dense unit lists) visibility: the CUDA kernel K3 for CUDA
     tensors, `visibility_v6_reference` for CPU tensors; returns z,
-    face_id and slot flags (B, T, S) uint8. Adds one to
+    face_id and slot flags (B, T, S) uint8. fbox, ubox: the face and unit
+    cull boxes of `prepare`, checked on either device. Raises ValueError
+    on inputs the kernel does not take: a list and sub-block that overflow
+    shared memory, a `K3_SPLIT` other than 1, 2, 4 or 8. Adds one to
     `visibility_v6.launches` per kernel launch."""
+    _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub, fbox,
+                     ubox)
     if _device(table).type == "cpu":
         return visibility_v6_reference(table, orig, units, counts6, zu,
                                        resolution, nsub)
-    _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub)
     height, width = resolution
     B, nch, _, chunk = table.shape
     S = units.shape[-1]
+    if K3_SPLIT not in (1, 2, 4, 8):
+        raise ValueError(f"K3_SPLIT {K3_SPLIT}: want 1, 2, 4 or 8")
+    lib = library()
+    if lib.raster_vis_v6_smem(chunk, nsub, nch, S, K3_SPLIT) > SMEM_MAX:
+        raise ValueError(f"K3: sub-block of {chunk // nsub} faces and "
+                         f"{nch * nsub} units exceed shared memory")
     T = (height // TILE_H) * (width // TILE_W)
     z, fid, sflags = _outputs_cuda(B, resolution, S, table.device)
-    _launch("raster_vis_v6", library().raster_vis_v6_launch, table, orig,
-            units, counts6, zu, z, fid, sflags, B, T, width // TILE_W, nch,
-            chunk, nsub, S, height, width)
+    _launch("raster_vis_v6", lib.raster_vis_v6_launch, table, orig, units,
+            counts6, zu, fbox, ubox, z, fid, sflags, B, T, width // TILE_W,
+            nch, chunk, nsub, S, height, width, K3_SMEM, K3_SPLIT)
     visibility_v6.launches += 1
     return z, fid, sflags
 
@@ -810,6 +898,7 @@ def rasterize_cuda(v_clip, faces, f_valid, resolution, v_pos0,
     else:
         z, fid, sflags = visibility_v6(*common, prep["units"],
                                        prep["counts6"], prep["zu"],
+                                       prep["fbox"], prep["ubox"],
                                        resolution, prep["nsub"])
         flags = chunk_flags_v6(sflags, prep["units"], prep["counts6"],
                                prep["masks"], prep["nsub"])

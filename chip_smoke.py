@@ -23,14 +23,15 @@ Phases, in this order, each fatal on failure:
      meshes: K1 and K2 against `visibility_reference` and K2 against K1
      (z, face_id and chunk flags bit for bit), K3 against
      `visibility_v6_reference` (z, face_id, slot flags) and its z and
-     face_id against K1's, also with the unit lists capped at 2 (the
-     full-scan loop), and the cull kernel's boxes against `cull_boxes`
-     (bit for bit). Times the three and their plain versions (CUDA
-     events, medians) on the last three scenes, computes the bound from
-     this run's inputs, and reads the walk's work (chunks per tile, live
-     sub-block visits, cull-box pairs) and the peak memory of `prepare`
-     for variants 3 and 4 there; times the cull kernel and `cull_boxes`
-     on the recon scene; the `kernels` line reports the recon scene. Then
+     face_id against K1's, also with the unit lists capped at 2 (most
+     tiles overflow), and the cull kernel's boxes against `cull_boxes`
+     and the unit kernel's against `unit_boxes` (bit for bit). Times the
+     three and their plain versions (CUDA events, medians) on the last
+     three scenes, computes the bound from this run's inputs, and reads
+     the walk's work (chunks per tile, live sub-block visits, cull-box
+     pairs) and the peak memory of `prepare` for variants 3, 4 and 6
+     there; times the cull and unit kernels and their plain versions on
+     the recon scene; the `kernels` line reports the recon scene. Then
      the fused netSDF sweep, forward and backward, against its plain
      versions at the full-width shape (the embedded jittered 129³ lattice,
      weights of `init_params(0)`) and at a ragged small N, in bf16 and
@@ -54,17 +55,20 @@ Phases, in this order, each fatal on failure:
      of the path once per step or render, no other kernel):
      `train_step` on the default path (1 warm-up and 5 timed steps: the
      cull kernel, K1, K6, K7, K4) and on `raster_variant=6,
-     resolve_rows="kernel"` (1 + 3: K3, K5, K4, K6, K7), the loss on the
+     resolve_rows="kernel"` (1 + 3: the cull and unit kernels, K3, K5,
+     K4, K6, K7), the loss on the
      batch with fixed draws falling; `reconstruct` on the default path
      (1 + 5: the cull kernel, K1), with `raster_variant=4` (1 + 3: the
      cull kernel, K2; every render's z and face_id equal to K1's on the
      same posed meshes) and with `raster_variant=6, resolve_rows="kernel"`
-     (1 + 3: K3, K5; the images equal to the default path's within 1e-6).
+     (1 + 3: the cull and unit kernels, K3, K5; the images equal to the
+     default path's within 1e-6).
 
-Prints a `kernels` JSON line (all eight kernels; `launches` is the count on
+Prints a `kernels` JSON line (all nine kernels; `launches` is the count on
 the path that drives the kernel — `recon_v4` for K2,
-`train_v6_kernel_rows` for K3 and K5, the default training path for the
-others — and `launches_by_path` the counts on every path), the card's name
+`train_v6_kernel_rows` for the unit kernel, K3 and K5, the default
+training path for the others — and `launches_by_path` the counts on
+every path), the card's name
 and power limit, and as the last line `{"ok": true, "device": {...}}`.
 Exits non-zero without a CUDA card.
 """
@@ -383,6 +387,31 @@ def cull_entry(prep, res):
                         bytes_ms, ops_ms)
 
 
+def unit_entry(prep, res):
+    """The unit kernel on a prep's face boxes against `unit_boxes` (bit for
+    bit), timed beside it; returns its `kernels` entry. Bound: bytes — the
+    face boxes read once and the unit boxes written once."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    fbox = prep["fbox"]
+    sub = prep["table"].shape[-1] // prep["nsub"]
+    got = rc.unit_cull(fbox, sub, res)
+    torch.cuda.synchronize()
+    same_outputs("unit kernel", (got,), (rc.unit_boxes(fbox, sub, res),),
+                 ("boxes",))
+    ms = median_ms(lambda: rc.unit_cull(fbox, sub, res))
+    plain_ms = median_ms(lambda: rc.unit_boxes(fbox, sub, res), 3)
+    nbytes = fbox.numel() * 2 + got.numel() * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"unit_boxes[recon]: {got.shape[0] * got.shape[1]} (image, unit) "
+          f"boxes identical to `unit_boxes`; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bytes_ms:.4f} ms (bytes {nbytes}), "
+          f"kernel/bound {ms / bytes_ms:.1f}x")
+    return kernel_entry("unit_boxes", "cull_boxes.cu",
+                        "rasterize_pallas.py:837", 0.0, ms, plain_ms,
+                        bytes_ms, 0.0)
+
+
 def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_ms,
                  ops_ms, library_ms=None):
     return {"name": name, "route": "cuda",
@@ -466,14 +495,16 @@ def visibility_phase(model, images, it, device, batch):
     """K1 against its plain version on the five scenes, K2 against the same
     plain version and against K1, K3 against its plain version (and its z
     and face_id against K1's), each bit for bit; a second K3 pass with the
-    unit lists capped at 2 runs its full-scan loop; the cull boxes of
-    every scene against `cull_boxes`. On the three full-width scenes the
-    kernels are timed and bounded, with the work the walk offers (chunks
-    per tile, live sub-block visits, the faces' cull-box pairs) and the
-    peak memory of `prepare` for variants 3 and 4. Returns the `kernels`
-    entries of the cull kernel, K1, K2 and K3, timed and bounded on the
-    recon scene (K2's and K3's bound is K1's: the same function on the
-    same inputs), K1's and K2's with their time on the training poses."""
+    unit lists capped at 2 runs its overflow walk on most tiles; the cull
+    boxes of every scene against `cull_boxes`, the unit boxes against
+    `unit_boxes`. On the three full-width scenes the kernels are timed and
+    bounded, with the work the walk offers (chunks per tile, live
+    sub-block visits, the faces' cull-box pairs) and the peak memory of
+    `prepare` for variants 3, 4 and 6. Returns the `kernels` entries of
+    the cull kernel, the unit kernel, K1, K2 and K3, timed and bounded on
+    the recon scene (K2's and K3's bound is K1's: the same function on the
+    same inputs), K1's, K2's and K3's with their time on the training
+    poses."""
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     rng = np.random.default_rng(SEED)
@@ -535,15 +566,17 @@ def visibility_phase(model, images, it, device, batch):
               f"{p4['nsub']}: z, face_id and flags identical to the plain "
               "version and to K1")
 
-        # K3 at the cap of 128 and at 2 (the full-scan loop)
-        caps = (128, 2) if name in ("random", "depth_stack", "recon") \
-            else (128,)
-        for cap in caps:
+        # K3 at the cap of 128 and at 2 (most tiles overflow)
+        for cap in (128, 2):
             p6 = prep_of(scene, nsub=v6_nsub.get(name, rc.NSUB), variant=6,
                          v6_cap=cap)
+            sub6 = p6["table"].shape[-1] // p6["nsub"]
+            same_outputs(f"unit kernel {name}", (p6["ubox"],),
+                         (rc.unit_boxes(p6["fbox"], sub6, res),), ("boxes",))
             args6 = (p6["table"], p6["orig"], p6["units"], p6["counts6"],
                      p6["zu"], res, p6["nsub"])
-            out3 = rc.visibility_v6(*args6)
+            out3 = rc.visibility_v6(*args6[:5], p6["fbox"], p6["ubox"], res,
+                                    p6["nsub"])
             torch.cuda.synchronize()
             ref3 = rc.visibility_v6_reference(*args6)
             err3 = same_outputs(f"K3 {name} cap {cap}", out3, ref3,
@@ -554,7 +587,7 @@ def visibility_phase(model, images, it, device, batch):
                     ref3[2], p6["units"], p6["counts6"], p6["masks"],
                     p6["nsub"])):
                 raise AssertionError(f"K3 {name} cap {cap}: chunk flags")
-            out1_6 = k1(dict(p6, fbox=rc.cull(p6["table"], res)), res)
+            out1_6 = k1(p6, res)
             n_k1, _d = v6_against_k1(f"K3 vs K1 {name} cap {cap}", out3,
                                      out1_6, p6)
             n_k1 = f"{n_k1['skip']} (skip) + {n_k1['scan']} (scan)"
@@ -562,10 +595,10 @@ def visibility_phase(model, images, it, device, batch):
             print(f"raster_vis_v6[{name}, cap {cap}]: S {p6['S']}, units per "
                   f"tile max {int(p6['counts6'].max())} mean "
                   f"{float(p6['counts6'].float().mean()):.1f}, overflow tiles "
-                  f"(full scan) {over} of {p6['counts6'].numel()}; z, "
-                  "face_id and slot flags identical to the plain version; z "
-                  f"and face_id identical to K1's but at {n_k1} of "
-                  f"{fid.numel()} pixels (`v6_against_k1`)")
+                  f"{over} of {p6['counts6'].numel()}; z, face_id and slot "
+                  "flags identical to the plain version, unit boxes to "
+                  "`unit_boxes`; z and face_id identical to K1's but at "
+                  f"{n_k1} of {fid.numel()} pixels (`v6_against_k1`)")
         if name not in full_width:
             continue
         ms = median_ms(lambda: k1(prep, res), TIMED_RUNS)
@@ -574,7 +607,8 @@ def visibility_phase(model, images, it, device, batch):
         p6 = prep_of(scene, variant=6)
         args6 = (p6["table"], p6["orig"], p6["units"], p6["counts6"],
                  p6["zu"], res, p6["nsub"])
-        ms6 = median_ms(lambda: rc.visibility_v6(*args6), TIMED_RUNS)
+        ms6 = median_ms(lambda: rc.visibility_v6(
+            *args6[:5], p6["fbox"], p6["ubox"], res, p6["nsub"]), TIMED_RUNS)
         plain_ms = statistics.median(
             cuda_ms(lambda: rc.visibility_reference(*args), 3))
         plain6_ms = statistics.median(
@@ -585,8 +619,10 @@ def visibility_phase(model, images, it, device, batch):
         walk_readings(name, prep, visits, res)
         _p, peak3 = prepare_peak(scene, 3)
         _p, peak4 = prepare_peak(scene, 4)
+        _p, peak6 = prepare_peak(scene, 6)
         print(f"visibility[{name}]: prepare peak memory variant 3 "
-              f"{peak3 / 2**30:.3f} GiB, variant 4 {peak4 / 2**30:.3f} GiB")
+              f"{peak3 / 2**30:.3f} GiB, variant 4 {peak4 / 2**30:.3f} GiB, "
+              f"variant 6 {peak6 / 2**30:.3f} GiB")
         print(f"visibility[{name}]: K1 {ms:.4f} ms, K2 {ms4:.4f} ms, K3 "
               f"{ms6:.4f} ms; plain {plain_ms:.4f} ms (K1's and K2's), "
               f"{plain6_ms:.4f} ms (K3's); bound {bound:.4f} ms (live bytes "
@@ -594,11 +630,13 @@ def visibility_phase(model, images, it, device, batch):
               f"{ops_ms:.4f} ms); kernel/bound K1 {ms / bound:.1f}x, K2 "
               f"{ms4 / bound:.1f}x, K3 {ms6 / bound:.1f}x")
         if name == "train":
-            train_ms = {"raster_vis": ms, "raster_vis_v4": ms4}
+            train_ms = {"raster_vis": ms, "raster_vis_v4": ms4,
+                        "raster_vis_v6": ms6}
         if name != "recon":
             continue
         entries = {
             "cull_boxes": cull_entry(prep, res),
+            "unit_boxes": unit_entry(p6, res),
             "raster_vis": kernel_entry(
                 "raster_vis", "raster_vis.cu", "rasterize_pallas.py:153",
                 err, ms, plain_ms, bytes_ms, ops_ms),
@@ -610,7 +648,7 @@ def visibility_phase(model, images, it, device, batch):
                 "raster_vis_v6", "raster_vis_v6.cu",
                 "rasterize_pallas.py:513", err3, ms6, plain6_ms, bytes_ms,
                 ops_ms)}
-    # K1 and K2 on the training forward's own posed meshes too
+    # K1, K2 and K3 on the training forward's own posed meshes too
     for name, ms in train_ms.items():
         entries[name]["ms_train_poses"] = ms
     return entries
@@ -1048,12 +1086,13 @@ PATHS = {
                    "fused_mlp_bwd", "resolve_bwd")),
     "train_v6_kernel_rows": (
         dict(raster_variant=6, resolve_rows="kernel"),
-        ("raster_vis_v6", "resolve_fwd", "resolve_bwd", "fused_mlp_fwd",
-         "fused_mlp_bwd")),
+        ("cull_boxes", "unit_boxes", "raster_vis_v6", "resolve_fwd",
+         "resolve_bwd", "fused_mlp_fwd", "fused_mlp_bwd")),
     "recon": ({}, ("cull_boxes", "raster_vis")),
     "recon_v4": (dict(raster_variant=4), ("cull_boxes", "raster_vis_v4")),
     "recon_v6_kernel_rows": (dict(raster_variant=6, resolve_rows="kernel"),
-                             ("raster_vis_v6", "resolve_fwd")),
+                             ("cull_boxes", "unit_boxes", "raster_vis_v6",
+                              "resolve_fwd")),
 }
 
 
@@ -1062,7 +1101,8 @@ def counters():
     from animals3d_tpu_torch.ops import fused_mlp as fm
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     from animals3d_tpu_torch.ops import resolve_cuda as rv
-    return {"cull_boxes": rc.cull, "raster_vis": rc.visibility,
+    return {"cull_boxes": rc.cull, "unit_boxes": rc.unit_cull,
+            "raster_vis": rc.visibility,
             "raster_vis_v4": rc.visibility_v4,
             "raster_vis_v6": rc.visibility_v6,
             "fused_mlp_fwd": fm.fused_mlp_fwd,
@@ -1583,9 +1623,11 @@ def main() -> int:
 
     # `launches`: the count on the path that drives the kernel's slice
     own_path = {"raster_vis_v4": "recon_v4",
+                "unit_boxes": "train_v6_kernel_rows",
                 "raster_vis_v6": "train_v6_kernel_rows",
                 "resolve_fwd": "train_v6_kernel_rows"}
-    order = ("cull_boxes", "raster_vis", "raster_vis_v4", "raster_vis_v6",
+    order = ("cull_boxes", "unit_boxes", "raster_vis", "raster_vis_v4",
+             "raster_vis_v6",
              "resolve_bwd", "resolve_fwd", "fused_mlp_fwd", "fused_mlp_bwd")
     kernels = []
     for name in order:

@@ -134,7 +134,8 @@ def visibility_call(prep, res, variant):
         return lambda: rc.visibility_v4(*common, *lists, prep["fbox"], res,
                                         prep["nsub"])
     return lambda: rc.visibility_v6(*common, prep["units"], prep["counts6"],
-                                    prep["zu"], res, prep["nsub"])
+                                    prep["zu"], prep["fbox"], prep["ubox"],
+                                    res, prep["nsub"])
 
 
 def main() -> int:

@@ -3,6 +3,8 @@
 model's own posed meshes, on one CUDA card.
 
     python3 scripts/torch_vis_readings.py [--runs N] [--k1-smem B1,B2,...]
+    python3 scripts/torch_vis_readings.py --v6 [--runs N]
+        [--k3-split P1,P2,...] [--k3-smem B1,B2,...]
 
 Builds `train_magicpony_horse` at full width as `chip_smoke.py` does and,
 for the meshes `reconstruct` rasterizes (`chip_smoke.recon_scene`) and
@@ -22,6 +24,30 @@ those of one training forward (`chip_smoke.train_pose_scene`), prints:
     which sets the depth of its ring of staged sub-blocks);
   * the peak device memory of `prepare` for variants 3 and 4, above what
     was allocated before the call.
+
+With `--v6` it reads variant 6's unit lists (`prepare(variant=6)`) and
+K3 instead:
+
+  * units per tile (`counts6`): max and mean, and the tiles with more than
+    S (the overflow tiles, which K3 scans without skip or flags);
+  * units per overflow tile: by vertex bbox (`counts6`) and by the union
+    of their faces' cull boxes (`unit_boxes`), mean and max;
+  * the dense tiles' live unit visits
+    (`visibility_v6_reference(stats=)`), in all and on the busiest tile;
+  * cull-box pairs on the dense tiles' live units and on the overflow
+    tiles (every face's box clipped to the tile), in all and on the
+    busiest tile;
+  * the units K3 stages (the dense tiles' live units and the overflow
+    tiles' units whose box meets the tile) and their bytes;
+  * K3's time (median of N single calls; on all tiles also per call over
+    20 calls back to back) on all tiles, on the dense tiles alone and on
+    the overflow tiles alone (a copy of `counts6` with the other tiles'
+    counts set to 0: a reading, never a path), beside the function's
+    bound; with `--k3-split` and `--k3-smem`, both ways at other splits
+    of an overflow tile over a cluster of blocks
+    (`rasterize_cuda.K3_SPLIT`) and shared-memory targets
+    (`rasterize_cuda.K3_SMEM`);
+  * the peak device memory of `prepare` for variant 6.
 """
 from __future__ import annotations
 
@@ -93,14 +119,140 @@ def readings(name, scene, runs, card, k1_smem):
           f"card {card}")
 
 
+def clipped_area(bx, tx0, ty0):
+    """Pixels of each int64 box [x0, x1, y0, y1] (..., 4) inside the tile
+    at (tx0, ty0), broadcast."""
+    w = (torch.minimum(bx[..., 1], tx0 + rc.TILE_W - 1)
+         - torch.maximum(bx[..., 0], tx0) + 1).clamp(min=0)
+    h = (torch.minimum(bx[..., 3], ty0 + rc.TILE_H - 1)
+         - torch.maximum(bx[..., 2], ty0) + 1).clamp(min=0)
+    return w * h
+
+
+def timed_with(name, value, fn, runs):
+    """`fn`'s median time over single calls and its time per call back to
+    back, with `rc.<name>` set to `value`."""
+    default = getattr(rc, name)
+    setattr(rc, name, value)
+    try:
+        return chip_smoke.median_ms(fn, runs), back_to_back_ms(fn)
+    finally:
+        setattr(rc, name, default)
+
+
+def v6_readings(name, scene, runs, card, k3_split, k3_smem):
+    v_clip, _v_pos0, faces, _f_valid, res, _chunk = scene
+    p6, peak6 = chip_smoke.prepare_peak(scene, 6)
+    table, nsub, S = p6["table"], p6["nsub"], p6["S"]
+    B, nch, _rows, chunk = table.shape
+    sub = chunk // nsub
+    height, width = res
+    ntx = width // rc.TILE_W
+    T = (height // rc.TILE_H) * ntx
+    dev = table.device
+    fbox = rc.cull_boxes(table, res)
+    ubox = rc.unit_boxes(fbox, sub, res).long()
+    fbox = fbox.long()
+    tid = torch.arange(T, device=dev)
+    tx0, ty0 = (tid % ntx) * rc.TILE_W, (tid // ntx) * rc.TILE_H
+    counts6 = p6["counts6"]
+    over = counts6 > S
+    n_over = int(over.sum())
+    # units whose cull-box union meets each tile, (B, T)
+    by_box = (clipped_area(ubox[:, None], tx0[None, :, None],
+                           ty0[None, :, None]) > 0).sum(-1)
+    args6 = (table, p6["orig"], p6["units"], counts6, p6["zu"], res, nsub)
+    stats = {}
+    out = rc.visibility_v6_reference(*args6, stats=stats)
+    visits = stats["visits"]
+    b, t, u = visits.unbind(1)
+    slots = (u * sub)[:, None] + torch.arange(sub, device=dev)
+    area = clipped_area(fbox[b[:, None], slots], tx0[t][:, None],
+                        ty0[t][:, None])
+    dense_pairs = torch.zeros(B * T, dtype=torch.int64, device=dev)
+    dense_pairs.index_add_(0, b * T + t, area.sum(1))
+    dense_visits = torch.bincount(b * T + t, minlength=B * T)
+    ob, ot = torch.nonzero(over, as_tuple=True)
+    over_pairs = []
+    for i in range(0, ob.numel(), 16):      # every face's box, 16 tiles a pass
+        bo, to = ob[i:i + 16], ot[i:i + 16]
+        over_pairs.append(clipped_area(fbox[bo], tx0[to][:, None],
+                                       ty0[to][:, None]).sum(1))
+    over_pairs = torch.cat(over_pairs) if over_pairs else \
+        torch.zeros(0, dtype=torch.int64, device=dev)
+    # the units K3 stages: the dense tiles' live units whose box meets the
+    # tile, and the overflow tiles' units by box; each a slot of the rows,
+    # ids and face boxes
+    staged = int(by_box[over].sum()) + int((clipped_area(
+        ubox[b, u], tx0[t], ty0[t]) > 0).sum())
+    slot_bytes = sub * (12 * 4 + 4 + 8)
+
+    def mean_max(x):
+        return (f"mean {float(x.float().mean()):.1f} max {int(x.max())}"
+                if x.numel() else "none")
+    print(f"v6[{name}]: S {S}, U {nch * nsub}; units per tile max "
+          f"{int(counts6.max())} mean {float(counts6.float().mean()):.2f}; "
+          f"overflow tiles {n_over} of {counts6.numel()}; units per "
+          f"overflow tile by vertex bbox {mean_max(counts6[over])}, by "
+          f"cull-box union {mean_max(by_box[over])}; dense tiles: live unit "
+          f"visits {visits.shape[0]} (busiest tile "
+          f"{int(dense_visits.max())}), cull-box pairs "
+          f"{int(dense_pairs.sum())} (busiest tile "
+          f"{int(dense_pairs.max())}); overflow tiles: cull-box pairs "
+          f"{int(over_pairs.sum())} (busiest tile "
+          f"{int(over_pairs.max()) if n_over else 0}); units staged "
+          f"{staged} ({staged * slot_bytes / 1e6:.1f} MB of rows, ids and "
+          "boxes)")
+    def k3(c6):
+        return lambda: rc.visibility_v6(*args6[:3], c6, args6[4], p6["fbox"],
+                                        p6["ubox"], res, nsub)
+    ms = chip_smoke.median_ms(k3(counts6), runs)
+    ms_dense = chip_smoke.median_ms(
+        k3(torch.where(over, 0, counts6).contiguous()), runs)
+    ms_over = chip_smoke.median_ms(
+        k3(torch.where(over, counts6, 0).contiguous()), runs)
+    p3 = rc.prepare(*scene[:5], scene[5])
+    stats3 = {}
+    out3 = rc.visibility_reference(p3["table"], p3["orig"], p3["order"],
+                                   p3["counts"], p3["masks"], p3["zlo"], res,
+                                   p3["nsub"], stats=stats3)
+    bytes_ms, ops_ms, _nbytes, _pairs = chip_smoke.visibility_bound(
+        v_clip, faces, p3, res, stats3["visits"], out3)
+    b2b = back_to_back_ms(k3(counts6))
+    print(f"v6[{name}]: K3 {ms:.4f} ms ({b2b:.4f} a call back to back), "
+          f"dense tiles alone {ms_dense:.4f} "
+          f"ms, overflow tiles alone {ms_over:.4f} ms (median of {runs}); "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms (K1's: the same function); "
+          f"prepare peak variant 6 {peak6 / 2**30:.3f} GiB; outputs "
+          f"{int((out[1] > 0).sum())} covered pixels; card {card}")
+    for split in k3_split:
+        one, many = timed_with("K3_SPLIT", split, k3(counts6), runs)
+        print(f"v6[{name}]: K3 with overflow tiles split over {split} "
+              f"block(s) {one:.4f} ms ({many:.4f} back to back)")
+    for smem in k3_smem:
+        one, many = timed_with("K3_SMEM", smem, k3(counts6), runs)
+        print(f"v6[{name}]: K3 with {smem} bytes of shared memory a block "
+              f"{one:.4f} ms ({many:.4f} back to back)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--k1-smem", default="",
                     help="comma-separated shared-memory targets (bytes) at "
                          "which K1 is timed too")
+    ap.add_argument("--v6", action="store_true",
+                    help="read variant 6's unit lists and K3 instead")
+    ap.add_argument("--k3-split", default="",
+                    help="comma-separated splits of an overflow tile at "
+                         "which K3 is timed too (with --v6)")
+    ap.add_argument("--k3-smem", default="",
+                    help="comma-separated shared-memory targets (bytes) at "
+                         "which K3 is timed too (with --v6)")
     args = ap.parse_args()
     k1_smem = [int(x) for x in args.k1_smem.split(",") if x]
+    k3_split = [int(x) for x in args.k3_split.split(",") if x]
+    k3_smem = [int(x) for x in args.k3_smem.split(",") if x]
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -112,7 +264,10 @@ def main() -> int:
                   model, fake_batch(model, B, chip_smoke.SEED))}
     with torch.no_grad():
         for name, scene in scenes.items():
-            readings(name, scene, args.runs, card, k1_smem)
+            if args.v6:
+                v6_readings(name, scene, args.runs, card, k3_split, k3_smem)
+            else:
+                readings(name, scene, args.runs, card, k1_smem)
     return 0
 
 

@@ -560,29 +560,134 @@ def test_visibility_v4_kernel_equals_plain_version_and_k1(card, make, chunk,
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
-@pytest.mark.parametrize("cap", [128, 2])
-@pytest.mark.parametrize("make,nsub", [(_random, 8), (_depth_stack, 2),
-                                       (_sphere, 8)])
+def _holes(rng):
+    """Invalid and empty faces: random small triangles with the first 512
+    faces invalid (whole Morton blocks, so whole units hold no valid
+    face), 200 degenerate faces (zero area) and 200 with a vertex behind
+    the camera (w < 0)."""
+    B, Fn = 2, 2400
+    ctr = rng.uniform(-0.9, 0.9, (B, Fn, 1, 3))
+    v = ctr + rng.uniform(-0.1, 0.1, (B, Fn, 3, 3))
+    v[:, 600:800] = v[:, 600:800, :1]
+    w = rng.uniform(2, 4, (B, Fn, 3, 1))
+    w[:, 800:1000, 0] = -1.0
+    v_clip = np.concatenate([v * w, w], -1).reshape(B, 3 * Fn, 4) \
+        .astype(np.float32)
+    faces = np.arange(3 * Fn).reshape(Fn, 3)
+    f_valid = np.ones(Fn, bool)
+    f_valid[:512] = False
+    return (v_clip, v.reshape(B, 3 * Fn, 3)[0].astype(np.float32), faces,
+            f_valid, (64, 96), 128)
+
+
+def _v6(prep, res):
+    """K3 and its plain version on a variant-6 prep."""
+    args = (prep["table"], prep["orig"], prep["units"], prep["counts6"],
+            prep["zu"])
+    got = rc.visibility_v6(*args, prep["fbox"], prep["ubox"], res,
+                           prep["nsub"])
+    torch.cuda.synchronize()
+    return got, rc.visibility_v6_reference(*args, res, prep["nsub"])
+
+
+def _empty_units(prep):
+    ub = prep["ubox"]
+    return int(((ub[..., 0] > ub[..., 1]) | (ub[..., 2] > ub[..., 3])).sum())
+
+
+# (scene, nsub): units of 16 faces (chunk 128) and of 64 (chunk 128, nsub
+# 2), the depth stack's units of one face, the sphere's of 32 and 128, the
+# slivers' of 128 and the invalid and empty faces' of 16
+V6_CASES = [(_random, 8), (_random, 2), (_depth_stack, 2), (_sphere, 8),
+            (_sphere, 2), (_sliver, 8), (_holes, 8)]
+
+
+@pytest.mark.parametrize("cap", [128, 2, 1])
+@pytest.mark.parametrize("make,nsub", V6_CASES,
+                         ids=[f"{m.__name__[1:]}-{n}" for m, n in V6_CASES])
 def test_visibility_v6_kernel_equals_plain_version(card, make, nsub, cap):
     """K3: face_id, z and the slot flags identical bit for bit to
-    `visibility_v6_reference`, with the unit lists capped at 128 and at 2
-    (the full-scan loop); z and face_id identical to K1's."""
+    `visibility_v6_reference`, with the unit lists capped at 128, at 2
+    (most tiles overflow) and at 1 (every tile with more than one unit
+    does); on the random, depth-stack and sphere scenes at caps 128 and 2
+    z and face_id identical to K1's too (they hold no face whose depth
+    falls below its unit's z-min, and no sliver that reaches a pixel
+    outside its vertex bbox); one launch counted per call."""
     prep, res = _prep(card, make, 3, nsub=nsub, variant=6, v6_cap=cap)
-    args = (prep["table"], prep["orig"], prep["units"], prep["counts6"],
-            prep["zu"], res, prep["nsub"])
     launches = rc.visibility_v6.launches
-    got = rc.visibility_v6(*args)
-    torch.cuda.synchronize()
+    got, want = _v6(prep, res)
     assert rc.visibility_v6.launches == launches + 1
-    want = rc.visibility_v6_reference(*args)
+    assert int((want[1] > 0).sum()) > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    k1 = rc.visibility(prep["table"], prep["orig"], prep["order"],
-                       prep["counts"], prep["masks"], prep["zlo"],
-                       rc.cull(prep["table"], res), res, prep["nsub"])
-    assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
-    if cap == 2:
+    if (make, nsub) in ((_random, 8), (_depth_stack, 2), (_sphere, 8)) \
+            and cap > 1:
+        k1 = rc.visibility(prep["table"], prep["orig"], prep["order"],
+                           prep["counts"], prep["masks"], prep["zlo"],
+                           prep["fbox"], res, prep["nsub"])
+        assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
+    if cap < 128:
         assert int((prep["counts6"] > prep["S"]).sum()) > 0
+    if make is _holes:
+        assert 0 < _empty_units(prep) < prep["ubox"].shape[1] * 2
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("smem", [0, 8 * 1024, 24 * 1024, 64 * 1024])
+@pytest.mark.parametrize("make,nsub,cap", [(_random, 8, 2), (_sphere, 8, 4),
+                                           (_big_and_small, 8, 2),
+                                           (_holes, 8, 128)])
+def test_visibility_v6_kernel_splits_and_rings(card, monkeypatch, make, nsub,
+                                               cap, split, smem):
+    """K3 with every split of an overflow tile over a cluster of blocks
+    (1, 2, 4, 8) and rings from one slot (no shared memory to spare) to
+    the most (`MAX_RING`, 16): the outputs are the plain version's bit for
+    bit."""
+    monkeypatch.setattr(rc, "K3_SPLIT", split)
+    monkeypatch.setattr(rc, "K3_SMEM", smem)
+    chunk = 256 if make is _big_and_small else None
+    kw = {"chunk": chunk} if chunk else {}
+    prep, res = _prep(card, make, 5, nsub=nsub, variant=6, v6_cap=cap, **kw)
+    got, want = _v6(prep, res)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert make is _holes or int((prep["counts6"] > prep["S"]).sum()) > 0
+
+
+@pytest.mark.parametrize("make,nsub", [(_random, 8), (_depth_stack, 2),
+                                       (_sliver, 8), (_holes, 8)])
+def test_unit_kernel_equals_unit_boxes(card, make, nsub):
+    """The unit kernel's boxes equal `unit_boxes`' bit for bit; `prepare`
+    calls it for variant 6, one launch, after the cull kernel."""
+    cull, units = rc.cull.launches, rc.unit_cull.launches
+    prep, res = _prep(card, make, 3, nsub=nsub, variant=6)
+    assert (rc.cull.launches, rc.unit_cull.launches) == (cull + 1, units + 1)
+    assert torch.equal(prep["fbox"], rc.cull_boxes(prep["table"], res))
+    sub = prep["table"].shape[-1] // prep["nsub"]
+    want = rc.unit_boxes(prep["fbox"], sub, res)
+    assert torch.equal(prep["ubox"], want)
+    assert torch.equal(rc.unit_cull(prep["fbox"], sub, res), want)
+    if make is _holes:
+        assert _empty_units(prep) > 0
+
+
+def test_visibility_v6_kernel_rejects_bad_inputs(card, monkeypatch):
+    """Boxes off the card or of the wrong type or shape, and a split that
+    is not 1, 2, 4 or 8, raise before any launch."""
+    prep, res = _prep(card, _random, 4, variant=6)
+    args = (prep["table"], prep["orig"], prep["units"], prep["counts6"],
+            prep["zu"])
+    launches = rc.visibility_v6.launches
+    for fbox, ubox in ((prep["fbox"].cpu(), prep["ubox"]),
+                       (prep["fbox"], prep["ubox"].int()),
+                       (prep["fbox"], prep["ubox"][:, :-1].contiguous())):
+        with pytest.raises(ValueError):
+            rc.visibility_v6(*args, fbox, ubox, res, prep["nsub"])
+    monkeypatch.setattr(rc, "K3_SPLIT", 3)
+    with pytest.raises(ValueError):
+        rc.visibility_v6(*args, prep["fbox"], prep["ubox"], res,
+                         prep["nsub"])
+    assert rc.visibility_v6.launches == launches
 
 
 def test_resolve_fwd_kernel_equals_plain_version(card):

@@ -5,6 +5,8 @@ interpret mode, on the CPU. The selectors of the JAX package are read at
 trace time, so each run sets them and clears `rasterize_pallas`'s cache,
 as `tests/test_rasterize_pallas.py` does. The CUDA kernels are held to the
 same plain versions on the card (`tests/test_torch_cuda.py`)."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,23 +128,24 @@ def test_v4_plain_version_matches_pallas_v4_interpret(monkeypatch):
     _assert_flags_cover_winners(got, scene, 4)
 
 
-@pytest.mark.parametrize("cap", ["128", "2"])
+@pytest.mark.parametrize("cap", ["128", "2", "1"])
 def test_v6_plain_version_matches_pallas_v6_interpret(monkeypatch, cap):
     """Variant 6 on the random scene (chunk 8, units of one face), with the
-    unit lists capped at 128 and at 2 (the full-scan fallback for most
-    tiles): face_id and z as above against `_raster_kernel_v6`, and the
-    port's chunk flags a superset of the winners."""
+    unit lists capped at 128, at 2 (the full-scan fallback for most tiles)
+    and at 1 (for every tile of more than one unit): face_id and z as
+    above against `_raster_kernel_v6`, and the port's chunk flags a
+    superset of the winners."""
     scene = _random_scene()
     want = _jax(monkeypatch, scene, 6, cap=cap, kernel="_raster_kernel_v6")
     got = _port(scene, 6, cap=int(cap))
     assert_same_visibility(got.face_id.numpy(), want.face_id, got.z.numpy(),
                            want.z, scene[0], scene[2])
     _assert_flags_cover_winners(got, scene, 6)
-    if cap == "2":
+    if cap != "128":
         v_clip, v_pos, faces, f_valid, res, chunk = scene
         t = torch.from_numpy
         prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(),
-                          t(f_valid), res, chunk, variant=6, v6_cap=2)
+                          t(f_valid), res, chunk, variant=6, v6_cap=int(cap))
         assert int((prep["counts6"] > prep["S"]).sum()) > 0
 
 
@@ -220,6 +223,134 @@ def test_cull_boxes_hold_every_accepted_pixel(make):
               f"{int(inside.sum())}, empty boxes {int(empty.sum())}")
         accepted += int(hit.sum())
     assert accepted > 0
+
+
+def _holes_scene():
+    """Invalid and empty faces: small random triangles, the first 256 faces
+    invalid (whole Morton blocks: whole units hold no valid face), 60
+    degenerate (zero area) and 60 with a vertex behind the camera."""
+    rng = np.random.default_rng(4)
+    B, Fn = 2, 800
+    ctr = rng.uniform(-0.9, 0.9, (B, Fn, 1, 3))
+    v = ctr + rng.uniform(-0.12, 0.12, (B, Fn, 3, 3))
+    v[:, 300:360] = v[:, 300:360, :1]
+    w = rng.uniform(2, 4, (B, Fn, 3, 1))
+    w[:, 400:460, 0] = -1.0
+    v_clip = np.concatenate([v * w, w], -1).reshape(B, 3 * Fn, 4) \
+        .astype(np.float32)
+    faces = np.arange(3 * Fn).reshape(Fn, 3).astype(np.int32)
+    f_valid = np.ones(Fn, bool)
+    f_valid[:256] = False
+    return (v_clip, v.reshape(B, 3 * Fn, 3).astype(np.float32), faces,
+            f_valid, (32, 64), 128)
+
+
+def _prep6(scene, **kw):
+    v_clip, v_pos, faces, f_valid, res, chunk = scene
+    t = torch.from_numpy
+    return rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
+                      res, chunk, variant=6, **kw), res
+
+
+@pytest.mark.parametrize("make", [_v4_scene, _sliver_scene, _sphere_scene,
+                                  _depth_stack_scene, _holes_scene])
+def test_unit_boxes_hold_every_accepted_pixel(make):
+    """K3 takes an overflow tile's faces only from the units whose box
+    (`unit_boxes`, the union of their faces' cull boxes) meets the tile.
+    Every pixel centre that any face of a unit accepts by its float32
+    edge tests (a·px + b·py) + c ≥ 0 lies in the unit's box, on the sliver
+    scene too, where the accepted pixels leave the faces' vertex bboxes;
+    a unit whose faces are all invalid or empty has an empty box."""
+    prep, res = _prep6(make(), nsub=2 if make is _depth_stack_scene
+                       else rc.NSUB)
+    table, ubox = prep["table"], prep["ubox"].long()
+    B, nch, _rows, chunk = table.shape
+    sub = chunk // prep["nsub"]
+    H, W = res
+    ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    xs, ys = xs.reshape(-1), ys.reshape(-1)
+    X, Y = xs.float() + 0.5, ys.float() + 0.5
+    coef = table.permute(0, 1, 3, 2).reshape(B, nch * chunk, 12)
+    accepted, empty = 0, 0
+    for b in range(B):
+        c = coef[b]
+        e = [rc.affine(c[:, i, None], c[:, i + 4, None], c[:, i + 8, None],
+                       X, Y) >= 0 for i in range(3)]
+        hit = (e[0] & e[1] & e[2]).reshape(-1, sub, H * W).any(1)
+        bx = ubox[b]
+        inside = ((xs >= bx[:, 0:1]) & (xs <= bx[:, 1:2])
+                  & (ys >= bx[:, 2:3]) & (ys <= bx[:, 3:4]))
+        assert not (hit & ~inside).any()
+        none = (bx[:, 0] > bx[:, 1]) | (bx[:, 2] > bx[:, 3])
+        assert not hit[none].any()
+        accepted += int(hit.sum())
+        empty += int(none.sum())
+    assert accepted > 0
+    if make is _holes_scene:
+        assert 0 < empty < B * ubox.shape[1]
+
+
+@pytest.mark.parametrize("make", [_v4_scene, _holes_scene])
+def test_prepare_v6_returns_face_and_unit_boxes(make):
+    """`prepare(variant=6)` returns the face cull boxes (`cull_boxes` of its
+    table) and the unit boxes (`unit_boxes` of those), int16, with the
+    empty box (W, -1, H, -1) for a unit whose faces' boxes are all
+    empty."""
+    prep, (H, W) = _prep6(make())
+    table = prep["table"]
+    B, nch, _rows, chunk = table.shape
+    sub = chunk // prep["nsub"]
+    assert torch.equal(prep["fbox"], rc.cull_boxes(table, (H, W)))
+    assert prep["ubox"].dtype == torch.int16
+    assert prep["ubox"].shape == (B, nch * prep["nsub"], 4)
+    assert torch.equal(prep["ubox"], rc.unit_boxes(prep["fbox"], sub, (H, W)))
+    fb = prep["fbox"].reshape(B, -1, sub, 4).long()
+    some = ((fb[..., 0] <= fb[..., 1]) & (fb[..., 2] <= fb[..., 3])).any(-1)
+    want_empty = torch.tensor([W, -1, H, -1], dtype=torch.int16)
+    assert (prep["ubox"][~some] == want_empty).all()
+    assert some.any()
+    if make is _holes_scene:
+        assert (~some).any()
+
+
+def test_v6_rejects_bad_boxes():
+    """`visibility_v6` checks the face and unit boxes on either device: a
+    wrong type or shape raises."""
+    prep, res = _prep6(_v4_scene())
+    args = (prep["table"], prep["orig"], prep["units"], prep["counts6"],
+            prep["zu"])
+    for fbox, ubox in ((prep["fbox"].int(), prep["ubox"]),
+                       (prep["fbox"], prep["ubox"].int()),
+                       (prep["fbox"], prep["ubox"][:, 1:].contiguous())):
+        with pytest.raises(ValueError):
+            rc.visibility_v6(*args, fbox, ubox, res, prep["nsub"])
+    got = rc.visibility_v6(*args, prep["fbox"], prep["ubox"], res,
+                           prep["nsub"])
+    want = rc.visibility_v6_reference(*args, res, prep["nsub"])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_library_hash_covers_sources_and_headers(tmp_path, monkeypatch):
+    """The kernel library's name hashes every `csrc/*.cu` and every header
+    they include (`*.cuh`): an edit of either builds anew, and a file of
+    another kind does not."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(os.path.join(rc._PKG_DIR, "csrc"), csrc)
+    monkeypatch.setattr(rc, "_PKG_DIR", str(tmp_path))
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    first = rc.library_path()
+    (csrc / "notes.txt").write_text("not a source")
+    assert rc.library_path() == first
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    second = rc.library_path()
+    assert second != first
+    src = csrc / "raster_vis_v6.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert rc.library_path() not in (first, second)
+    assert all(p.endswith(".cu") for p in rc._sources())
 
 
 def test_variants_reject_shapes_they_cannot_run():
