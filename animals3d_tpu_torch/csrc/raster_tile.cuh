@@ -1,10 +1,12 @@
-// Device helpers of the tile visibility kernels K1 (raster_vis.cu) and K3
-// (raster_vis_v6.cu), for Hopper (sm_90a): the block shape (four consumer
-// warps and one producer warp per 16x32 tile), the 64-bit (z, id) pixel
-// key, the mbarrier and bulk-copy wrappers, the producer's staging of one
-// sub-block into a shared-memory ring slot, the consumer warps' flattening
-// of a staged sub-block's (face, pixel) pairs, and the block's pass over
-// the large faces. `raster_vis.cu`'s note describes the design.
+// Device helpers of the tile visibility kernels K1 (raster_vis.cu), K2
+// (raster_vis_v4.cu) and K3 (raster_vis_v6.cu), for Hopper (sm_90a): the
+// block shape (four consumer warps and one producer warp per 16x32 tile),
+// the 64-bit (z, id) pixel key, the mbarrier and bulk-copy wrappers, the
+// producer's staging of one sub-block into a shared-memory ring slot, the
+// consumer warps' flattening of a staged sub-block's (face, pixel) pairs,
+// the block's pass over the large faces, and the chunk-list walk that K1
+// and K2 share (`tile_walk`, `launch_walk`). `raster_vis.cu`'s note
+// describes the design.
 
 #pragma once
 
@@ -136,13 +138,14 @@ struct BigList {
 };
 
 // One ring slot, 128-byte aligned for the tensor copy: 12 rows of sub
-// floats, sub ids, sub boxes of 8 bytes. `id` and `box` are offsets in the
-// slot, `bytes` its size.
+// floats, sub ids (none where the ids are rebuilt from run bases, K2), sub
+// boxes of 8 bytes. `id` and `box` are offsets in the slot, `bytes` its
+// size.
 struct SlotLayout {
   size_t id, box, bytes;
-  __host__ __device__ explicit SlotLayout(int sub) {
+  __host__ __device__ explicit SlotLayout(int sub, bool ids = true) {
     id = (size_t)12 * sub * 4;
-    box = id + round16((size_t)sub * 4);
+    box = id + (ids ? round16((size_t)sub * 4) : 0);
     bytes = round128(box + round16((size_t)sub * 8));
   }
 };
@@ -193,10 +196,11 @@ static __device__ __forceinline__ bool test_pixel(
 
 // The producer warp stages sub-block g of chunk cid of image b into a ring
 // slot, completing on `full`: mode 2, the 12 rows as one tensor box (lane
-// 0); mode 1, a bulk copy a row (lanes 0-11); both with the ids and boxes
-// by one bulk copy each (lanes 12, 13); mode 0, plain loads by lane 0.
-// Each copy is one request to the copy engine, which takes them one at a
-// time.
+// 0); mode 1, a bulk copy a row (lanes 0-11); both with the ids (kIds;
+// K2 rebuilds them instead) and boxes by one bulk copy each (lanes 12,
+// 13); mode 0, plain loads by lane 0. Each copy is one request to the
+// copy engine, which takes them one at a time.
+template <bool kIds = true>
 static __device__ __forceinline__ void stage_subblock(
     unsigned char* slot, const SlotLayout& S, uint64_t* full,
     const CUtensorMap* rows, const float* __restrict__ table,
@@ -207,21 +211,23 @@ static __device__ __forceinline__ void stage_subblock(
   short4* db = reinterpret_cast<short4*>(slot + S.box);
   const float* src = table + ((size_t)b * nch + cid) * 12 * chunk
                      + (size_t)g * sub;
-  const int* isrc = orig + (size_t)cid * chunk + (size_t)g * sub;
+  const int* isrc = kIds ? orig + (size_t)cid * chunk + (size_t)g * sub
+                         : nullptr;
   const short4* bsrc = fbox + ((size_t)b * nch + cid) * chunk
                        + (size_t)g * sub;
   if (mode) {
     // the consumers' generic reads of this slot are ordered before the
     // copy engine's writes; the expected bytes before any copy lands
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (lane == 0) mbar_expect_tx(full, (unsigned)(sub * (12 * 4 + 4 + 8)));
+    if (lane == 0)
+      mbar_expect_tx(full, (unsigned)(sub * (12 * 4 + (kIds ? 4 : 0) + 8)));
     __syncwarp();
     if (lane == 0 && mode == 2)
       tensor_load(dc, rows, g * sub, (b * nch + cid) * 12, full);
     else if (lane < 12 && mode == 1)
       bulk_load(dc + (size_t)lane * sub, src + (size_t)lane * chunk,
                 (unsigned)sub * 4, full);
-    else if (lane == 12)
+    else if (kIds && lane == 12)
       bulk_load(di, isrc, (unsigned)sub * 4, full);
     else if (lane == 13)
       bulk_load(db, bsrc, (unsigned)sub * 8, full);
@@ -230,25 +236,45 @@ static __device__ __forceinline__ void stage_subblock(
       for (int f = 0; f < sub; ++f)
         dc[(size_t)r * sub + f] = src[(size_t)r * chunk + f];
     for (int f = 0; f < sub; ++f) {
-      di[f] = isrc[f];
+      if (kIds) di[f] = isrc[f];
       db[f] = bsrc[f];
     }
     mbar_arrive(full);
   }
 }
 
+// The original ids of a staged sub-block's faces, by face f of the
+// sub-block: copied into the slot (K1, K3) ...
+struct StagedIds {
+  const int* ids;
+  __device__ __forceinline__ int operator()(int f) const { return ids[f]; }
+};
+
+// ... or rebuilt (K2): the Morton order permutes runs of 32 consecutive
+// ids, so sorted slot s holds bbase[s / 32] + s % 32. slot0, the
+// sub-block's first slot, is a multiple of 32; the run bases come through
+// the read-only cache.
+struct RunIds {
+  const int* __restrict__ bbase;
+  int slot0;
+  __device__ __forceinline__ int operator()(int f) const {
+    return __ldg(bbase + ((slot0 + f) >> 5)) + (f & 31);
+  }
+};
+
 // A consumer warp's pass over a staged sub-block: the warps take the
 // faces in turn, a face a lane, so that the faces of one 32-face Morton
 // block, which tend to meet the same tile, spread over the warps. A warp's
 // exclusive scan of its faces' clipped areas flattens their (face, pixel)
 // pairs, and its lanes stride over them; a large face goes to the block's
-// list instead. Returns whether a key fell at this lane.
+// list instead. `ids` gives a face's original id. Returns whether a key
+// fell at this lane.
+template <class Ids>
 static __device__ __forceinline__ int consume_subblock(
-    const unsigned char* slot, const SlotLayout& S, int sub, int tx0,
-    int ty0, int lane, int warp, BigList& big, const unsigned* magic,
-    unsigned long long* keys) {
+    const unsigned char* slot, const SlotLayout& S, int sub, const Ids& ids,
+    int tx0, int ty0, int lane, int warp, BigList& big,
+    const unsigned* magic, unsigned long long* keys) {
   const float* cf = reinterpret_cast<const float*>(slot);
-  const int* ids = reinterpret_cast<const int*>(slot + S.id);
   const short4* bx = reinterpret_cast<const short4*>(slot + S.box);
   int took = 0;
   for (int base = 0; base < sub; base += NT) {
@@ -260,7 +286,7 @@ static __device__ __forceinline__ int consume_subblock(
       const int e = atomicAdd(&big.n, 1);
       if (e < BIG_CAP) {
         for (int r = 0; r < 12; ++r) big.face[e].c[r] = cf[r * sub + f];
-        big.face[e].id = ids[f];
+        big.face[e].id = ids(f);
         big.face[e].area = a;
         big.face[e].box = bb;
         a = 0;
@@ -285,12 +311,22 @@ static __device__ __forceinline__ int consume_subblock(
       const int r = p - __shfl_sync(0xffffffffu, start, src);
       const int fs = base + src * NWARP + warp;
       if (p < total &&
-          test_pixel(cf + fs, sub, (unsigned)ids[fs], bx[fs], r, tx0, ty0,
+          test_pixel(cf + fs, sub, (unsigned)ids(fs), bx[fs], r, tx0, ty0,
                      magic, keys))
         took = 1;
     }
   }
   return took;
+}
+
+// The same pass with the ids staged in the slot.
+static __device__ __forceinline__ int consume_subblock(
+    const unsigned char* slot, const SlotLayout& S, int sub, int tx0,
+    int ty0, int lane, int warp, BigList& big, const unsigned* magic,
+    unsigned long long* keys) {
+  const StagedIds ids{reinterpret_cast<const int*>(slot + S.id)};
+  return consume_subblock(slot, S, sub, ids, tx0, ty0, lane, warp, big,
+                          magic, keys);
 }
 
 // The large faces' pairs flattened over the whole block (its scan in one
@@ -400,4 +436,250 @@ static int staging_mode(CUtensorMap* rows, const float* table,
     mode = 2;
   }
   return mode;
+}
+
+// K1's and K2's shared-memory layout, the same on host and device: fixed
+// part (keys, chunk list, mbarriers, the slots' list positions) then
+// `ring` slots of a sub-block each (`SlotLayout`; without ids for K2).
+struct Layout {
+  size_t key, cid, zl, mask, full, empty, qpos, coef, total;
+  __host__ __device__ Layout(int sub, int nch, int ring, bool ids = true) {
+    key = 0;
+    cid = key + (size_t)TP * 8;
+    zl = cid + round16((size_t)nch * 4);
+    mask = zl + round16((size_t)nch * 4);
+    full = mask + round16((size_t)nch * 2);
+    empty = full + MAX_RING * 8;
+    qpos = empty + MAX_RING * 8;
+    coef = round128(qpos + MAX_RING * 4);
+    total = coef + (size_t)ring * SlotLayout(sub, ids).bytes;
+  }
+};
+
+// The chunk-list walk of one (16x32 tile, image) block, K1's design (see
+// raster_vis.cu): a producer warp stages the live sub-blocks into a ring
+// of slots ahead of the consumers, four consumer warps test each face on
+// its cull box and meet at every chunk's end for the large faces, the
+// chunk's flag and the tile's new z max. kRuns (K2): `ids` holds the run
+// bases `bbase` and the consumers rebuild each face's original id from
+// them (`RunIds`), so a sub-block takes two copy requests (rows, boxes);
+// else `ids` is `orig`, staged with the rows (three requests).
+// table: (B, nch, 12, chunk) rows a0 a1 a2 az b0 b1 b2 bz c0 c1 c2 cz
+// ids: orig (nch*chunk), the original face id of each sorted slot, or
+//      bbase (nch*chunk/32), the original id of each 32-slot run's first
+// order, masks: (B, T, nch); counts: (B, T); zlo: (B, nch)
+// fbox: (B, nch*chunk) pixel ranges x0 x1 y0 y1 per sorted slot
+// z_out, id_out: (B, H, W); flags: (B, T, nch), zero-filled by the caller
+// rows: the table as (B*nch*12, chunk) for the tensor copy (mode 2)
+template <bool kRuns>
+static __device__ __forceinline__ void tile_walk(
+    const CUtensorMap* rows, const float* __restrict__ table,
+    const int* __restrict__ ids, const int* __restrict__ order,
+    const int* __restrict__ counts, const int* __restrict__ masks,
+    const int* __restrict__ zlo, const short4* __restrict__ fbox,
+    float* __restrict__ z_out, int* __restrict__ id_out,
+    unsigned char* __restrict__ flags, int T, int ntx, int nch, int chunk,
+    int nsub, int H, int W, int ring, int mode) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ BigList s_big;
+  __shared__ float s_wmax[NWARP];
+  __shared__ int s_wany[NWARP];
+  __shared__ unsigned s_magic[TILE_W + 1];
+  __shared__ volatile int s_zq;      // the consumers' zq_max, for the producer
+  const int sub = chunk / nsub;
+  const Layout L(sub, nch, ring, !kRuns);
+  const SlotLayout SL(sub, !kRuns);
+  unsigned long long* s_key =
+      reinterpret_cast<unsigned long long*>(smem + L.key);
+  int* s_cid = reinterpret_cast<int*>(smem + L.cid);
+  int* s_zl = reinterpret_cast<int*>(smem + L.zl);
+  unsigned short* s_mask = reinterpret_cast<unsigned short*>(smem + L.mask);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.full);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(smem + L.empty);
+  volatile int* s_qpos = reinterpret_cast<volatile int*>(smem + L.qpos);
+
+  const int t = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const size_t bt = (size_t)b * T + t;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int tx0 = (t % ntx) * TILE_W, ty0 = (t / ntx) * TILE_H;
+  const int n = counts[bt];
+  const unsigned long long empty_key = (unsigned long long)zkey(BIG) << 32;
+  for (int i = tid; i < TP; i += NT + 32) s_key[i] = empty_key;
+  if (tid <= TILE_W) s_magic[tid] = magic_of(tid);
+  const unsigned allbits = (1u << nsub) - 1u;
+  for (int k = tid; k < n; k += NT + 32) {
+    const int cid = order[bt * nch + k];
+    s_cid[k] = cid;
+    s_zl[k] = zlo[(size_t)b * nch + cid];
+    s_mask[k] = (unsigned short)((unsigned)masks[bt * nch + cid]
+                                 & allbits);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < ring; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NWARP);
+    }
+    s_zq = zq(BIG);
+    s_big.n = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NWARP) {
+    // ---- the producer warp walks the load sequence; lane r issues copy r
+    int pk = 0;
+    unsigned pm = n > 0 ? s_mask[0] : 0u;
+    for (int q = 0;; ++q) {
+      const int s = q % ring;
+      // the slot's previous load released by every consumer warp (a fresh
+      // barrier passes the first round)
+      mbar_wait(empty + s, (unsigned)(((q / ring) & 1) ^ 1));
+      const int zq_max = __shfl_sync(0xffffffffu, s_zq, 0);
+      while (pk < n && (pm == 0 || s_zl[pk] > zq_max)) {
+        ++pk;
+        pm = pk < n ? s_mask[pk] : 0u;
+      }
+      if (pk >= n) {              // the end of the sequence
+        if (lane == 0) {
+          s_qpos[s] = n;
+          mbar_arrive(full + s);
+        }
+        return;
+      }
+      const int g = __ffs(pm) - 1;
+      pm &= pm - 1;
+      if (lane == 0) s_qpos[s] = pk;
+      stage_subblock<!kRuns>(smem + L.coef + (size_t)s * SL.bytes, SL,
+                             full + s, rows, table, ids, fbox, b, nch, chunk,
+                             sub, s_cid[pk], g, mode, lane);
+    }
+  }
+
+  // ---- the consumers: four warps, in step at each chunk's end ----
+  int zq_max = zq(BIG);
+  int q = 0;                             // the next load of the sequence
+  for (int k = 0; k < n; ++k) {
+    const unsigned mk = s_mask[k];
+    if (s_zl[k] > zq_max || mk == 0) {
+      // skipped (flag stays 0): release the loads issued for it, unread
+      for (;; ++q) {
+        const int s = q % ring;
+        mbar_wait(full + s, (unsigned)((q / ring) & 1));
+        if (s_qpos[s] != k) break;
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+      continue;
+    }
+    int took = 0;
+    for (unsigned m = mk; m; m &= m - 1, ++q) {
+      const int s = q % ring;
+      const unsigned char* slot = smem + L.coef + (size_t)s * SL.bytes;
+      mbar_wait(full + s, (unsigned)((q / ring) & 1));
+      if constexpr (kRuns) {
+        const RunIds run{ids, s_cid[k] * chunk + (__ffs(m) - 1) * sub};
+        took |= consume_subblock(slot, SL, sub, run, tx0, ty0, lane, warp,
+                                 s_big, s_magic, s_key);
+      } else {
+        took |= consume_subblock(slot, SL, sub, tx0, ty0, lane, warp, s_big,
+                                 s_magic, s_key);
+      }
+      __syncwarp();      // this warp is done with the slot
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    consumers_sync();    // every sub-block of the chunk is done
+    took |= consume_big(s_big, tid, lane, warp, tx0, ty0, s_magic, s_key);
+    // the chunk's flag and the tile's new z max
+    float v = -BIG;
+    for (int i = tid; i < TP; i += NT)
+      v = fmaxf(v, zval((unsigned)(s_key[i] >> 32)));
+    for (int o = 16; o > 0; o >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    const int any = __any_sync(0xffffffffu, took);
+    if (lane == 0) {
+      s_wmax[warp] = v;
+      s_wany[warp] = any;
+    }
+    if (tid == 0) s_big.n = 0;
+    consumers_sync();
+    float zmax = s_wmax[0];
+    int anyb = s_wany[0];
+    for (int w = 1; w < NWARP; ++w) {
+      zmax = fmaxf(zmax, s_wmax[w]);
+      anyb |= s_wany[w];
+    }
+    zq_max = zq(zmax);
+    if (tid == 0) {
+      s_zq = zq_max;
+      if (anyb) flags[bt * nch + s_cid[k]] = 1;
+    }
+  }
+  for (int i = tid; i < TP; i += NT)
+    write_pixel(s_key[i], i, b, tx0, ty0, H, W, z_out, id_out);
+}
+
+// The walk's kernel: one (16x32 tile, image) block. K1 (raster_vis.cu) is
+// tile_walk_kernel<false>, K2 (raster_vis_v4.cu) tile_walk_kernel<true>.
+template <bool kRuns>
+__global__ void __launch_bounds__(NT + 32)
+tile_walk_kernel(const __grid_constant__ CUtensorMap rows,
+                 const float* __restrict__ table,
+                 const int* __restrict__ ids,
+                 const int* __restrict__ order,
+                 const int* __restrict__ counts,
+                 const int* __restrict__ masks,
+                 const int* __restrict__ zlo,
+                 const short4* __restrict__ fbox,
+                 float* __restrict__ z_out, int* __restrict__ id_out,
+                 unsigned char* __restrict__ flags, int T, int ntx, int nch,
+                 int chunk, int nsub, int H, int W, int ring, int mode) {
+  tile_walk<kRuns>(&rows, table, ids, order, counts, masks, zlo, fbox, z_out,
+                   id_out, flags, T, ntx, nch, chunk, nsub, H, W, ring, mode);
+}
+
+// Shared memory `tile_walk_kernel<kRuns>` needs with a ring of one slot
+// (bytes).
+template <bool kRuns>
+static long walk_smem(int chunk, int nsub, int nch) {
+  return (long)Layout(chunk / nsub, nch, 1, !kRuns).total;
+}
+
+// Launches `tile_walk_kernel<kRuns>` (K1: ids = orig, staged; K2: ids =
+// bbase, not staged) with as many ring slots as fit in `smem_target`
+// bytes, one at least; returns the CUDA error.
+template <bool kRuns>
+static int launch_walk(const float* table, const int* ids, const int* order,
+                       const int* counts, const int* masks, const int* zlo,
+                       const void* fbox, float* z_out, int* id_out,
+                       unsigned char* flags, int B, int T, int ntx, int nch,
+                       int chunk, int nsub, int H, int W, int smem_target,
+                       void* stream) {
+  constexpr bool staged_ids = !kRuns;
+  const auto kernel = tile_walk_kernel<kRuns>;
+  const int sub = chunk / nsub;
+  const size_t fixed = Layout(sub, nch, 0, staged_ids).total;
+  const size_t slot = Layout(sub, nch, 1, staged_ids).total - fixed;
+  const size_t target = (size_t)smem_target;
+  int ring = (int)((target > fixed ? target - fixed : 0) / slot);
+  ring = ring < 1 ? 1 : (ring > MAX_RING ? MAX_RING : ring);
+  while (ring > 1 && Layout(sub, nch, ring, staged_ids).total > 227 * 1024)
+    --ring;
+  const size_t smem = Layout(sub, nch, ring, staged_ids).total;
+  CUtensorMap rows;
+  int err = 0;
+  // the run bases are read by the consumers, never copied: no alignment
+  const int mode = staging_mode(&rows, table, staged_ids ? ids : nullptr,
+                                fbox, B, nch, chunk, sub, &err);
+  if (mode < 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(T, B), NT + 32, smem, (cudaStream_t)stream>>>(
+      rows, table, ids, order, counts, masks, zlo, (const short4*)fbox,
+      z_out, id_out, flags, T, ntx, nch, chunk, nsub, H, W, ring, mode);
+  return (int)cudaGetLastError();
 }

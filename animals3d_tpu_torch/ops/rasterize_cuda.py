@@ -48,10 +48,13 @@ Two more kernels compute the same function (`variant` of `prepare` and
 `rasterize_cuda`, the counterpart of the JAX package's `A3D_RASTER_V`):
 
   * variant 4, `visibility_v4` (`csrc/raster_vis_v4.cu`, port of
-    `_raster_kernel_v4`): K1's lists and visiting order with one thread
-    per face; each face tests only the pixels of its cull box and keeps
-    each pixel's winner in K1's key. Its outputs equal K1's bit for bit,
-    flags included, so its plain version is `visibility_reference`;
+    `_raster_kernel_v4`): K1's walk (`tile_walk` of `csrc/raster_tile.cuh`,
+    shared) with the trait of the TPU kernel: the original ids are not
+    staged but rebuilt from the run bases `bbase` of `prepare` (the Morton
+    order moves runs of 32 consecutive ids), so a live sub-block takes two
+    copy requests instead of three. Its outputs equal K1's bit for bit,
+    flags included, so its plain version is `visibility_reference` (on the
+    ids rebuilt from `bbase`);
   * variant 6, `visibility_v6` (`csrc/raster_vis_v6.cu`, port of
     `_raster_kernel_v6`): per (image, tile), the overlapping 128-face
     sub-blocks ("units") in ascending quantized z-min, at most
@@ -156,9 +159,12 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
     (overlapping ones first); counts (B, T) int32; masks (B, T, nch) int32
     sub-block overlap bits by chunk id; zlo (B, nch) int32 quantized chunk
     z-min; nsub; fbox (B, nch·chunk, 4) int16 per-face cull boxes
-    (`cull`). Variant 6 adds zu (B, U) int32 quantized unit z-min, units
-    (B, T, S) int32 unit lists, counts6 (B, T) int32, S and ubox (B, U, 4)
-    int16 per-unit boxes (`unit_cull`).
+    (`cull`). Variant 4 adds bbase (nch·chunk / 32,) int32, the original
+    id of each 32-slot run's first slot (`orig[::32]`: the Morton order
+    moves whole runs, so orig[s] = bbase[s // 32] + s % 32). Variant 6
+    adds zu (B, U) int32 quantized unit z-min, units (B, T, S) int32 unit
+    lists, counts6 (B, T) int32, S and ubox (B, U, 4) int16 per-unit boxes
+    (`unit_cull`).
     Raises ValueError for a variant that cannot run on these shapes (the
     JAX package falls back to variant 3 there).
     """
@@ -284,6 +290,9 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
            "masks": masks.contiguous(), "zlo": zlo.contiguous(),
            "nsub": nsub}
     out["fbox"] = cull(table, resolution)
+    if variant == 4:
+        # the run bases of `_rasterize_pallas_T` (:904), blk = BLOCK here
+        out["bbase"] = (perm * blk).to(torch.int32).contiguous()
     if variant == 6:
         # units (sub-blocks) per tile in ascending (quantized z-min, unit
         # id): the stable sort of `_rasterize_pallas_T` (:843-858), without
@@ -433,14 +442,17 @@ def _check(tensors, device):
             raise ValueError(f"{name} is on {t.device}, table on {device}")
 
 
-def _check_table(table, orig, resolution, nsub):
+def _check_table(table, orig, resolution, nsub, ids="orig"):
+    """The table, the ids (`orig`, one a sorted slot; or `bbase`, one a
+    32-slot run) and the shapes every visibility kernel takes."""
     B, nch, rows, chunk = table.shape
     height, width = resolution
     if table.dtype != torch.float32 or rows != 12:
         raise ValueError(f"table: want float32 (B, nch, 12, chunk), got "
                          f"{table.dtype} {tuple(table.shape)}")
+    per = BLOCK if ids == "bbase" else 1
     _check({"table": (table, torch.float32, tuple(table.shape)),
-            "orig": (orig, torch.int32, (nch * chunk,))}, table.device)
+            ids: (orig, torch.int32, (nch * chunk // per,))}, table.device)
     if height % TILE_H or width % TILE_W or nsub < 1 or chunk % nsub:
         raise ValueError(f"bad resolution {resolution} / chunk {chunk} / "
                          f"nsub {nsub}")
@@ -451,10 +463,14 @@ def _check_table(table, orig, resolution, nsub):
 
 
 def _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub,
-                  fbox=None):
+                  fbox=None, ids="orig"):
     """The visibility inputs' types, shapes and device; and the cull boxes
-    (B, nch·chunk, 4) int16 where given (K1's and K2's)."""
-    B, nch, chunk, T = _check_table(table, orig, resolution, nsub)
+    (B, nch·chunk, 4) int16 where given (K1's and K2's). ids="bbase": `orig`
+    is variant 4's run bases, and a sub-block must be whole runs."""
+    B, nch, chunk, T = _check_table(table, orig, resolution, nsub, ids)
+    if ids == "bbase" and (chunk // nsub) % BLOCK:
+        raise ValueError(f"variant 4 needs sub-blocks of a multiple of "
+                         f"{BLOCK} faces; chunk {chunk} / nsub {nsub}")
     want = {"order": (order, torch.int32, (B, T, nch)),
             "counts": (counts, torch.int32, (B, T)),
             "masks": (masks, torch.int32, (B, T, nch)),
@@ -710,7 +726,9 @@ def library():
         lib.raster_vis_smem.restype = i64
         lib.cull_boxes_launch.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]
         lib.unit_boxes_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
-        lib.raster_vis_v4_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+        lib.raster_vis_v4_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+        lib.raster_vis_v4_smem.argtypes = [i32] * 3
+        lib.raster_vis_v4_smem.restype = i64
         lib.raster_vis_v6_launch.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
         lib.raster_vis_v6_smem.argtypes = [i32] * 5
         lib.raster_vis_v6_smem.restype = i64
@@ -773,9 +791,10 @@ def _outputs_cuda(B, resolution, nflags, device):
 
 # the largest dynamic shared memory a block may have on the H100
 SMEM_MAX = 227 * 1024
-# K1's shared memory per block, which sets the depth of its ring of staged
-# sub-blocks: two at chunk 1024, nsub 8, and eight blocks on an SM (1,056
-# of the 1,280 blocks of 10 images at 256² at once)
+# K1's and K2's shared memory per block, which sets the depth of their ring
+# of staged sub-blocks: two at chunk 1024, nsub 8 (K1's slots hold 60 bytes
+# a face, K2's 56), and eight blocks on an SM (1,056 of the 1,280 blocks of
+# 10 images at 256² at once)
 K1_SMEM = 22 * 1024
 # K3's: a ring of two units at chunk 1024, nsub 8 and a split of 4
 K3_SMEM = 24 * 1024
@@ -816,24 +835,38 @@ def visibility(table, orig, order, counts, masks, zlo, fbox, resolution,
 visibility.launches = 0
 
 
-def visibility_v4(table, orig, order, counts, masks, zlo, fbox, resolution,
+def orig_of_runs(bbase):
+    """The original id of every sorted slot (nch·chunk,) int32 from the run
+    bases of variant 4: orig[s] = bbase[s // 32] + s % 32."""
+    run = torch.arange(BLOCK, dtype=torch.int32, device=bbase.device)
+    return (bbase[:, None] + run).reshape(-1)
+
+
+def visibility_v4(table, bbase, order, counts, masks, zlo, fbox, resolution,
                   nsub: int):
-    """Variant 4 (face-parallel) visibility: the CUDA kernel K2 for CUDA
-    tensors, `visibility_reference` for CPU tensors; the same outputs as
-    `visibility`. fbox: the cull boxes of `prepare`. Adds one to
+    """Variant 4 visibility: the CUDA kernel K2 for CUDA tensors,
+    `visibility_reference` (on `orig_of_runs(bbase)`) for CPU tensors; the
+    same outputs as `visibility`. bbase: the run bases of `prepare(variant=
+    4)`; fbox: its cull boxes. Raises ValueError on inputs the kernel does
+    not take: a sub-block that is not whole 32-face runs, a sub-block and
+    chunk list that overflow shared memory. Adds one to
     `visibility_v4.launches` per kernel launch."""
-    _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub,
-                  fbox)
+    _check_inputs(table, bbase, order, counts, masks, zlo, resolution, nsub,
+                  fbox, ids="bbase")
     B, nch, _, chunk = table.shape
     if _device(table).type == "cpu":
-        return visibility_reference(table, orig, order, counts, masks, zlo,
-                                    resolution, nsub)
+        return visibility_reference(table, orig_of_runs(bbase), order,
+                                    counts, masks, zlo, resolution, nsub)
     height, width = resolution
+    lib = library()
+    if lib.raster_vis_v4_smem(chunk, nsub, nch) > SMEM_MAX:
+        raise ValueError(f"K2: sub-block of {chunk // nsub} faces and "
+                         f"{nch} chunks exceed shared memory")
     T = (height // TILE_H) * (width // TILE_W)
     z, fid, flags = _outputs_cuda(B, resolution, nch, table.device)
-    _launch("raster_vis_v4", library().raster_vis_v4_launch, table, orig,
-            order, counts, masks, zlo, fbox, z, fid, flags, B, T,
-            width // TILE_W, nch, chunk, nsub, height, width)
+    _launch("raster_vis_v4", lib.raster_vis_v4_launch, table, bbase, order,
+            counts, masks, zlo, fbox, z, fid, flags, B, T, width // TILE_W,
+            nch, chunk, nsub, height, width, K1_SMEM)
     visibility_v4.launches += 1
     return z, fid, flags
 
@@ -893,8 +926,8 @@ def rasterize_cuda(v_clip, faces, f_valid, resolution, v_pos0,
         z, fid, flags = visibility(*common, *lists, prep["fbox"], resolution,
                                    prep["nsub"])
     elif variant == 4:
-        z, fid, flags = visibility_v4(*common, *lists, prep["fbox"],
-                                      resolution, prep["nsub"])
+        z, fid, flags = visibility_v4(prep["table"], prep["bbase"], *lists,
+                                      prep["fbox"], resolution, prep["nsub"])
     else:
         z, fid, sflags = visibility_v6(*common, prep["units"],
                                        prep["counts6"], prep["zu"],

@@ -24,7 +24,12 @@ over the rasterizer's winner-chunk lists, because the TPU gathers rows
 slowly; here a pixel's winner id addresses its row directly, so the kernel
 needs neither the winner-chunk lists nor the flags. Background rows are
 zero (the JAX contract lets them alias face 0; `resolve` masks them
-anyway).
+anyway). The kernel gives each warp a tile row of 32 pixels (eight of
+them a block, a half tile): the warp copies the whole row of each run of
+its pixels with one winner into shared memory (`cp.async`, a row read
+once per run, consecutive lanes on consecutive addresses), and each lane
+then writes its pixel's channels from there, so that a warp stores 128
+contiguous bytes of each channel's tile-order segment.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.

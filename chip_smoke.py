@@ -27,11 +27,13 @@ Phases, in this order, each fatal on failure:
      tiles overflow), and the cull kernel's boxes against `cull_boxes`
      and the unit kernel's against `unit_boxes` (bit for bit). Times the
      three and their plain versions (CUDA events, medians) on the last
-     three scenes, computes the bound from this run's inputs, and reads
-     the walk's work (chunks per tile, live sub-block visits, cull-box
-     pairs) and the peak memory of `prepare` for variants 3, 4 and 6
-     there; times the cull and unit kernels and their plain versions on
-     the recon scene; the `kernels` line reports the recon scene. Then
+     three scenes, K1 and K2 also back to back in turns, computes the
+     bound from this run's inputs, and reads the walk's work (chunks per
+     tile, live sub-block visits and the copy requests K1 and K2 issue
+     for them, cull-box pairs) and the peak memory of `prepare` for
+     variants 3, 4 and 6 there; times the cull and unit kernels and their
+     plain versions on the recon scene; the `kernels` line reports the
+     recon scene. Then
      the fused netSDF sweep, forward and backward, against its plain
      versions at the full-width shape (the embedded jittered 129³ lattice,
      weights of `init_params(0)`) and at a ragged small N, in bf16 and
@@ -45,7 +47,9 @@ Phases, in this order, each fatal on failure:
      training step's own winner ids with a random cotangent (10, 65,536,
      42) and on the depth-stack scene, where one face collects hundreds of
      pixels; and the resolve-rows forward K5 against its plain version and
-     `torch.gather` on the training step's own winner ids; each with its
+     `torch.gather` on the training step's own winner ids (with the rows
+     it reads, one per run of a tile row's pixels with one winner, and
+     its time back to back); each with its
      time, its plain version's, its bound and, where one exists, a library
      call's;
   4. paths, at the full width of `train_magicpony_horse` (iter-50000
@@ -64,7 +68,8 @@ Phases, in this order, each fatal on failure:
      (1 + 3: the cull and unit kernels, K3, K5; the images equal to the
      default path's within 1e-6).
 
-Prints a `kernels` JSON line (all nine kernels; `launches` is the count on
+Prints a `kernels` JSON line (all nine kernels, each with its status:
+ported or redesigned, and in which PR; `launches` is the count on
 the path that drives the kernel — `recon_v4` for K2,
 `train_v6_kernel_rows` for the unit kernel, K3 and K5, the default
 training path for the others — and `launches_by_path` the counts on
@@ -235,7 +240,8 @@ def recon_scene(model, images, it):
             (H, H), 1024)
 
 
-def visibility_bound(v_clip, faces, prep, res, visits, outputs):
+def visibility_bound(v_clip, faces, prep, res, visits, outputs,
+                     run_ids=False):
     """Least time (ms) the H100 needs for the visibility function on these
     inputs: (bytes ms, operations ms, bytes, live pairs).
 
@@ -245,7 +251,8 @@ def visibility_bound(v_clip, faces, prep, res, visits, outputs):
     `visits` from the plain version records. Bytes: the coefficients and
     original ids of the live sub-blocks, each read once, the tiles' chunk
     counts and z-mins, the list entries each tile walks, and the outputs
-    written once."""
+    written once. With `run_ids` (K2) the ids are the live sub-blocks' run
+    bases, one int32 a run of 32 faces, in place of one a face."""
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     height, width = res
@@ -278,7 +285,8 @@ def visibility_bound(v_clip, faces, prep, res, visits, outputs):
     live = torch.unique(visits[:, [0, 2, 3]], dim=0)      # (image, chunk, g)
     ids = torch.unique(live[:, 1:], dim=0)                # (chunk, g)
     walked = int(prep["counts"].sum())
-    nbytes = (live.shape[0] * sub * 12 * 4 + ids.shape[0] * sub * 4
+    id_words = sub // 32 if run_ids else sub
+    nbytes = (live.shape[0] * sub * 12 * 4 + ids.shape[0] * id_words * 4
               + walked * 2 * 4
               + sum(prep[k].numel() * 4 for k in ("counts", "zlo"))
               + sum(a.numel() * a.element_size() for a in outputs))
@@ -383,8 +391,8 @@ def cull_entry(prep, res):
           f"{bytes_ms:.4f} ms; float64 operations -> {ops_ms:.4f} ms), "
           f"kernel/bound {ms / max(bytes_ms, ops_ms):.1f}x")
     return kernel_entry("cull_boxes", "cull_boxes.cu",
-                        "rasterize_pallas.py:960", 0.0, ms, plain_ms,
-                        bytes_ms, ops_ms)
+                        "rasterize_pallas.py:960", "new, PR 7", 0.0, ms,
+                        plain_ms, bytes_ms, ops_ms)
 
 
 def unit_entry(prep, res):
@@ -408,15 +416,16 @@ def unit_entry(prep, res):
           f"{plain_ms:.4f} ms, bound {bytes_ms:.4f} ms (bytes {nbytes}), "
           f"kernel/bound {ms / bytes_ms:.1f}x")
     return kernel_entry("unit_boxes", "cull_boxes.cu",
-                        "rasterize_pallas.py:837", 0.0, ms, plain_ms,
-                        bytes_ms, 0.0)
+                        "rasterize_pallas.py:837", "new, PR 8", 0.0, ms,
+                        plain_ms, bytes_ms, 0.0)
 
 
-def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_ms,
-                 ops_ms, library_ms=None):
+def kernel_entry(name, source, replaces, status, err, ms, plain_ms,
+                 bytes_ms, ops_ms, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": "animals3d_tpu_torch/csrc/" + source,
-            "replaces": "animals3d_tpu/ops/" + replaces, "launches": 0,
+            "replaces": "animals3d_tpu/ops/" + replaces,
+            "status": status, "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
@@ -529,6 +538,11 @@ def visibility_phase(model, images, it, device, batch):
         return rc.visibility(p["table"], p["orig"], p["order"], p["counts"],
                              p["masks"], p["zlo"], p["fbox"], res, p["nsub"])
 
+    def k2(p, res):
+        return rc.visibility_v4(p["table"], p["bbase"], p["order"],
+                                p["counts"], p["masks"], p["zlo"], p["fbox"],
+                                res, p["nsub"])
+
     for name, scene in scenes.items():
         v_clip, v_pos0, faces, f_valid, res, chunk = scene
         v_clip, faces = t(v_clip), t(faces, torch.int64)
@@ -558,7 +572,7 @@ def visibility_phase(model, images, it, device, batch):
                      else rc.NSUB, variant=4)
         args4 = (p4["table"], p4["orig"], p4["order"], p4["counts"],
                  p4["masks"], p4["zlo"], res, p4["nsub"])
-        out2 = rc.visibility_v4(*args4[:6], p4["fbox"], res, p4["nsub"])
+        out2 = k2(p4, res)
         torch.cuda.synchronize()
         err2 = same_outputs(f"K2 {name}", out2, rc.visibility_reference(*args4))
         same_outputs(f"K2 vs K1 {name}", out2, k1(p4, res))
@@ -602,8 +616,13 @@ def visibility_phase(model, images, it, device, batch):
         if name not in full_width:
             continue
         ms = median_ms(lambda: k1(prep, res), TIMED_RUNS)
-        ms4 = median_ms(lambda: rc.visibility_v4(*args4[:6], p4["fbox"],
-                                                 res, p4["nsub"]), TIMED_RUNS)
+        ms4 = median_ms(lambda: k2(p4, res), TIMED_RUNS)
+        # back to back, each twice in turns (K1, K2, K2, K1): the host's
+        # wrapper time hides behind the card's work
+        b2b = [back_to_back_ms(lambda: k1(prep, res)),
+               back_to_back_ms(lambda: k2(p4, res)),
+               back_to_back_ms(lambda: k2(p4, res)),
+               back_to_back_ms(lambda: k1(prep, res))]
         p6 = prep_of(scene, variant=6)
         args6 = (p6["table"], p6["orig"], p6["units"], p6["counts6"],
                  p6["zu"], res, p6["nsub"])
@@ -616,7 +635,17 @@ def visibility_phase(model, images, it, device, batch):
         bytes_ms, ops_ms, nbytes, pairs = visibility_bound(
             v_clip, faces, prep, res, visits, (z, fid, flags))
         bound = max(bytes_ms, ops_ms)
+        bytes4_ms, _o, nbytes4, _p = visibility_bound(
+            v_clip, faces, prep, res, visits, (z, fid, flags), run_ids=True)
+        bound4 = max(bytes4_ms, ops_ms)
         walk_readings(name, prep, visits, res)
+        live = visits.shape[0]
+        print(f"visibility[{name}]: copy requests per render for the "
+              f"{live} live sub-blocks: K1 {3 * live} (rows, ids, boxes), K2 "
+              f"{2 * live} (rows, boxes; ids rebuilt from run bases); loads "
+              "of chunks skipped after staging add to both. Back to back, "
+              f"ms a call: K1 {b2b[0]:.4f} / {b2b[3]:.4f}, K2 {b2b[1]:.4f} / "
+              f"{b2b[2]:.4f}")
         _p, peak3 = prepare_peak(scene, 3)
         _p, peak4 = prepare_peak(scene, 4)
         _p, peak6 = prepare_peak(scene, 6)
@@ -627,11 +656,17 @@ def visibility_phase(model, images, it, device, batch):
               f"{ms6:.4f} ms; plain {plain_ms:.4f} ms (K1's and K2's), "
               f"{plain6_ms:.4f} ms (K3's); bound {bound:.4f} ms (live bytes "
               f"{nbytes} -> {bytes_ms:.4f} ms; live bbox pairs {pairs} -> "
-              f"{ops_ms:.4f} ms); kernel/bound K1 {ms / bound:.1f}x, K2 "
-              f"{ms4 / bound:.1f}x, K3 {ms6 / bound:.1f}x")
+              f"{ops_ms:.4f} ms), K2's {bound4:.4f} ms (run bases for ids: "
+              f"live bytes {nbytes4}); kernel/bound K1 {ms / bound:.1f}x, K2 "
+              f"{ms4 / bound4:.1f}x, K3 {ms6 / bound:.1f}x")
         if name == "train":
             train_ms = {"raster_vis": ms, "raster_vis_v4": ms4,
                         "raster_vis_v6": ms6}
+            train_b2b = {"raster_vis": (b2b[0] + b2b[3]) / 2,
+                         "raster_vis_v4": (b2b[1] + b2b[2]) / 2}
+        if name == "recon":
+            recon_b2b = {"raster_vis": (b2b[0] + b2b[3]) / 2,
+                         "raster_vis_v4": (b2b[1] + b2b[2]) / 2}
         if name != "recon":
             continue
         entries = {
@@ -639,18 +674,23 @@ def visibility_phase(model, images, it, device, batch):
             "unit_boxes": unit_entry(p6, res),
             "raster_vis": kernel_entry(
                 "raster_vis", "raster_vis.cu", "rasterize_pallas.py:153",
-                err, ms, plain_ms, bytes_ms, ops_ms),
+                "redesigned, PR 7 (ported, PR 1)", err, ms, plain_ms,
+                bytes_ms, ops_ms),
             "raster_vis_v4": kernel_entry(
                 "raster_vis_v4", "raster_vis_v4.cu",
-                "rasterize_pallas.py:286", err2, ms4, plain_ms, bytes_ms,
-                ops_ms),
+                "rasterize_pallas.py:286", "redesigned, PR 9 (ported, PR 3)",
+                err2, ms4, plain_ms, bytes4_ms, ops_ms),
             "raster_vis_v6": kernel_entry(
                 "raster_vis_v6", "raster_vis_v6.cu",
-                "rasterize_pallas.py:513", err3, ms6, plain6_ms, bytes_ms,
-                ops_ms)}
-    # K1, K2 and K3 on the training forward's own posed meshes too
+                "rasterize_pallas.py:513", "redesigned, PR 8 (ported, PR 3)",
+                err3, ms6, plain6_ms, bytes_ms, ops_ms)}
+    # K1, K2 and K3 on the training forward's own posed meshes too; K1 and
+    # K2 back to back on both
     for name, ms in train_ms.items():
         entries[name]["ms_train_poses"] = ms
+    for name in recon_b2b:
+        entries[name]["ms_back_to_back"] = recon_b2b[name]
+        entries[name]["ms_back_to_back_train_poses"] = train_b2b[name]
     return entries
 
 
@@ -661,6 +701,22 @@ def visibility_phase(model, images, it, device, batch):
 def median_ms(fn, runs=KERNEL_RUNS):
     fn()                                    # warm-up
     return statistics.median(cuda_ms(fn, runs))
+
+
+def back_to_back_ms(fn, n=20):
+    """Device time per call of `fn` launched n times back to back (CUDA
+    events around the loop): the host's wrapper time hides behind the
+    card's work where the card is the slower."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def sweep_operands(model, cd, n_rows=None):
@@ -787,9 +843,11 @@ def sweep_phase(model):
                       f"{plain_ms:.4f} ms, bound {bound:.4f} ms (operations "
                       f"{k_flops:.4g} -> {ops_ms:.4f} ms; bytes {nbytes} -> "
                       f"{bytes_ms:.4f} ms), kernel/bound {ms / bound:.1f}x")
+                fwd = kname.endswith("fwd")
                 rows.append(kernel_entry(
                     kname, "fused_mlp.cu", "fused_mlp.py:"
-                    + ("59" if kname.endswith("fwd") else "76"), kerr, ms,
+                    + ("59" if fwd else "76"), "redesigned, PR "
+                    + ("6" if fwd else "5") + " (ported, PR 2)", kerr, ms,
                     plain_ms, bytes_ms, ops_ms))
             if not f32:
                 entries = {r["name"]: r for r in rows}
@@ -1004,8 +1062,8 @@ def resolve_phase(model, batch):
               f"additions -> {ops_ms:.5f} ms), kernel/bound "
               f"{ms / bound:.1f}x")
         entry = kernel_entry("resolve_bwd", "resolve_bwd.cu",
-                             "rasterize_pallas.py:1097", err, ms, plain_ms,
-                             bytes_ms, ops_ms, library_ms)
+                             "rasterize_pallas.py:1097", "ported, PR 2", err,
+                             ms, plain_ms, bytes_ms, ops_ms, library_ms)
     return entry
 
 
@@ -1017,6 +1075,7 @@ def resolve_fwd_phase(model, batch):
     entry. Bound: bytes — face_id read once, the row of each winning
     (image, face) read once, the (B, R, T·TP) rows written once."""
     import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
     from animals3d_tpu_torch.ops import resolve_cuda as rv
     fid, n_faces = train_scene(model, batch)
     B, P = fid.shape
@@ -1047,6 +1106,18 @@ def resolve_fwd_phase(model, batch):
     plain_ms = median_ms(lambda: rv.resolve_fwd_reference(pf, fid, (H, H)),
                          3)
     library_ms = median_ms(library)
+    # back to back, where the wrapper's host time hides behind the card's
+    b2b = back_to_back_ms(lambda: rv.resolve_fwd(pf, fid, (H, H)))
+    lib_b2b = back_to_back_ms(library)
+    # the rows K5 reads: one per run of pixels of a tile row (32 pixels)
+    # with one winner; the other foreground pixels share their left
+    # neighbour's
+    img = fid.reshape(B, H, H)
+    fgi = img > 0
+    left = torch.nn.functional.pad(img, (1, 0))[..., :-1]
+    col = torch.arange(H, device=fid.device) % rc.TILE_W
+    heads = fgi & ((col == 0) | (img != left))
+    n_heads = int(heads.sum())
     n_fg = int(fg.sum())
     # each winning face's row is read once, however many pixels it won
     key = fid.long() + torch.arange(B, device=fid.device)[:, None] \
@@ -1054,6 +1125,10 @@ def resolve_fwd_phase(model, batch):
     n_rows = int(torch.unique(key[fg]).numel())
     nbytes = fid.numel() * 4 + n_rows * R * 4 + B * R * P * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"resolve_fwd[train_step]: rows read (runs of one winner in a "
+          f"tile row) {n_heads}, foreground pixels that share their left "
+          f"neighbour's winner {n_fg - n_heads}; back to back "
+          f"{b2b:.4f} ms a call, torch.gather + permute {lib_b2b:.4f}")
     print(f"resolve_fwd[train_step]: B={B} P={P} R={R} F={n_faces} "
           f"foreground px {n_fg}, winning (image, face) rows {n_rows}: "
           f"identical to the plain version and to "
@@ -1061,9 +1136,12 @@ def resolve_fwd_phase(model, batch):
           f"{plain_ms:.4f} ms, torch.gather + permute {library_ms:.4f} ms, "
           f"bound {bytes_ms:.4f} ms (bytes {nbytes}), kernel/bound "
           f"{ms / bytes_ms:.1f}x")
-    return kernel_entry("resolve_fwd", "resolve_fwd.cu",
-                        "rasterize_pallas.py:1269", 0.0, ms, plain_ms,
-                        bytes_ms, 0.0, library_ms)
+    entry = kernel_entry("resolve_fwd", "resolve_fwd.cu",
+                         "rasterize_pallas.py:1269",
+                         "redesigned, PR 9 (ported, PR 3)", 0.0, ms, plain_ms,
+                         bytes_ms, 0.0, library_ms)
+    entry["ms_back_to_back"] = b2b
+    return entry
 
 
 # ---------------------------------------------------------------------------

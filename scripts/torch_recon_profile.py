@@ -131,8 +131,8 @@ def visibility_call(prep, res, variant):
         return lambda: rc.visibility(*common, *lists, prep["fbox"], res,
                                      prep["nsub"])
     if variant == 4:
-        return lambda: rc.visibility_v4(*common, *lists, prep["fbox"], res,
-                                        prep["nsub"])
+        return lambda: rc.visibility_v4(prep["table"], prep["bbase"], *lists,
+                                        prep["fbox"], res, prep["nsub"])
     return lambda: rc.visibility_v6(*common, prep["units"], prep["counts6"],
                                     prep["zu"], prep["fbox"], prep["ubox"],
                                     res, prep["nsub"])

@@ -5,6 +5,7 @@ model's own posed meshes, on one CUDA card.
     python3 scripts/torch_vis_readings.py [--runs N] [--k1-smem B1,B2,...]
     python3 scripts/torch_vis_readings.py --v6 [--runs N]
         [--k3-split P1,P2,...] [--k3-smem B1,B2,...]
+    python3 scripts/torch_vis_readings.py --k5 [--runs N]
 
 Builds `train_magicpony_horse` at full width as `chip_smoke.py` does and,
 for the meshes `reconstruct` rasterizes (`chip_smoke.recon_scene`) and
@@ -18,8 +19,11 @@ those of one training forward (`chip_smoke.train_pose_scene`), prints:
     face's cull box (`cull_boxes`) clipped to the tile, the work of a
     kernel that tests each face on its box alone; in all, on the tile with
     the most, and the mean per tile;
+  * the copy requests K1 (rows, ids, boxes) and K2 (rows, boxes) issue
+    for the live sub-blocks;
   * K1's and K2's times (CUDA events: median of N single calls, and per
-    call over 20 calls back to back), beside the function's bound (`chip_smoke.visibility_bound`), and with `--k1-smem`
+    call over 20 calls back to back), beside the function's bound
+    (`chip_smoke.visibility_bound`), and with `--k1-smem`
     K1's at other shared-memory targets a block (`rasterize_cuda.K1_SMEM`,
     which sets the depth of its ring of staged sub-blocks);
   * the peak device memory of `prepare` for variants 3 and 4, above what
@@ -48,6 +52,14 @@ K3 instead:
     (`rasterize_cuda.K3_SPLIT`) and shared-memory targets
     (`rasterize_cuda.K3_SMEM`);
   * the peak device memory of `prepare` for variant 6.
+
+With `--k5` it times the resolve-rows forward K5 instead, on the training
+forward's own winner ids (`chip_smoke.train_scene`) with random float32
+rows (10, F, 42), as `chip_smoke.py` holds it: single calls and back to
+back, beside `torch.gather` with the permute to tile order and beside
+`fill_` of a tensor of the output's size (the card's write rate). It uses
+only `resolve_cuda.resolve_fwd`'s contract, so it also times a tree whose
+K5 has another design.
 """
 from __future__ import annotations
 
@@ -63,21 +75,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402  (the full-width setup and the timers)
 from animals3d_tpu_torch.data.synth import fake_batch  # noqa: E402
 from animals3d_tpu_torch.ops import rasterize_cuda as rc  # noqa: E402
-
-
-def back_to_back_ms(fn, n=20):
-    """Device time per call of `fn` launched n times back to back (CUDA
-    events around the loop): the host's wrapper time hides behind the
-    card's work where the card is the slower."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def readings(name, scene, runs, card, k1_smem):
@@ -105,16 +102,26 @@ def readings(name, scene, runs, card, k1_smem):
             rc.K1_SMEM = default
         print(f"{name}: K1 with {smem} bytes of shared memory a block "
               f"{ms:.4f} ms")
+    lists4 = (p4["table"], p4["bbase"], *lists[2:], p4["fbox"])
     k2 = chip_smoke.median_ms(
-        lambda: rc.visibility_v4(*lists, p4["fbox"], res, p4["nsub"]), runs)
-    k1_b2b = back_to_back_ms(lambda: rc.visibility(*lists, *box, res, nsub))
-    k2_b2b = back_to_back_ms(
-        lambda: rc.visibility_v4(*lists, p4["fbox"], res, p4["nsub"]))
+        lambda: rc.visibility_v4(*lists4, res, p4["nsub"]), runs)
+    k1_b2b = chip_smoke.back_to_back_ms(
+        lambda: rc.visibility(*lists, *box, res, nsub))
+    k2_b2b = chip_smoke.back_to_back_ms(
+        lambda: rc.visibility_v4(*lists4, res, p4["nsub"]))
     bytes_ms, ops_ms, _nbytes, _pairs = chip_smoke.visibility_bound(
         v_clip, faces, p3, res, stats["visits"], out)
+    bytes4_ms, _o, _n, _p = chip_smoke.visibility_bound(
+        v_clip, faces, p3, res, stats["visits"], out, run_ids=True)
+    live = stats["visits"].shape[0]
+    print(f"{name}: copy requests per render for the live sub-blocks "
+          f"({live}): K1 {3 * live} (rows, ids, boxes), K2 {2 * live} "
+          "(rows, boxes); loads of chunks skipped after staging add to "
+          "both")
     print(f"{name}: K1 {k1:.4f} ms, K2 {k2:.4f} ms (median of {runs}; "
           f"back to back {k1_b2b:.4f} and {k2_b2b:.4f} ms a call); "
-          f"bound {max(bytes_ms, ops_ms):.4f} ms; prepare peak variant 3 "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms (K2's, run bases for ids: "
+          f"{max(bytes4_ms, ops_ms):.4f} ms); prepare peak variant 3 "
           f"{peak3 / 2**30:.3f} GiB, variant 4 {peak4 / 2**30:.3f} GiB; "
           f"card {card}")
 
@@ -135,7 +142,7 @@ def timed_with(name, value, fn, runs):
     default = getattr(rc, name)
     setattr(rc, name, value)
     try:
-        return chip_smoke.median_ms(fn, runs), back_to_back_ms(fn)
+        return chip_smoke.median_ms(fn, runs), chip_smoke.back_to_back_ms(fn)
     finally:
         setattr(rc, name, default)
 
@@ -218,7 +225,7 @@ def v6_readings(name, scene, runs, card, k3_split, k3_smem):
                                    p3["nsub"], stats=stats3)
     bytes_ms, ops_ms, _nbytes, _pairs = chip_smoke.visibility_bound(
         v_clip, faces, p3, res, stats3["visits"], out3)
-    b2b = back_to_back_ms(k3(counts6))
+    b2b = chip_smoke.back_to_back_ms(k3(counts6))
     print(f"v6[{name}]: K3 {ms:.4f} ms ({b2b:.4f} a call back to back), "
           f"dense tiles alone {ms_dense:.4f} "
           f"ms, overflow tiles alone {ms_over:.4f} ms (median of {runs}); "
@@ -235,6 +242,26 @@ def v6_readings(name, scene, runs, card, k3_split, k3_smem):
               f"{one:.4f} ms ({many:.4f} back to back)")
 
 
+def k5_readings(model, batch, runs, card):
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    fid, n_faces = chip_smoke.train_scene(model, batch)
+    B, P = fid.shape
+    H = model.out_image_size
+    R = 3 * (4 + 9) + 3
+    gen = torch.Generator(device=fid.device).manual_seed(chip_smoke.SEED)
+    pf = torch.randn((B, n_faces, R), generator=gen, device=fid.device)
+    sel = torch.clamp(fid.long() - 1, min=0)[..., None].expand(B, P, R)
+    out = torch.empty((B, R, P), device=fid.device)
+    calls = {"K5": lambda: rv.resolve_fwd(pf, fid, (H, H)),
+             "torch.gather + permute": lambda: rv.to_tile_order(
+                 torch.gather(pf, 1, sel), (H, H)).contiguous(),
+             "fill_ of the output": lambda: out.fill_(0.0)}
+    print("k5: " + ", ".join(
+        f"{name} {chip_smoke.median_ms(fn, runs):.4f} ms single, "
+        f"{chip_smoke.back_to_back_ms(fn):.4f} back to back"
+        for name, fn in calls.items()) + f"; card {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=5)
@@ -243,6 +270,8 @@ def main() -> int:
                          "which K1 is timed too")
     ap.add_argument("--v6", action="store_true",
                     help="read variant 6's unit lists and K3 instead")
+    ap.add_argument("--k5", action="store_true",
+                    help="time the resolve-rows forward K5 instead")
     ap.add_argument("--k3-split", default="",
                     help="comma-separated splits of an overflow tile at "
                          "which K3 is timed too (with --v6)")
@@ -259,6 +288,10 @@ def main() -> int:
     card = chip_smoke.card_line()
     rc.build()
     model, images, it, B, _H = chip_smoke.slice_phase()
+    if args.k5:
+        k5_readings(model, fake_batch(model, B, chip_smoke.SEED), args.runs,
+                    card)
+        return 0
     scenes = {"recon": chip_smoke.recon_scene(model, images, it),
               "train": chip_smoke.train_pose_scene(
                   model, fake_batch(model, B, chip_smoke.SEED))}

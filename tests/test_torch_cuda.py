@@ -539,27 +539,6 @@ def test_small_train_step_on_card(card):
 # visibility variants 4 and 6 (K2, K3) and the resolve-rows forward (K5)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("make,chunk,nsub", [
-    (_random, 256, 8), (_depth_stack_copies, 32, 1), (_sphere, 256, 8)])
-def test_visibility_v4_kernel_equals_plain_version_and_k1(card, make, chunk,
-                                                          nsub):
-    """K2: face_id, z and the chunk flags identical bit for bit to the plain
-    version (`visibility_reference`) and to K1 on the same inputs; one
-    launch counted per call."""
-    prep, res = _prep(card, make, 3, chunk=chunk, nsub=nsub, variant=4)
-    lists = (prep["table"], prep["orig"], prep["order"], prep["counts"],
-             prep["masks"], prep["zlo"])
-    launches = rc.visibility_v4.launches
-    got = rc.visibility_v4(*lists, prep["fbox"], res, prep["nsub"])
-    torch.cuda.synchronize()
-    assert rc.visibility_v4.launches == launches + 1
-    want = rc.visibility_reference(*lists, res, prep["nsub"])
-    k1 = rc.visibility(*lists, prep["fbox"], res, prep["nsub"])
-    assert int((want[1] > 0).sum()) > 0
-    for a, b, c in zip(got, want, k1):
-        assert torch.equal(a, b) and torch.equal(a, c)
-
-
 def _holes(rng):
     """Invalid and empty faces: random small triangles with the first 512
     faces invalid (whole Morton blocks, so whole units hold no valid
@@ -578,6 +557,105 @@ def _holes(rng):
     f_valid[:512] = False
     return (v_clip, v.reshape(B, 3 * Fn, 3)[0].astype(np.float32), faces,
             f_valid, (64, 96), 128)
+
+
+def _k2_k1_plain(prep, res, table=None):
+    """K2, K1 and their plain version on a variant-4 prep (on `table` in
+    place of the prep's where given: the same values elsewhere in
+    memory)."""
+    table = prep["table"] if table is None else table
+    lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
+    got = rc.visibility_v4(table, prep["bbase"], *lists, prep["fbox"], res,
+                           prep["nsub"])
+    torch.cuda.synchronize()
+    k1 = rc.visibility(table, prep["orig"], *lists, prep["fbox"], res,
+                       prep["nsub"])
+    want = rc.visibility_reference(prep["table"], prep["orig"], *lists, res,
+                                   prep["nsub"])
+    return got, k1, want
+
+
+def _misaligned(t):
+    """A copy of `t` 4 bytes past a 16-byte boundary: the kernels stage it
+    with plain loads (mode 0)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+# (scene, chunk, nsub) with sub-blocks of whole 32-face runs: of 32, 64
+# and 1,024 faces (a bulk copy a row, mode 1; the others a tensor box,
+# mode 2), nsub 1, 4 and 8, the invalid and empty faces, a face larger
+# than the tile, and the slivers (most tiles empty)
+K2_CASES = [(_random, 256, 8), (_random, 256, 4), (_depth_stack_copies, 32, 1),
+            (_sphere, 256, 8), (_sphere, 1024, 1), (_big_and_small, 256, 8),
+            (_sliver, 1024, 8)]
+
+
+@pytest.mark.parametrize("make,chunk,nsub", K2_CASES,
+                         ids=[f"{m.__name__[1:]}-{c}-{n}"
+                              for m, c, n in K2_CASES])
+def test_visibility_v4_kernel_equals_plain_version_and_k1(card, make, chunk,
+                                                          nsub):
+    """K2: face_id, z and the chunk flags identical bit for bit to the plain
+    version (`visibility_reference`) and to K1 on the same inputs; one
+    launch counted per call."""
+    prep, res = _prep(card, make, 3, chunk=chunk, nsub=nsub, variant=4)
+    launches = rc.visibility_v4.launches
+    got, k1, want = _k2_k1_plain(prep, res)
+    assert rc.visibility_v4.launches == launches + 1
+    assert int((want[1] > 0).sum()) > 0
+    for a, b, c in zip(got, want, k1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if make is _big_and_small:
+        assert int((want[1] == 1501).sum()) > 100
+    if make is _sliver:
+        assert int((prep["counts"] == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("smem", [0, None])
+@pytest.mark.parametrize("mode", ["plain loads", "copies"])
+@pytest.mark.parametrize("make,chunk,nsub", [
+    (_random, 256, 8), (_sphere, 1024, 1), (_holes, 128, 4),
+    (_big_and_small, 256, 8), (_depth_stack_copies, 32, 1)])
+def test_visibility_v4_kernel_staging_modes_and_rings(card, monkeypatch,
+                                                      make, chunk, nsub,
+                                                      mode, smem):
+    """K2 and K1 with their rows staged by plain loads (a table 4 bytes
+    off a 16-byte boundary, mode 0) or by the copy engine (a tensor box,
+    mode 2, or at 1,024 faces a bulk copy a row, mode 1), with a ring of
+    one slot (no shared memory to spare) and of the default depth: the
+    outputs are the plain version's bit for bit, with invalid and empty
+    faces and a face larger than the tile."""
+    if smem is not None:
+        monkeypatch.setattr(rc, "K1_SMEM", smem)
+    prep, res = _prep(card, make, 5, chunk=chunk, nsub=nsub, variant=4)
+    table = _misaligned(prep["table"]) if mode == "plain loads" else None
+    got, k1, want = _k2_k1_plain(prep, res, table)
+    for a, b, c in zip(got, want, k1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if make is _holes:
+        empty = (prep["fbox"][..., 0] > prep["fbox"][..., 1])
+        assert int(empty.sum()) > 0
+
+
+def test_visibility_v4_kernel_rejects_bad_inputs(card):
+    """Run bases off the card, of another type or length, in place of the
+    slot ids, and sub-blocks that are not whole runs raise before any
+    launch."""
+    prep, res = _prep(card, _random, 4, chunk=256, variant=4)
+    lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"],
+             prep["fbox"])
+    launches = rc.visibility_v4.launches
+    bb = prep["bbase"]
+    for bad in (bb.cpu(), bb.long(), bb[:-1].contiguous(), prep["orig"]):
+        with pytest.raises(ValueError):
+            rc.visibility_v4(prep["table"], bad, *lists, res, prep["nsub"])
+    with pytest.raises(ValueError):
+        rc.visibility_v4(prep["table"], bb, *lists, res, 16)
+    assert rc.visibility_v4.launches == launches
 
 
 def _v6(prep, res):
@@ -690,22 +768,72 @@ def test_visibility_v6_kernel_rejects_bad_inputs(card, monkeypatch):
     assert rc.visibility_v6.launches == launches
 
 
-def test_resolve_fwd_kernel_equals_plain_version(card):
+def _winner_ids(rng, B, H, W, Fn):
+    """1-based winner ids (B, H·W) int32 in raster order as a render gives
+    them: runs of one to twelve pixels with one winner along each row, a
+    third of the image background, a few ids beyond the Fn faces (also
+    background for K5); tile 0 all background and tile 1 won whole by
+    one face."""
+    n = B * H * W
+    lens = rng.integers(1, 13, n)
+    ids = rng.integers(1, Fn + 1, n)
+    ids[rng.uniform(size=n) < 0.33] = 0
+    ids[rng.uniform(size=n) < 0.01] = Fn + 7
+    fid = np.repeat(ids, lens)[:n].reshape(B, H, W)
+    fid[:, :16, :32] = 0
+    fid[:, :16, 32:64] = 3
+    return fid.reshape(B, H * W).astype(np.int32)
+
+
+@pytest.mark.parametrize("res", [(64, 96), (256, 256)])
+@pytest.mark.parametrize("B", [1, 10])
+@pytest.mark.parametrize("R", [1, 3, 41, 42, 64])
+def test_resolve_fwd_kernel_equals_plain_version(card, R, B, res):
     """K5: the rows equal the plain version's exactly (a copy of a float),
-    zero on background; one launch counted per call."""
+    zero on background, at an odd R (4-byte loads), an even one (8-byte),
+    and more channels than a slice of the transpose (64); with a tile of
+    all background and a tile that one face wins whole; one launch
+    counted per call."""
     from animals3d_tpu_torch.ops import resolve_cuda as rv
     rng = np.random.default_rng(6)
-    B, H, W, R, Fn = 3, 64, 96, 42, 700
-    fid = rng.integers(0, Fn + 1, (B, H * W)).astype(np.int32)
-    fid[:, : H * W // 3] = 0
+    H, W = res
+    Fn = 700
+    fid = torch.as_tensor(_winner_ids(rng, B, H, W, Fn), device=card)
     pf = torch.as_tensor(rng.normal(size=(B, Fn, R)).astype(np.float32),
                          device=card)
-    fid = torch.as_tensor(fid, device=card)
     n = rv.resolve_fwd.launches
     got = rv.resolve_fwd(pf, fid, (H, W))
     torch.cuda.synchronize()
     assert rv.resolve_fwd.launches == n + 1
     want = rv.resolve_fwd_reference(pf, fid, (H, W))
     assert torch.equal(got, want)
-    bg = rv.to_tile_order((fid == 0)[..., None], (H, W))[:, 0]
+    bg = rv.to_tile_order(((fid == 0) | (fid > Fn))[..., None], (H, W))[:, 0]
     assert not got[bg[:, None].expand_as(got)].any()
+    assert not got[:, :, :rv.TP].any()                    # tile 0
+    assert torch.equal(got[:, :, rv.TP:2 * rv.TP],
+                       pf[:, 2, :, None].expand(B, R, rv.TP))
+
+
+@pytest.mark.parametrize("offset", [False, True],
+                         ids=["aligned", "4_bytes_off"])
+def test_resolve_fwd_kernel_block_rows_and_alignment(card, offset):
+    """K5 on rows that are 8-byte aligned and on rows 4 bytes off (pf a
+    float past an 8-byte boundary: 4-byte loads at an even R), over tiles
+    of two blocks of 8 tile rows each: the plain version's rows bit for
+    bit."""
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    rng = np.random.default_rng(7)
+    B, H, W, R, Fn = 2, 64, 96, 42, 300
+    fid = torch.as_tensor(_winner_ids(rng, B, H, W, Fn), device=card)
+    pf = torch.as_tensor(rng.normal(size=(B, Fn, R)).astype(np.float32),
+                         device=card)
+    want = rv.resolve_fwd_reference(pf, fid, (H, W))
+    if offset:
+        buf = torch.empty(pf.numel() + 1, device=card)
+        x = buf[1:].view(pf.shape)
+        x.copy_(pf)
+        assert x.data_ptr() % 8 != 0
+    else:
+        x = pf
+        assert x.data_ptr() % 8 == 0
+    assert torch.equal(rv.resolve_fwd(x, fid, (H, W)), want)

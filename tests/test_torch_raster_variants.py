@@ -7,6 +7,7 @@ as `tests/test_rasterize_pallas.py` does. The CUDA kernels are held to the
 same plain versions on the card (`tests/test_torch_cuda.py`)."""
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,24 @@ def _v4_scene():
     return v_clip, v_pos, faces, rng.uniform(size=Fn) > 0.05, (32, 64), 256
 
 
+def _posed_prior_scene():
+    """The marching-tets sphere of `tests/test_torch_raster.py` (a prior
+    mesh with capacity padding) seen by three cameras turned about the
+    vertical axis; the Morton order follows its unposed positions."""
+    v_clip, v_pos, faces, f_valid, res, _chunk = _sphere_scene()
+    v_pos, faces, f_valid = np.array(v_pos), np.array(faces), \
+        np.array(f_valid)
+    verts = v_pos[0]
+    views = []
+    for ang in (0.0, 2.1, 4.2):
+        c, s = np.cos(ang), np.sin(ang)
+        rot = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        views.append(np.concatenate([verts @ rot.T * 2.0,
+                                     np.full((len(verts), 1), 2.0)], -1))
+    return (np.stack(views).astype(np.float32), v_pos, faces, f_valid, res,
+            256)
+
+
 def _sliver_scene():
     """Faces a hundredth to a thousandth of a pixel across far from the
     screen origin, where the float32 edge constant c = x1·y2 − x2·y1 is
@@ -50,9 +69,12 @@ def _sliver_scene():
     return (v_clip, v_clip[..., :3], faces, np.ones(Fn, bool), (H, W), 1024)
 
 
-def _jax(monkeypatch, scene, variant, cap="128", nsub=None, kernel=None):
+def _jax(monkeypatch, scene, variant, cap="128", nsub=None, kernel=None,
+         bbase=None):
     """`rasterize_pallas` (interpret, fv_rows path) under A3D_RASTER_V; if
-    `kernel` is given, counts the calls of that Pallas kernel."""
+    `kernel` is given, counts the calls of that Pallas kernel; if `bbase`
+    is a list, appends to it the run bases the prep hands the visibility
+    kernel (`_pallas_visibility`'s `bbase`, as numpy)."""
     v_clip, v_pos, faces, f_valid, res, chunk = scene
     calls = []
     if kernel is not None:
@@ -62,6 +84,14 @@ def _jax(monkeypatch, scene, variant, cap="128", nsub=None, kernel=None):
             calls.append(1)
             return real(*args, **kw)
         monkeypatch.setattr(jrp, kernel, counted)
+    if bbase is not None:
+        real_vis = jrp._pallas_visibility
+
+        def capturing(*args, **kw):
+            jax.debug.callback(lambda b: bbase.append(np.asarray(b)),
+                               kw["bbase"])
+            return real_vis(*args, **kw)
+        monkeypatch.setattr(jrp, "_pallas_visibility", capturing)
     monkeypatch.setenv("A3D_RASTER_V", str(variant))
     monkeypatch.setenv("A3D_V6_CAP", cap)
     if nsub is not None:
@@ -126,6 +156,76 @@ def test_v4_plain_version_matches_pallas_v4_interpret(monkeypatch):
     assert_same_visibility(got.face_id.numpy(), want.face_id, got.z.numpy(),
                            want.z, scene[0], scene[2])
     _assert_flags_cover_winners(got, scene, 4)
+
+
+def test_v4_run_bases_match_pallas_v4_prep(monkeypatch):
+    """`prepare(variant=4)`'s run bases equal the ones the JAX package's
+    prep hands `_raster_kernel_v4` (`perm * blk`, `_rasterize_pallas_T`
+    :904) on the same inputs: the two Morton orders agree."""
+    scene = _v4_scene()
+    want = []
+    _jax(monkeypatch, scene, 4, bbase=want)
+    assert len(want) == 1
+    v_clip, v_pos, faces, f_valid, res, chunk = scene
+    t = torch.from_numpy
+    prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
+                      res, chunk, variant=4)
+    np.testing.assert_array_equal(prep["bbase"].numpy(), want[0].reshape(-1))
+
+
+_V4_SCENES = {"random": lambda: _random_scene()[:5] + (256,),
+              "depth_stack": lambda: _depth_stack_scene()[:5] + (256,),
+              "posed_prior": _posed_prior_scene}
+
+
+@pytest.mark.parametrize("scene", sorted(_V4_SCENES))
+def test_prepare_v4_returns_run_bases(scene):
+    """`prepare(variant=4)` returns the run bases bbase (nch·chunk / 32,)
+    int32 with orig[s] == bbase[s // 32] + s % 32 for every sorted slot
+    (padding included); on the CPU `visibility_v4` on them equals
+    `visibility_reference` on `orig`, flags included."""
+    v_clip, v_pos, faces, f_valid, res, chunk = _V4_SCENES[scene]()
+    t = torch.from_numpy
+    prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
+                      res, chunk, variant=4)
+    bbase, orig = prep["bbase"], prep["orig"]
+    nch = prep["table"].shape[1]
+    assert bbase.dtype == torch.int32 and bbase.is_contiguous()
+    assert tuple(bbase.shape) == (nch * chunk // rc.BLOCK,)
+    s = torch.arange(orig.numel())
+    assert torch.equal(orig.long(), bbase.long()[s // 32] + s % 32)
+    assert torch.equal(rc.orig_of_runs(bbase), orig)
+    lists = (prep["order"], prep["counts"], prep["masks"], prep["zlo"])
+    got = rc.visibility_v4(prep["table"], bbase, *lists, prep["fbox"], res,
+                           prep["nsub"])
+    want = rc.visibility_reference(prep["table"], orig, *lists, res,
+                                   prep["nsub"])
+    assert int((want[1] > 0).sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["orig", "int64", "short", "sub16"])
+def test_visibility_v4_rejects_bad_run_bases(bad):
+    """`visibility_v4` checks its run bases on either device: the slot ids
+    `orig` in their place, another dtype or length, and sub-blocks that
+    are not whole 32-face runs raise ValueError."""
+    v_clip, v_pos, faces, f_valid, res, chunk = _v4_scene()
+    t = torch.from_numpy
+    prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
+                      res, chunk, variant=4)
+    bbase, nsub = prep["bbase"], prep["nsub"]
+    if bad == "orig":
+        bbase = prep["orig"]
+    elif bad == "int64":
+        bbase = bbase.long()
+    elif bad == "short":
+        bbase = bbase[1:].contiguous()
+    else:
+        nsub = 16
+    with pytest.raises(ValueError):
+        rc.visibility_v4(prep["table"], bbase, prep["order"], prep["counts"],
+                         prep["masks"], prep["zlo"], prep["fbox"], res, nsub)
 
 
 @pytest.mark.parametrize("cap", ["128", "2", "1"])
@@ -372,6 +472,6 @@ def test_variants_reject_shapes_they_cannot_run():
     prep = rc.prepare(t(v_clip), t(v_pos[0]), t(faces).long(), t(f_valid),
                       res, 256, variant=4)
     with pytest.raises(ValueError):
-        rc.visibility_v4(prep["table"], prep["orig"], prep["order"],
+        rc.visibility_v4(prep["table"], prep["bbase"], prep["order"],
                          prep["counts"], prep["masks"], prep["zlo"],
                          prep["fbox"].int(), res, prep["nsub"])
