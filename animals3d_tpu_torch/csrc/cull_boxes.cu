@@ -1,5 +1,5 @@
 // Per-face cull boxes for the tile visibility kernels K1, K2 and K3, and
-// per-unit boxes for K3 (sm_90a).
+// in the same launch per-unit boxes for K3 (sm_90a).
 //
 // Computes `rasterize_cuda.cull_boxes` (its plain version, in float64
 // PyTorch), bit for bit: per image and sorted face slot, the pixel index
@@ -10,27 +10,34 @@
 // vertices; the port's boxes come from the float32 coefficients, so that
 // the cull changes no winner (see `cull_boxes`).
 //
-// One thread per (image, slot), a block per 256 slots of one chunk (no
-// integer division): it reads the face's 12 coefficients (each row of the
-// (B, nch, 12, chunk) table coalesced across the threads of a chunk), lifts them to float64 and follows the plain version's operations
-// in its order, each rounded to nearest (__dmul_rn, __dadd_rn, __ddiv_rn;
-// the library is built with -fmad=false), so that no float64 table or
-// temporary is ever stored.
+// With kUnits (variant 6, `rasterize_cuda.cull_units`) the kernel also
+// computes `rasterize_cuda.unit_boxes` of those boxes bit for bit, the XLA
+// unit prep's counterpart (rasterize_pallas.py:837): per image and unit (a
+// sub-block of `sub` consecutive slots of a chunk) the union of its
+// faces' non-empty boxes, (W, -1, H, -1) where all are empty. A warp owns
+// whole units, so no atomics, no shared memory and no block barrier are
+// needed: floor(32 / sub) of them where sub < 32 (units never straddle
+// two warps; the other lanes idle), else one, its lanes striding over the
+// unit's slots (4 a lane at the full width's 128). The boxes are folded by
+// integer min and max, one warp reduction (`__reduce_min_sync`) a
+// coordinate over each unit's lanes.
 //
-// Bound on the H100: bytes — the table's 9 edge rows read once (36 bytes
-// a face; the depth rows are not read) and the boxes written once (8
-// bytes a face); 1.97M faces at full width move 86.5 MB, 0.026 ms at 3.35
-// TB/s. The float64 arithmetic (about 110 operations and 6 divisions a
-// face) is below that at the card's float64 rate.
-
+// One thread per (image, slot), a block per 256 slots of one chunk (with
+// the units, a block per its 8 warps' units): it reads the
+// face's 9 edge coefficients (each row of the (B, nch, 12, chunk) table
+// coalesced across the threads of a chunk), lifts them to float64 and
+// follows the plain version's operations in its order, each rounded to
+// nearest (__dmul_rn, __dadd_rn, __drcp_rn; the library is built with
+// -fmad=false), so that no float64 table or temporary is ever stored.
+// Each corner takes one correctly rounded reciprocal of its determinant
+// and multiplies by it, for x, y and both pads.
 //
-// The unit boxes (`unit_boxes_kernel`) compute `rasterize_cuda.unit_boxes`
-// bit for bit: per image and unit (a sub-block of `sub` consecutive slots)
-// the union of its faces' non-empty boxes, (W, -1, H, -1) where all are
-// empty. One warp a unit: its lanes fold the boxes with integer min and
-// max, then the warp reduces by shuffles. Bound: bytes — the face boxes
-// read once and the unit boxes written once (15.9 MB at full width, 0.005
-// ms at 3.35 TB/s).
+// Bound on the H100: the table's 9 edge rows read once (36 bytes a face;
+// the depth rows are not read) and the boxes written once (8 bytes a face,
+// and 8 a unit); 1.97M faces at full width move 86.6 MB, 0.026 ms at 3.35
+// TB/s. The float64 arithmetic the boxes need and the conversions to and
+// from float64, at the card's rates for them, take less (`chip_smoke.py`,
+// `cull_bound`).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,16 +48,10 @@ static __device__ __forceinline__ double sub_rn(double a, double b) {
 
 #define NT 256
 
-// table: (B, nch, 12, chunk) f32; out: (B, nch*chunk) boxes. Block
-// (image * nch + chunk id, j) takes faces j*NT ... of that chunk.
-__global__ void __launch_bounds__(NT)
-cull_boxes_kernel(const float* __restrict__ table, short4* __restrict__ out,
-                  int chunk, int H, int W) {
-  const int f = blockIdx.y * NT + threadIdx.x;
-  if (f >= chunk) return;
-  const size_t bc = blockIdx.x;
-  const size_t i = bc * chunk + f;
-  const float* src = table + bc * 12 * chunk + f;
+// The clamped box (x0, x1, y0, y1) of the face whose 12 coefficient rows
+// start at `src`, `chunk` floats apart.
+static __device__ __forceinline__ int4 face_box(const float* __restrict__ src,
+                                                int chunk, int H, int W) {
   double a[3], b[3], c[3], cp[3];
   for (int k = 0; k < 3; ++k) {
     a[k] = (double)src[(size_t)k * chunk];
@@ -70,20 +71,18 @@ cull_boxes_kernel(const float* __restrict__ table, short4* __restrict__ out,
     const double ai = a[ii[k]], bi = b[ii[k]], ci = cp[ii[k]];
     const double aj = a[jj[k]], bj = b[jj[k]], cj = cp[jj[k]];
     const double det = sub_rn(__dmul_rn(ai, bj), __dmul_rn(aj, bi));
-    const double sdet = det == 0.0 ? 1.0 : det;
-    const double x = __ddiv_rn(sub_rn(__dmul_rn(bi, cj), __dmul_rn(bj, ci)),
-                               sdet);
-    const double y = __ddiv_rn(sub_rn(__dmul_rn(aj, ci), __dmul_rn(ai, cj)),
-                               sdet);
+    const double r = __drcp_rn(det == 0.0 ? 1.0 : det);
+    const double bc = __dmul_rn(bi, cj), cb = __dmul_rn(bj, ci);
+    const double ac = __dmul_rn(aj, ci), ca = __dmul_rn(ai, cj);
+    const double x = __dmul_rn(sub_rn(bc, cb), r);
+    const double y = __dmul_rn(sub_rn(ac, ca), r);
     // float64 error of the corners, padded far above its 1e-16 scale
     const double ex = __dadd_rn(
-        1e-3, __ddiv_rn(__dmul_rn(1e-12, __dadd_rn(fabs(__dmul_rn(bi, cj)),
-                                                   fabs(__dmul_rn(bj, ci)))),
-                        fabs(sdet)));
+        1e-3, __dmul_rn(__dmul_rn(1e-12, __dadd_rn(fabs(bc), fabs(cb))),
+                        fabs(r)));
     const double ey = __dadd_rn(
-        1e-3, __ddiv_rn(__dmul_rn(1e-12, __dadd_rn(fabs(__dmul_rn(aj, ci)),
-                                                   fabs(__dmul_rn(ai, cj)))),
-                        fabs(sdet)));
+        1e-3, __dmul_rn(__dmul_rn(1e-12, __dadd_rn(fabs(ac), fabs(ca))),
+                        fabs(r)));
     pos = pos && det > 0.0;
     neg = neg && det < 0.0;
     finite = finite && isfinite(x) && isfinite(y) && isfinite(ex)
@@ -95,78 +94,110 @@ cull_boxes_kernel(const float* __restrict__ table, short4* __restrict__ out,
     ylo = k == 0 ? y_lo : fmin(ylo, y_lo);
     yhi = k == 0 ? y_hi : fmax(yhi, y_hi);
   }
-  double x0, x1, y0, y1;
+  // ceil and floor straight to int (one conversion each; out-of-range
+  // values saturate, and the clamp to [-1, W] then gives the plain
+  // version's clamp of the float64 value)
+  int x0, x1, y0, y1;
   if ((pos || neg) && finite) {
-    x0 = ceil(sub_rn(xlo, 0.5));
-    x1 = floor(sub_rn(xhi, 0.5));
-    y0 = ceil(sub_rn(ylo, 0.5));
-    y1 = floor(sub_rn(yhi, 0.5));
+    x0 = __double2int_ru(sub_rn(xlo, 0.5));
+    x1 = __double2int_rd(sub_rn(xhi, 0.5));
+    y0 = __double2int_ru(sub_rn(ylo, 0.5));
+    y1 = __double2int_rd(sub_rn(yhi, 0.5));
   } else {                                // the whole screen
-    x0 = 0.0;
-    x1 = (double)(W - 1);
-    y0 = 0.0;
-    y1 = (double)(H - 1);
+    x0 = 0;
+    x1 = W - 1;
+    y0 = 0;
+    y1 = H - 1;
   }
   // an edge of zero normal and a negative constant covers nothing
   bool none = false;
   for (int k = 0; k < 3; ++k)
     none = none || (a[k] == 0.0 && b[k] == 0.0 && c[k] < 0.0);
   if (none) {
-    x0 = (double)W;
-    x1 = -1.0;
+    x0 = W;
+    x1 = -1;
   }
-  const double w = (double)W, h = (double)H;
-  out[i] = make_short4((short)fmin(fmax(x0, -1.0), w),
-                       (short)fmin(fmax(x1, -1.0), w),
-                       (short)fmin(fmax(y0, -1.0), h),
-                       (short)fmin(fmax(y1, -1.0), h));
+  return make_int4(min(max(x0, -1), W), min(max(x1, -1), W),
+                   min(max(y0, -1), H), min(max(y1, -1), H));
 }
 
-extern "C" int cull_boxes_launch(const float* table, void* out, int B,
-                                 int nch, int chunk, int H, int W,
-                                 void* stream) {
-  if ((long)B * nch * chunk == 0) return 0;
-  const dim3 grid((unsigned)(B * nch), (unsigned)((chunk + NT - 1) / NT));
-  cull_boxes_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      table, (short4*)out, chunk, H, W);
-  return (int)cudaGetLastError();
+static __device__ __forceinline__ int4 fold(int4 u, int4 v) {
+  return make_int4(min(u.x, v.x), max(u.y, v.y), min(u.z, v.z),
+                   max(u.w, v.w));
 }
 
-#define UB_WARPS 8
-
-// fbox: (n_units * sub) face boxes, unit-major; ubox: (n_units) unions
-__global__ void __launch_bounds__(UB_WARPS * 32)
-unit_boxes_kernel(const short4* __restrict__ fbox, short4* __restrict__ ubox,
-                  int n_units, int sub, int H, int W) {
-  const int u = blockIdx.x * UB_WARPS + (threadIdx.x >> 5);
+// table: (B, nch, 12, chunk) f32; fbox: (B, nch*chunk) boxes; ubox:
+// (B, nch*chunk/sub) unit boxes (kUnits). Block (image * nch + chunk id,
+// j) takes slots j*NT ... of that chunk; with kUnits a warp owns whole
+// units, 32 / sub of them where sub < 32, else one, its lanes striding
+// over the unit's slots, and block j the units of its warps.
+// The blocks an SM must hold cap the registers a thread, so that enough
+// warps are resident to hide the nine loads' latency: 48 for the face
+// boxes alone (5 blocks; left free, the compiler takes 64, 3 blocks) and
+// 64 for the fused launch (4 blocks; free, its loop over a unit's slots
+// takes 72). Both run faster so on an H100 (PERF.md, section 6).
+template <bool kUnits>
+__global__ void __launch_bounds__(NT, kUnits ? 4 : 5)
+cull_boxes_kernel(const float* __restrict__ table, short4* __restrict__ fbox,
+                  short4* __restrict__ ubox, int chunk, int sub, int H,
+                  int W) {
+  const size_t bc = blockIdx.x;
+  const float* rows = table + bc * 12 * chunk;
+  short4* out = fbox + bc * chunk;
+  if (!kUnits) {
+    const int f = blockIdx.y * NT + threadIdx.x;
+    if (f >= chunk) return;
+    const int4 bx = face_box(rows + f, chunk, H, W);
+    out[f] = make_short4((short)bx.x, (short)bx.y, (short)bx.z, (short)bx.w);
+    return;
+  }
   const int lane = threadIdx.x & 31;
-  if (u >= n_units) return;
-  const short4* src = fbox + (size_t)u * sub;
-  int x0 = W, x1 = -1, y0 = H, y1 = -1;
-  for (int f = lane; f < sub; f += 32) {
-    const short4 bx = src[f];
-    if (bx.x <= bx.y && bx.z <= bx.w) {
-      x0 = min(x0, (int)bx.x);
-      x1 = max(x1, (int)bx.y);
-      y0 = min(y0, (int)bx.z);
-      y1 = max(y1, (int)bx.w);
+  const int upw = sub < 32 ? 32 / sub : 1;         // units a warp
+  const int wu = lane / sub;                       // the lane's unit
+  const int u = (blockIdx.y * (NT / 32) + (threadIdx.x >> 5)) * upw + wu;
+  const int nu = chunk / sub;
+  const int first = wu * sub;                      // its first lane
+  const bool live = wu < upw && u < nu;
+  int4 acc = make_int4(W, -1, H, -1);
+  if (live) {                                      // one pass: sub <= 32
+    for (int f = u * sub + lane - first; f < (u + 1) * sub; f += 32) {
+      const int4 bx = face_box(rows + f, chunk, H, W);
+      out[f] = make_short4((short)bx.x, (short)bx.y, (short)bx.z,
+                           (short)bx.w);
+      if (bx.x <= bx.y && bx.z <= bx.w) acc = fold(acc, bx);
     }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    x0 = min(x0, __shfl_xor_sync(0xffffffffu, x0, o));
-    x1 = max(x1, __shfl_xor_sync(0xffffffffu, x1, o));
-    y0 = min(y0, __shfl_xor_sync(0xffffffffu, y0, o));
-    y1 = max(y1, __shfl_xor_sync(0xffffffffu, y1, o));
-  }
-  if (lane == 0)
-    ubox[u] = make_short4((short)x0, (short)x1, (short)y0, (short)y1);
+  // fold over the unit's lanes (the empty box is the fold's identity): one
+  // warp reduction a coordinate, each unit's lanes with their own mask
+  const unsigned mask = sub >= 32 ? 0xffffffffu
+                                  : ((1u << sub) - 1) << first;
+  acc = make_int4(__reduce_min_sync(mask, acc.x),
+                  __reduce_max_sync(mask, acc.y),
+                  __reduce_min_sync(mask, acc.z),
+                  __reduce_max_sync(mask, acc.w));
+  if (live && lane == first)
+    ubox[bc * nu + u] = make_short4((short)acc.x, (short)acc.y,
+                                    (short)acc.z, (short)acc.w);
 }
 
-extern "C" int unit_boxes_launch(const void* fbox, void* ubox, int n_units,
-                                 int sub, int H, int W, void* stream) {
-  if (n_units == 0) return 0;
-  const int grid = (n_units + UB_WARPS - 1) / UB_WARPS;
-  unit_boxes_kernel<<<grid, UB_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const short4*)fbox, (short4*)ubox, n_units, sub, H, W);
+// ubox == nullptr: the face boxes alone (variants 3 and 4); else the face
+// and unit boxes of units of `sub` slots (variant 6; sub divides chunk).
+extern "C" int cull_boxes_launch(const float* table, void* fbox, void* ubox,
+                                 int B, int nch, int chunk, int sub, int H,
+                                 int W, void* stream) {
+  if ((long)B * nch * chunk == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ubox == nullptr) {
+    const dim3 grid((unsigned)(B * nch), (unsigned)((chunk + NT - 1) / NT));
+    cull_boxes_kernel<false><<<grid, NT, 0, st>>>(
+        table, (short4*)fbox, nullptr, chunk, chunk, H, W);
+  } else {
+    const int per_block = (NT / 32) * (sub < 32 ? 32 / sub : 1);
+    const int nu = chunk / sub;
+    const dim3 grid((unsigned)(B * nch),
+                    (unsigned)((nu + per_block - 1) / per_block));
+    cull_boxes_kernel<true><<<grid, NT, 0, st>>>(
+        table, (short4*)fbox, (short4*)ubox, chunk, sub, H, W);
+  }
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,8 @@ around the kernel is plain PyTorch, as the JAX package left it to XLA:
     `cull`): a bound of every pixel centre its float32 edge tests can
     accept. Every variant tests a face only on its box;
   * variant 6 also: per unit (sub-block) and image, the union of its
-    faces' boxes (`unit_boxes`; on the card `unit_cull`).
+    faces' boxes (`unit_boxes`; on the card `cull_units`, the cull kernel
+    that folds them in the same launch).
 
 The kernel (or `visibility_reference`) then computes, per pixel, the
 nearest covering face — ties on exactly equal z go to the smallest
@@ -159,12 +160,13 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
     (overlapping ones first); counts (B, T) int32; masks (B, T, nch) int32
     sub-block overlap bits by chunk id; zlo (B, nch) int32 quantized chunk
     z-min; nsub; fbox (B, nch·chunk, 4) int16 per-face cull boxes
-    (`cull`). Variant 4 adds bbase (nch·chunk / 32,) int32, the original
-    id of each 32-slot run's first slot (`orig[::32]`: the Morton order
-    moves whole runs, so orig[s] = bbase[s // 32] + s % 32). Variant 6
+    (`cull`; variant 6 `cull_units`). Variant 4 adds bbase
+    (nch·chunk / 32,) int32, the original id of each 32-slot run's first
+    slot (`orig[::32]`: the Morton order moves whole runs, so
+    orig[s] = bbase[s // 32] + s % 32). Variant 6
     adds zu (B, U) int32 quantized unit z-min, units (B, T, S) int32 unit
     lists, counts6 (B, T) int32, S and ubox (B, U, 4) int16 per-unit boxes
-    (`unit_cull`).
+    (`cull_units`: one launch makes both kinds of box).
     Raises ValueError for a variant that cannot run on these shapes (the
     JAX package falls back to variant 3 there).
     """
@@ -289,7 +291,10 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
            "order": order.contiguous(), "counts": counts.contiguous(),
            "masks": masks.contiguous(), "zlo": zlo.contiguous(),
            "nsub": nsub}
-    out["fbox"] = cull(table, resolution)
+    if variant == 6:
+        out["fbox"], ubox = cull_units(table, resolution, sub)
+    else:
+        out["fbox"] = cull(table, resolution)
     if variant == 4:
         # the run bases of `_rasterize_pallas_T` (:904), blk = BLOCK here
         out["bbase"] = (perm * blk).to(torch.int32).contiguous()
@@ -307,7 +312,7 @@ def prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk: int = 1024,
         out.update(zu=zu.contiguous(),
                    units=units.to(torch.int32).contiguous(),
                    counts6=ovu.sum(-1).to(torch.int32).contiguous(), S=S,
-                   ubox=unit_cull(out["fbox"], sub, resolution))
+                   ubox=ubox)
     return out
 
 
@@ -328,7 +333,18 @@ def cull_boxes(table, resolution):
     positively, that region lies in the triangle of the three lines'
     pairwise intersections; elsewhere the box is the whole screen. A face
     with an edge of zero normal and a negative constant (the invalid
-    faces' (0, 0, −1)) covers nothing."""
+    faces' (0, 0, −1)) covers nothing.
+
+    Each corner is (num_x, num_y)·r with r = 1/det correctly rounded, and
+    the pads use |r| = 1/|det| (exact); two roundings, of the reciprocal
+    and of the product, move a corner by at most 2·2^-53 of its size
+    (~2.2e-16) where a quotient's one rounding moved it by 2^-53. The pad,
+    1e-12 of the same terms over |det| plus 1e-3 pixels, covers that
+    thousands of times over, so
+    every box still holds every pixel centre the edge tests accept. A
+    corner whose r overflows is not finite and gives the whole screen,
+    which is always safe. The CUDA kernel does the same operations in the
+    same order (`csrc/cull_boxes.cu`), so the two agree bit for bit."""
     height, width = resolution
     B, nch, _rows, chunk = table.shape
     t = table.permute(0, 1, 3, 2).reshape(B, nch * chunk, 12).double()
@@ -339,12 +355,12 @@ def cull_boxes(table, resolution):
     ai, bi, ci = a[..., i], b[..., i], cp[..., i]
     aj, bj, cj = a[..., j], b[..., j], cp[..., j]
     det = ai * bj - aj * bi              # cross products of the normals
-    sdet = torch.where(det == 0, torch.ones_like(det), det)
-    x = (bi * cj - bj * ci) / sdet
-    y = (aj * ci - ai * cj) / sdet
+    r = torch.where(det == 0, torch.ones_like(det), det).reciprocal()
+    x = (bi * cj - bj * ci) * r
+    y = (aj * ci - ai * cj) * r
     # float64 error of the corners, padded far above its 1e-16 scale
-    ex = 1e-3 + 1e-12 * ((bi * cj).abs() + (bj * ci).abs()) / sdet.abs()
-    ey = 1e-3 + 1e-12 * ((aj * ci).abs() + (ai * cj).abs()) / sdet.abs()
+    ex = 1e-3 + 1e-12 * ((bi * cj).abs() + (bj * ci).abs()) * r.abs()
+    ey = 1e-3 + 1e-12 * ((aj * ci).abs() + (ai * cj).abs()) * r.abs()
     spans = ((det > 0).all(-1) | (det < 0).all(-1)) \
         & torch.isfinite(x).all(-1) & torch.isfinite(y).all(-1) \
         & torch.isfinite(ex).all(-1) & torch.isfinite(ey).all(-1)
@@ -368,8 +384,8 @@ def cull_boxes(table, resolution):
 def cull(table, resolution):
     """`cull_boxes` on the table's device: the CUDA kernel
     (`csrc/cull_boxes.cu`) for a CUDA table, the plain version for a CPU
-    one; the same int16 boxes bit for bit. Adds one to `cull.launches` per
-    kernel launch."""
+    one; the same int16 boxes bit for bit. Variant 6 takes `cull_units`
+    instead. Adds one to `cull.launches` per kernel launch."""
     if _device(table).type == "cpu":
         return cull_boxes(table, resolution)
     B, nch, _rows, chunk = table.shape
@@ -378,8 +394,8 @@ def cull(table, resolution):
     height, width = resolution
     out = torch.empty((B, nch * chunk, 4), dtype=torch.int16,
                       device=table.device)
-    _launch("cull_boxes", library().cull_boxes_launch, table, out, B, nch,
-            chunk, height, width)
+    _launch("cull_boxes", library().cull_boxes_launch, table, out, None, B,
+            nch, chunk, chunk, height, width)
     cull.launches += 1
     return out
 
@@ -406,27 +422,35 @@ def unit_boxes(fbox, sub: int, resolution):
     return box.to(torch.int16).contiguous()
 
 
-def unit_cull(fbox, sub: int, resolution):
-    """`unit_boxes` on the boxes' device: the CUDA kernel
-    (`csrc/cull_boxes.cu`, `unit_boxes_kernel`) for CUDA boxes, the plain
-    version for CPU ones; the same int16 boxes bit for bit. Adds one to
-    `unit_cull.launches` per kernel launch."""
-    if _device(fbox).type == "cpu":
-        return unit_boxes(fbox, sub, resolution)
-    B, F, _four = fbox.shape
-    if sub < 1 or F % sub:
-        raise ValueError(f"units of {sub} faces do not divide {F} slots")
-    _check({"fbox": (fbox, torch.int16, (B, F, 4))}, fbox.device)
+def cull_units(table, resolution, sub: int):
+    """The face boxes and the unit boxes of variant 6 in one launch:
+    (`cull_boxes`, `unit_boxes` of those with units of `sub` slots) on the
+    table's device — the cull kernel's instantiation that also folds each
+    unit's boxes (`csrc/cull_boxes.cu`) for a CUDA table, the two plain
+    versions for a CPU one; the same int16 boxes bit for bit. Raises
+    ValueError where units of `sub` slots do not divide a chunk. Adds one
+    to `cull_units.launches` per kernel launch."""
+    B, nch, _rows, chunk = table.shape
+    if sub < 1 or chunk % sub:
+        raise ValueError(f"units of {sub} faces do not divide a chunk of "
+                         f"{chunk}")
+    if _device(table).type == "cpu":
+        fbox = cull_boxes(table, resolution)
+        return fbox, unit_boxes(fbox, sub, resolution)
+    _check({"table": (table, torch.float32, (B, nch, 12, chunk))},
+           table.device)
     height, width = resolution
-    out = torch.empty((B, F // sub, 4), dtype=torch.int16,
-                      device=fbox.device)
-    _launch("unit_boxes", library().unit_boxes_launch, fbox, out,
-            B * (F // sub), sub, height, width)
-    unit_cull.launches += 1
-    return out
+    fbox = torch.empty((B, nch * chunk, 4), dtype=torch.int16,
+                       device=table.device)
+    ubox = torch.empty((B, nch * chunk // sub, 4), dtype=torch.int16,
+                       device=table.device)
+    _launch("cull_units", library().cull_boxes_launch, table, fbox, ubox, B,
+            nch, chunk, sub, height, width)
+    cull_units.launches += 1
+    return fbox, ubox
 
 
-unit_cull.launches = 0
+cull_units.launches = 0
 
 
 def _check(tensors, device):
@@ -724,8 +748,7 @@ def library():
         lib.raster_vis_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
         lib.raster_vis_smem.argtypes = [i32] * 3
         lib.raster_vis_smem.restype = i64
-        lib.cull_boxes_launch.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]
-        lib.unit_boxes_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
+        lib.cull_boxes_launch.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
         lib.raster_vis_v4_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
         lib.raster_vis_v4_smem.argtypes = [i32] * 3
         lib.raster_vis_v4_smem.restype = i64
@@ -747,7 +770,6 @@ def library():
         lib.resolve_bwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.resolve_fwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         for fn in (lib.raster_vis_launch, lib.cull_boxes_launch,
-                   lib.unit_boxes_launch,
                    lib.raster_vis_v4_launch,
                    lib.raster_vis_v6_launch, lib.fused_mlp_fwd_bf16_launch,
                    lib.fused_mlp_fwd_f32_launch,

@@ -24,16 +24,19 @@ Phases, in this order, each fatal on failure:
      (z, face_id and chunk flags bit for bit), K3 against
      `visibility_v6_reference` (z, face_id, slot flags) and its z and
      face_id against K1's, also with the unit lists capped at 2 (most
-     tiles overflow), and the cull kernel's boxes against `cull_boxes`
-     and the unit kernel's against `unit_boxes` (bit for bit). Times the
+     tiles overflow), and the cull kernel's face boxes (both its
+     instantiations: the face boxes alone, and with the unit boxes of
+     variant 6 in the same launch) against `cull_boxes` and its unit boxes
+     against `unit_boxes` (bit for bit). Times the
      three and their plain versions (CUDA events, medians) on the last
      three scenes, K1 and K2 also back to back in turns, computes the
      bound from this run's inputs, and reads the walk's work (chunks per
      tile, live sub-block visits and the copy requests K1 and K2 issue
      for them, cull-box pairs) and the peak memory of `prepare` for
-     variants 3, 4 and 6 there; times the cull and unit kernels and their
-     plain versions on the recon scene; the `kernels` line reports the
-     recon scene. Then
+     variants 3, 4 and 6 there; times both instantiations of the cull
+     kernel and their plain versions on the recon scene, single calls and
+     20 calls in a CUDA graph (the device's time alone); the `kernels`
+     line reports the recon scene. Then
      the fused netSDF sweep, forward and backward, against its plain
      versions at the full-width shape (the embedded jittered 129³ lattice,
      weights of `init_params(0)`) and at a ragged small N, in bf16 and
@@ -59,19 +62,20 @@ Phases, in this order, each fatal on failure:
      of the path once per step or render, no other kernel):
      `train_step` on the default path (1 warm-up and 5 timed steps: the
      cull kernel, K1, K6, K7, K4) and on `raster_variant=6,
-     resolve_rows="kernel"` (1 + 3: the cull and unit kernels, K3, K5,
-     K4, K6, K7), the loss on the
+     resolve_rows="kernel"` (1 + 3: the cull kernel with the unit boxes,
+     K3, K5, K4, K6, K7), the loss on the
      batch with fixed draws falling; `reconstruct` on the default path
      (1 + 5: the cull kernel, K1), with `raster_variant=4` (1 + 3: the
      cull kernel, K2; every render's z and face_id equal to K1's on the
      same posed meshes) and with `raster_variant=6, resolve_rows="kernel"`
-     (1 + 3: the cull and unit kernels, K3, K5; the images equal to the
-     default path's within 1e-6).
+     (1 + 3: the cull kernel with the unit boxes, K3, K5; the images equal
+     to the default path's within 1e-6).
 
-Prints a `kernels` JSON line (all nine kernels, each with its status:
-ported or redesigned, and in which PR; `launches` is the count on
-the path that drives the kernel — `recon_v4` for K2,
-`train_v6_kernel_rows` for the unit kernel, K3 and K5, the default
+Prints a `kernels` JSON line (all nine kernel entries, each with its
+status: ported, redesigned or fused, and in which PR; `unit_boxes` is the
+cull kernel's instantiation that also writes the unit boxes; `launches`
+is the count on the path that drives the kernel — `recon_v4` for K2,
+`train_v6_kernel_rows` for the unit boxes, K3 and K5, the default
 training path for the others — and `launches_by_path` the counts on
 every path), the card's name
 and power limit, and as the last line `{"ok": true, "device": {...}}`.
@@ -294,11 +298,21 @@ def visibility_bound(v_clip, faces, prep, res, visits, outputs,
             nbytes, pairs)
 
 
-# float64 operations `cull_boxes` does per face: 21 for the padded edge
-# constants, 23 for each of the three corners (4 products, the cross
-# product, 2 quotients, the 2 error pads, the 4 bounds), 12 for the
-# extrema, 8 for the box
-CULL_OPS_PER_FACE = 21 + 3 * 23 + 12 + 8
+# The arithmetic per face that `cull_boxes`' boxes need, counted from the
+# function, not from a compiler's output: 102 float64 products, sums,
+# minima and maxima (7 an edge for its padded constant; 23 a corner for
+# its determinant, x, y, both pads and the four bounds; 8 for the minima
+# and maxima over the corners; 4 for the half-pixel shifts) and 3
+# correctly rounded reciprocals, one a corner, each at the length of its
+# fast path (5 DFMA after a seed, the sequence of `__drcp_rn`); and 9
+# float32-to-float64 conversions, 4 float64-to-integer ones and the 3
+# reciprocal seeds (MUFU.RCP64H). Compares and tests are left out. An
+# H100 SM completes 64 float64 instructions a clock (an FMA is two of
+# F64_PEAK_FLOPS' operations) and 16 conversions or seeds.
+CULL_F64_PER_FACE = 102 + 3 * 5
+CULL_CONV_PER_FACE = 9 + 4 + 3
+F64_INSTR_PER_S = F64_PEAK_FLOPS / 2
+CONV64_PER_S = F64_INSTR_PER_S / 4
 
 
 def walk_readings(name, prep, visits, res):
@@ -366,58 +380,61 @@ def prepare_peak(scene, variant):
     return prep, torch.cuda.max_memory_allocated() - base
 
 
-def cull_entry(prep, res):
-    """The cull kernel on a prep's table against `cull_boxes` (bit for
-    bit), timed beside it; returns its `kernels` entry. Bound: bytes — the
-    table's 9 edge rows read once (the boxes do not depend on the 3 depth
-    rows) and the boxes written once — against the float64 operations at
-    the card's float64 rate."""
+def cull_bound(table, fbox, ubox=None):
+    """(bytes ms, operations ms, bytes) of the cull kernel on `table`: the
+    9 edge rows read once, the face boxes (and the unit boxes) written
+    once; the float64 instructions and the 64-bit conversions per face
+    (`CULL_F64_PER_FACE`, `CULL_CONV_PER_FACE`) at the card's rates for
+    them, the two added."""
+    faces = fbox.shape[0] * fbox.shape[1]
+    nbytes = table.numel() // 12 * 9 * 4 + fbox.numel() * 2 \
+        + (ubox.numel() * 2 if ubox is not None else 0)
+    ops_ms = (CULL_F64_PER_FACE * faces / F64_INSTR_PER_S
+              + CULL_CONV_PER_FACE * faces / CONV64_PER_S) * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops_ms, nbytes
+
+
+def cull_entry(prep, res, units=False, scene="recon"):
+    """The cull kernel on a prep's table against its plain versions (bit
+    for bit), timed beside them: a single call, and the device's time alone
+    (20 calls in a CUDA graph); prints them under `scene` and returns its
+    `kernels` entry. units: the fused launch (`cull_units`: the face boxes
+    and variant 6's unit boxes) against `cull_boxes` and `unit_boxes`, else
+    the face boxes alone (`cull`) against `cull_boxes`."""
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     table = prep["table"]
-    got = rc.cull(table, res)
-    torch.cuda.synchronize()
-    same_outputs("cull kernel", (got,), (rc.cull_boxes(table, res),),
-                 ("boxes",))
-    ms = median_ms(lambda: rc.cull(table, res))
-    plain_ms = median_ms(lambda: rc.cull_boxes(table, res), 3)
-    faces = got.shape[0] * got.shape[1]
-    nbytes = table.numel() // 12 * 9 * 4 + got.numel() * 2
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = CULL_OPS_PER_FACE * faces / F64_PEAK_FLOPS * 1e3
-    print(f"cull_boxes[recon]: {faces} (image, face) boxes identical to "
-          f"`cull_boxes`; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {nbytes} -> "
-          f"{bytes_ms:.4f} ms; float64 operations -> {ops_ms:.4f} ms), "
-          f"kernel/bound {ms / max(bytes_ms, ops_ms):.1f}x")
-    return kernel_entry("cull_boxes", "cull_boxes.cu",
-                        "rasterize_pallas.py:960", "new, PR 7", 0.0, ms,
-                        plain_ms, bytes_ms, ops_ms)
+    sub = table.shape[-1] // prep["nsub"]
 
-
-def unit_entry(prep, res):
-    """The unit kernel on a prep's face boxes against `unit_boxes` (bit for
-    bit), timed beside it; returns its `kernels` entry. Bound: bytes — the
-    face boxes read once and the unit boxes written once."""
-    import torch
-    from animals3d_tpu_torch.ops import rasterize_cuda as rc
-    fbox = prep["fbox"]
-    sub = prep["table"].shape[-1] // prep["nsub"]
-    got = rc.unit_cull(fbox, sub, res)
+    def plain():
+        boxes = rc.cull_boxes(table, res)
+        return (boxes, rc.unit_boxes(boxes, sub, res)) if units else (boxes,)
+    kernel = (lambda: rc.cull_units(table, res, sub)) if units \
+        else (lambda: (rc.cull(table, res),))
+    got = kernel()
     torch.cuda.synchronize()
-    same_outputs("unit kernel", (got,), (rc.unit_boxes(fbox, sub, res),),
-                 ("boxes",))
-    ms = median_ms(lambda: rc.unit_cull(fbox, sub, res))
-    plain_ms = median_ms(lambda: rc.unit_boxes(fbox, sub, res), 3)
-    nbytes = fbox.numel() * 2 + got.numel() * 2
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"unit_boxes[recon]: {got.shape[0] * got.shape[1]} (image, unit) "
-          f"boxes identical to `unit_boxes`; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bytes_ms:.4f} ms (bytes {nbytes}), "
-          f"kernel/bound {ms / bytes_ms:.1f}x")
-    return kernel_entry("unit_boxes", "cull_boxes.cu",
-                        "rasterize_pallas.py:837", "new, PR 8", 0.0, ms,
-                        plain_ms, bytes_ms, 0.0)
+    same_outputs("cull kernel", got, plain(), ("boxes", "units"))
+    ms = median_ms(kernel)
+    dev_ms = graph_ms(kernel)
+    plain_ms = median_ms(plain, 3)
+    bytes_ms, ops_ms, nbytes = cull_bound(table, *got)
+    bound = max(bytes_ms, ops_ms)
+    name = "unit_boxes" if units else "cull_boxes"
+    counts = " and ".join(str(b.shape[0] * b.shape[1]) for b in got)
+    print(f"{name}[{scene}]: {counts} (image, face or unit) boxes identical "
+          f"to the plain versions; kernel {ms:.4f} ms "
+          f"single, {dev_ms:.4f} ms device alone, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms (bytes {nbytes} -> {bytes_ms:.4f} ms; "
+          f"float64 instructions and conversions -> {ops_ms:.4f} ms), "
+          f"device/bound {dev_ms / bound:.1f}x")
+    e = kernel_entry(
+        name, "cull_boxes.cu",
+        "rasterize_pallas.py:837" if units else "rasterize_pallas.py:960",
+        "fused into the cull kernel, PR 10 (new, PR 8)" if units
+        else "redesigned, PR 10 (new, PR 7)", 0.0, ms, plain_ms, bytes_ms,
+        ops_ms)
+    e["graph_ms"] = dev_ms
+    return e
 
 
 def kernel_entry(name, source, replaces, status, err, ms, plain_ms,
@@ -504,16 +521,17 @@ def visibility_phase(model, images, it, device, batch):
     """K1 against its plain version on the five scenes, K2 against the same
     plain version and against K1, K3 against its plain version (and its z
     and face_id against K1's), each bit for bit; a second K3 pass with the
-    unit lists capped at 2 runs its overflow walk on most tiles; the cull
-    boxes of every scene against `cull_boxes`, the unit boxes against
-    `unit_boxes`. On the three full-width scenes the kernels are timed and
-    bounded, with the work the walk offers (chunks per tile, live
-    sub-block visits, the faces' cull-box pairs) and the peak memory of
-    `prepare` for variants 3, 4 and 6. Returns the `kernels` entries of
-    the cull kernel, the unit kernel, K1, K2 and K3, timed and bounded on
-    the recon scene (K2's and K3's bound is K1's: the same function on the
-    same inputs), K1's, K2's and K3's with their time on the training
-    poses."""
+    unit lists capped at 2 runs its overflow walk on most tiles; the face
+    boxes of every scene (from both instantiations of the cull kernel)
+    against `cull_boxes`, the unit boxes against `unit_boxes`. On the
+    three full-width scenes the kernels are timed and bounded, with the
+    work the walk offers (chunks per tile, live sub-block visits, the
+    faces' cull-box pairs) and the peak memory of `prepare` for variants
+    3, 4 and 6. Returns the `kernels` entries of the cull kernel's two
+    instantiations (`cull_boxes`, and `unit_boxes` for the one that also
+    writes the unit boxes), K1, K2 and K3, timed and bounded on the recon
+    scene (K2's and K3's bound is K1's: the same function on the same
+    inputs), K1's, K2's and K3's with their time on the training poses."""
     import torch
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     rng = np.random.default_rng(SEED)
@@ -585,8 +603,11 @@ def visibility_phase(model, images, it, device, batch):
             p6 = prep_of(scene, nsub=v6_nsub.get(name, rc.NSUB), variant=6,
                          v6_cap=cap)
             sub6 = p6["table"].shape[-1] // p6["nsub"]
-            same_outputs(f"unit kernel {name}", (p6["ubox"],),
-                         (rc.unit_boxes(p6["fbox"], sub6, res),), ("boxes",))
+            want6 = rc.cull_boxes(p6["table"], res)
+            same_outputs(f"fused cull kernel {name}",
+                         (p6["fbox"], p6["ubox"]),
+                         (want6, rc.unit_boxes(want6, sub6, res)),
+                         ("boxes", "units"))
             args6 = (p6["table"], p6["orig"], p6["units"], p6["counts6"],
                      p6["zu"], res, p6["nsub"])
             out3 = rc.visibility_v6(*args6[:5], p6["fbox"], p6["ubox"], res,
@@ -671,7 +692,7 @@ def visibility_phase(model, images, it, device, batch):
             continue
         entries = {
             "cull_boxes": cull_entry(prep, res),
-            "unit_boxes": unit_entry(p6, res),
+            "unit_boxes": cull_entry(p6, res, units=True),
             "raster_vis": kernel_entry(
                 "raster_vis", "raster_vis.cu", "rasterize_pallas.py:153",
                 "redesigned, PR 7 (ported, PR 1)", err, ms, plain_ms,
@@ -717,6 +738,28 @@ def back_to_back_ms(fn, n=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n=20, runs=5):
+    """Device time per call of `fn`: n calls captured in one CUDA graph
+    (the wrapper launches on the current stream, so the capture takes its
+    kernels and none of its host work), the graph replayed `runs` times
+    (CUDA events, median) and divided by n."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(graph.replay, runs)) / n
+    del graph
+    return ms
 
 
 def sweep_operands(model, cd, n_rows=None):
@@ -1158,19 +1201,19 @@ def build(overrides, device, **render):
 
 
 # the render selectors of each path the script drives, and the kernels each
-# path launches once per render (the forward) or per step
+# path launches once per render (the forward) or per step; "unit_boxes" is
+# the cull kernel's launch that also writes variant 6's unit boxes
 PATHS = {
     "train": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
                    "fused_mlp_bwd", "resolve_bwd")),
     "train_v6_kernel_rows": (
         dict(raster_variant=6, resolve_rows="kernel"),
-        ("cull_boxes", "unit_boxes", "raster_vis_v6", "resolve_fwd",
-         "resolve_bwd", "fused_mlp_fwd", "fused_mlp_bwd")),
+        ("unit_boxes", "raster_vis_v6", "resolve_fwd", "resolve_bwd",
+         "fused_mlp_fwd", "fused_mlp_bwd")),
     "recon": ({}, ("cull_boxes", "raster_vis")),
     "recon_v4": (dict(raster_variant=4), ("cull_boxes", "raster_vis_v4")),
     "recon_v6_kernel_rows": (dict(raster_variant=6, resolve_rows="kernel"),
-                             ("cull_boxes", "unit_boxes", "raster_vis_v6",
-                              "resolve_fwd")),
+                             ("unit_boxes", "raster_vis_v6", "resolve_fwd")),
 }
 
 
@@ -1179,7 +1222,7 @@ def counters():
     from animals3d_tpu_torch.ops import fused_mlp as fm
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     from animals3d_tpu_torch.ops import resolve_cuda as rv
-    return {"cull_boxes": rc.cull, "unit_boxes": rc.unit_cull,
+    return {"cull_boxes": rc.cull, "unit_boxes": rc.cull_units,
             "raster_vis": rc.visibility,
             "raster_vis_v4": rc.visibility_v4,
             "raster_vis_v6": rc.visibility_v6,

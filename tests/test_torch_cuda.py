@@ -734,19 +734,83 @@ def test_visibility_v6_kernel_splits_and_rings(card, monkeypatch, make, nsub,
 
 @pytest.mark.parametrize("make,nsub", [(_random, 8), (_depth_stack, 2),
                                        (_sliver, 8), (_holes, 8)])
-def test_unit_kernel_equals_unit_boxes(card, make, nsub):
-    """The unit kernel's boxes equal `unit_boxes`' bit for bit; `prepare`
-    calls it for variant 6, one launch, after the cull kernel."""
-    cull, units = rc.cull.launches, rc.unit_cull.launches
+def test_cull_units_equals_unit_boxes(card, make, nsub):
+    """The fused launch's unit boxes equal `unit_boxes`' bit for bit, and
+    its face boxes `cull_boxes`'; `prepare` makes both for variant 6 with
+    one launch of `cull_units` and none of `cull`."""
+    cull, units = rc.cull.launches, rc.cull_units.launches
     prep, res = _prep(card, make, 3, nsub=nsub, variant=6)
-    assert (rc.cull.launches, rc.unit_cull.launches) == (cull + 1, units + 1)
+    assert (rc.cull.launches, rc.cull_units.launches) == (cull, units + 1)
     assert torch.equal(prep["fbox"], rc.cull_boxes(prep["table"], res))
     sub = prep["table"].shape[-1] // prep["nsub"]
     want = rc.unit_boxes(prep["fbox"], sub, res)
     assert torch.equal(prep["ubox"], want)
-    assert torch.equal(rc.unit_cull(prep["fbox"], sub, res), want)
+    fbox, ubox = rc.cull_units(prep["table"], res, sub)
+    assert torch.equal(fbox, prep["fbox"]) and torch.equal(ubox, want)
     if make is _holes:
         assert _empty_units(prep) > 0
+
+
+# (chunk, nsub): units of 128 faces (the full width's: a warp a unit, 4
+# slots a lane), of 512 (16 a lane), of 12 (not a divisor of the warp: 2
+# units a warp, 8 lanes idle), of 8 (4 a warp), and chunk 2 (nsub falls
+# back to 1: variant 3 only, the fused launch at units of the whole chunk,
+# 16 a warp)
+FUSED_SHAPES = [(1024, 8), (1024, 2), (96, 8), (128, 16), (2, 8)]
+
+
+@pytest.mark.parametrize("chunk,nsub", FUSED_SHAPES,
+                         ids=[f"{c}-{n}" for c, n in FUSED_SHAPES])
+@pytest.mark.parametrize("make", [_random, _depth_stack, _sphere,
+                                  _big_and_small, _sliver, _holes])
+def test_fused_cull_kernel_equals_plain_versions(card, make, chunk, nsub):
+    """Both instantiations of the cull kernel against both plain versions,
+    bit for bit: `cull` against `cull_boxes`, `cull_units` against
+    `cull_boxes` and `unit_boxes`; variant 6's prep with one launch of
+    `cull_units` and none of `cull`. The visibility kernel that reads the
+    boxes (K1, and K3 for variant 6) gives its plain version's outputs."""
+    prep, res = _prep(card, make, 3, chunk=chunk, nsub=nsub)
+    table = prep["table"]
+    sub = chunk // prep["nsub"]
+    fbox = rc.cull_boxes(table, res)
+    ubox = rc.unit_boxes(fbox, sub, res)
+    assert torch.equal(prep["fbox"], fbox)
+    assert torch.equal(rc.cull(table, res), fbox)
+    got = rc.cull_units(table, res, sub)
+    assert torch.equal(got[0], fbox) and torch.equal(got[1], ubox)
+    lists = (table, prep["orig"], prep["order"], prep["counts"],
+             prep["masks"], prep["zlo"])
+    if chunk >= 96:
+        k1 = rc.visibility(*lists, prep["fbox"], res, prep["nsub"])
+        want = rc.visibility_reference(*lists, res, prep["nsub"])
+        for a, b in zip(k1, want):
+            assert torch.equal(a, b)
+    if prep["nsub"] == 1:
+        return
+    cull, units = rc.cull.launches, rc.cull_units.launches
+    p6, res = _prep(card, make, 3, chunk=chunk, nsub=nsub, variant=6)
+    assert (rc.cull.launches, rc.cull_units.launches) == (cull, units + 1)
+    assert torch.equal(p6["fbox"], fbox) and torch.equal(p6["ubox"], ubox)
+    if chunk >= 96:
+        for a, b in zip(*_v6(p6, res)):
+            assert torch.equal(a, b)
+
+
+def test_cull_kernels_reject_bad_inputs(card):
+    """A table off the card or of the wrong type or layout, and units that
+    do not divide a chunk, raise before any launch."""
+    prep, res = _prep(card, _random, 4)
+    table = prep["table"]
+    launches = (rc.cull.launches, rc.cull_units.launches)
+    for bad in (table.double(), table[..., ::2]):
+        with pytest.raises(ValueError):
+            rc.cull(bad, res)
+        with pytest.raises(ValueError):
+            rc.cull_units(bad, res, 16)
+    for sub in (0, 3, 256):
+        with pytest.raises(ValueError):
+            rc.cull_units(table, res, sub)
+    assert (rc.cull.launches, rc.cull_units.launches) == launches
 
 
 def test_visibility_v6_kernel_rejects_bad_inputs(card, monkeypatch):

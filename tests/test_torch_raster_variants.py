@@ -413,6 +413,103 @@ def test_prepare_v6_returns_face_and_unit_boxes(make):
         assert (~some).any()
 
 
+# (chunk, nsub) for units of 2, 12, 64, 128 (the full width's) and 512
+# slots; every shape leaves units of invalid faces only (the scene's first
+# 256 faces and the padding sort last)
+CULL_UNIT_SHAPES = {2: (16, 8), 12: (96, 8), 64: (512, 8), 128: (1024, 8),
+                    512: (2048, 4)}
+
+
+@pytest.mark.parametrize("sub", sorted(CULL_UNIT_SHAPES))
+def test_cull_units_plain_version_equals_cull_and_unit_boxes(sub):
+    """`cull_units` on the CPU is `cull_boxes` and `unit_boxes` of those;
+    each unit box is the union of the unit's non-empty face boxes (folded
+    here one unit at a time), and a unit of invalid faces only has the
+    empty box (W, -1, H, -1); `prepare(variant=6)` returns the same
+    boxes."""
+    chunk, nsub = CULL_UNIT_SHAPES[sub]
+    prep, (H, W) = _prep6(_holes_scene()[:5] + (chunk,), nsub=nsub)
+    table = prep["table"]
+    assert table.shape[-1] // prep["nsub"] == sub
+    fbox, ubox = rc.cull_units(table, (H, W), sub)
+    assert torch.equal(fbox, rc.cull_boxes(table, (H, W)))
+    assert torch.equal(ubox, rc.unit_boxes(fbox, sub, (H, W)))
+    assert torch.equal(fbox, prep["fbox"]) and torch.equal(ubox, prep["ubox"])
+    B = table.shape[0]
+    fb = fbox.numpy().reshape(B, -1, sub, 4)
+    invalid = (table[:, :, :3] == 0).all(2) & (table[:, :, 4:7] == 0).all(2) \
+        & (table[:, :, 8:11] < 0).any(2)
+    invalid = invalid.reshape(B, -1, sub).all(-1)
+    for b in range(B):
+        for u in range(fb.shape[1]):
+            bx = fb[b, u]
+            some = bx[(bx[:, 0] <= bx[:, 1]) & (bx[:, 2] <= bx[:, 3])]
+            want = ([some[:, 0].min(), some[:, 1].max(), some[:, 2].min(),
+                     some[:, 3].max()] if len(some) else [W, -1, H, -1])
+            assert ubox[b, u].tolist() == [int(v) for v in want]
+    empty = torch.tensor([W, -1, H, -1], dtype=torch.int16)
+    assert invalid.any() and (ubox[invalid] == empty).all()
+
+
+def _hand_made(case):
+    """A table (1, 1, 12, 8) of hand-made faces for `case` in slots 0 and
+    1, invalid faces (0, 0, -1) in the rest: the screen is 32 by 64."""
+    s = 2.0 ** -40
+    faces = {
+        # two parallel edge normals: a corner's det is 0
+        "parallel": [[(1, 0, -2), (-1, 0, 10), (0, 1, -3)],
+                     [(0, 1, -2), (0, -1, 20), (1, 0, -5)]],
+        "invalid": [[(0, 0, -1)] * 3, [(1, 0, -4), (0, 0, -1), (0, 1, 0)]],
+        # corner 2 at x = 10.5 -+ 8s, within 1e-9 of a half-pixel
+        "half_pixel": [[(1, s, -10.5), (0, 1, -8), (-1, -1, 30)],
+                       [(1, -s, -10.5), (0, 1, -8), (-1, -1, 30)]],
+    }[case]
+    table = torch.zeros((1, 1, 12, 8), dtype=torch.float32)
+    table[0, 0, 8:11] = -1.0
+    for f, edges in enumerate(faces):
+        for k, (a, b, c) in enumerate(edges):
+            table[0, 0, k, f], table[0, 0, 4 + k, f] = a, b
+            table[0, 0, 8 + k, f] = c
+    return table, (32, 64)
+
+
+@pytest.mark.parametrize("case", ["parallel", "invalid", "half_pixel"])
+def test_cull_boxes_of_hand_made_faces(case):
+    """Faces at the edges of the cull arithmetic: two parallel edges (a
+    corner's det is 0: the whole screen), an invalid face (an edge (0, 0,
+    -1): empty, also beside valid edges), and a corner within 1e-9 of a
+    pixel centre's column. Every pixel centre the float32 edge tests accept
+    lies in the face's box; `cull_units` folds the boxes of units of 2
+    slots."""
+    table, (H, W) = _hand_made(case)
+    box = rc.cull_boxes(table, (H, W))[0].long()
+    ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    xs, ys = xs.reshape(-1), ys.reshape(-1)
+    X, Y = xs.float() + 0.5, ys.float() + 0.5
+    c = table[0, 0].T
+    hit = (rc.affine(c[:, 0, None], c[:, 4, None], c[:, 8, None], X, Y) >= 0) \
+        & (rc.affine(c[:, 1, None], c[:, 5, None], c[:, 9, None], X, Y) >= 0) \
+        & (rc.affine(c[:, 2, None], c[:, 6, None], c[:, 10, None], X, Y) >= 0)
+    inside = ((xs >= box[:, 0:1]) & (xs <= box[:, 1:2])
+              & (ys >= box[:, 2:3]) & (ys <= box[:, 3:4]))
+    assert not (hit & ~inside).any()
+    assert not hit[2:].any() and (box[2:, 0] > box[2:, 1]).all()
+    if case == "parallel":
+        assert box[:2].tolist() == [[0, W - 1, 0, H - 1]] * 2
+        assert hit[0].any() and hit[1].any()
+    elif case == "invalid":
+        assert not hit[:2].any() and (box[:2, 0] > box[:2, 1]).all()
+    else:
+        # the column of the corner's pixel centre is accepted and boxed
+        for f in range(2):
+            assert bool(hit[f].reshape(H, W)[8:, 10].any())
+            assert box[f, 0] == 10
+    fbox, ubox = rc.cull_units(table, (H, W), 2)
+    assert torch.equal(fbox[0].long(), box)
+    assert torch.equal(ubox, rc.unit_boxes(fbox, 2, (H, W)))
+    assert ubox[0, 1:].tolist() == [[W, -1, H, -1]] * 3
+
+
 def test_v6_rejects_bad_boxes():
     """`visibility_v6` checks the face and unit boxes on either device: a
     wrong type or shape raises."""
