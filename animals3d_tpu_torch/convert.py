@@ -1,0 +1,195 @@
+"""Reference `.pth` checkpoint → flax-layout parameter tree (the MagicPony
+parts of `animals3d_tpu.convert`).
+
+The reference saves `{netBase, netInstance, optimizer*, epoch,
+total_iter}` torch state dicts (`reference model/Trainer.py:108-123`,
+`AnimalModel.py:126-156`). This module maps those flat `a.b.c → tensor`
+dicts onto the flax parameter tree's layout, which
+`convert_jax.load_jax_params` carries onto the port's modules:
+
+  * Linear: torch (out, in) → Dense kernel (in, out)
+  * Conv2d: torch (out, in, kh, kw) → Conv kernel (kh, kw, in, out)
+  * GroupNorm/LayerNorm weight/bias → scale/bias
+  * `nn.Sequential` indices → named layers (MLP `network.{0,2,4,...}` →
+    `layer_{0..}`; Encoder32 `network.{0,1,3,4,6,7,9}` → conv_/norm_{0..2},
+    conv_out)
+
+The VGG and ResNet encoders, the mod-demod SDF, the motion VAE and the
+discriminator are not ported, and neither are their remaps.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def _t(x):
+    return np.asarray(x, np.float32)
+
+
+def linear(sd, prefix, bias=True):
+    out = {"kernel": _t(sd[f"{prefix}.weight"]).T}
+    if bias and f"{prefix}.bias" in sd:
+        out["bias"] = _t(sd[f"{prefix}.bias"])
+    return out
+
+
+def conv(sd, prefix, bias=False):
+    out = {"kernel": _t(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)}
+    if bias and f"{prefix}.bias" in sd:
+        out["bias"] = _t(sd[f"{prefix}.bias"])
+    return out
+
+
+def norm(sd, prefix):
+    return {"scale": _t(sd[f"{prefix}.weight"]),
+            "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def sub(sd: Dict, prefix: str) -> Dict:
+    p = prefix + "."
+    return {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+
+
+def convert_mlp(sd, num_layers):
+    """reference MLP (Sequential of bias-free Linears, `MLPs.py:9-31`)."""
+    out = {}
+    seq_idx = 0
+    for i in range(num_layers):
+        out[f"layer_{i}"] = linear(sd, f"network.{seq_idx}", bias=False)
+        seq_idx += 2 if i < num_layers - 1 else 1
+    return out
+
+
+def convert_coord_mlp(sd, num_layers):
+    """reference CoordMLP (`MLPs.py:34-101`)."""
+    return {"in_layer": linear(sd, "in_layer"),
+            "mlp": convert_mlp(sub(sd, "mlp"), num_layers)}
+
+
+def convert_encoder32(sd):
+    """reference Encoder32 Sequential (`encoders.py:68-89`)."""
+    return {"conv_0": conv(sd, "network.0"), "norm_0": norm(sd, "network.1"),
+            "conv_1": conv(sd, "network.3"), "norm_1": norm(sd, "network.4"),
+            "conv_2": conv(sd, "network.6"), "norm_2": norm(sd, "network.7"),
+            "conv_out": conv(sd, "network.9")}
+
+
+def convert_vit_block(sd):
+    """DINO ViT block → networks.vit.ViTBlock."""
+    return {
+        "norm1": norm(sd, "norm1"),
+        "norm2": norm(sd, "norm2"),
+        "attn": {"qkv": linear(sd, "attn.qkv"),
+                 "proj": linear(sd, "attn.proj")},
+        "fc1": linear(sd, "mlp.fc1"),
+        "fc2": linear(sd, "mlp.fc2"),
+    }
+
+
+def convert_dino_vit(sd, depth=12):
+    """facebookresearch/dino VisionTransformer state dict → DinoViT."""
+    out = {
+        "patch_embed": conv(sd, "patch_embed.proj", bias=True),
+        "cls_token": _t(sd["cls_token"]),
+        "pos_embed": _t(sd["pos_embed"]),
+        "norm": norm(sd, "norm"),
+    }
+    for i in range(depth):
+        out[f"block_{i}"] = convert_vit_block(sub(sd, f"blocks.{i}"))
+    return out
+
+
+def convert_vit_encoder(sd, depth=12):
+    """reference ViTEncoder (`encoders.py:148-261`)."""
+    out = {"ViT": convert_dino_vit(sub(sd, "ViT"), depth)}
+    if any(k.startswith("final_layer_patch_out") for k in sd):
+        out["final_layer_patch_out"] = convert_encoder32(
+            sub(sd, "final_layer_patch_out"))
+        out["final_layer_patch_key"] = convert_encoder32(
+            sub(sd, "final_layer_patch_key"))
+    return out
+
+
+def convert_articulation_net(sd, num_layers, architecture="attention"):
+    """reference ArticulationNetwork (`ArticulationNetwork.py:10-67`)."""
+    if architecture == "mlp":
+        return {"network": convert_mlp(sub(sd, "network"), num_layers)}
+    out = {"in_linear": linear(sd, "in_layer.0"),
+           "in_norm": norm(sd, "in_layer.2"),
+           "out_linear": linear(sd, "out_layer.0")}
+    for i in range(num_layers):
+        b = sub(sd, f"blocks.{i}")
+        out[f"block_{i}"] = {
+            "norm1": norm(b, "norm1"), "norm2": norm(b, "norm2"),
+            "qkv": linear(b, "attn.qkv", bias="attn.qkv.bias" in b),
+            "proj": linear(b, "attn.proj"),
+            "fc1": linear(b, "mlp.fc1"), "fc2": linear(b, "mlp.fc2"),
+        }
+    return out
+
+
+def convert_directional_light(sd, num_layers):
+    return {"mlp": convert_mlp(sub(sd, "mlp"), num_layers)}
+
+
+def convert_net_base(sd, model):
+    cfg = model.cfg_predictor_base
+    if any(k.startswith("netShape.mlp.style_mlp") for k in sd):
+        raise NotImplementedError(
+            "the mod-demod netSDF (Fauna) is not ported (ROADMAP A10)")
+    return {"netSDF": convert_coord_mlp(sub(sd, "netShape.mlp"),
+                                        cfg.cfg_shape.num_layers),
+            "netDINO": convert_coord_mlp(sub(sd, "netDINO"),
+                                         cfg.cfg_dino.num_layers)}
+
+
+def convert_net_instance(sd, model):
+    cfg = model.cfg_predictor_instance
+    out = {
+        "netEncoder": convert_vit_encoder(sub(sd, "netEncoder")),
+        "netTexture": convert_coord_mlp(sub(sd, "netTexture"),
+                                        cfg.cfg_texture.num_layers),
+        "netPose": convert_encoder32(sub(sd, "netPose")),
+    }
+    if any(k.startswith("netDeform") for k in sd):
+        out["netDeform"] = convert_coord_mlp(sub(sd, "netDeform"),
+                                             cfg.cfg_deform.num_layers)
+    if any(k.startswith("netArticulation") for k in sd):
+        out["netArticulation"] = convert_articulation_net(
+            sub(sd, "netArticulation"), cfg.cfg_articulation.num_layers,
+            cfg.cfg_articulation.architecture)
+    if any(k.startswith("netLight") for k in sd):
+        out["netLight"] = convert_directional_light(
+            sub(sd, "netLight"), cfg.cfg_light.num_layers)
+    return out
+
+
+def load_torch_state_dict(path):
+    import torch
+    cp = torch.load(path, map_location="cpu", weights_only=False)
+
+    def arr(v):
+        return v.detach().numpy() if hasattr(v, "detach") else np.asarray(v)
+
+    return {k: ({kk: arr(vv) for kk, vv in v.items()}
+                if hasattr(v, "items") and k.startswith(("net", "optimizer"))
+                else v)
+            for k, v in cp.items()}
+
+
+def convert_checkpoint(path_or_cp, model) -> dict:
+    """Reference checkpoint file (or loaded dict) → flax-layout tree of the
+    nets it holds. Nets absent from the file are absent from the tree
+    (the reference loads with strict=False, `AnimalModel.py:127-132`), and
+    keep their init under `load_jax_params(..., strict=False)`."""
+    cp = load_torch_state_dict(path_or_cp) if isinstance(path_or_cp, str) \
+        else path_or_cp
+    params = {}
+    if "netBase" in cp:
+        params["netBase"] = convert_net_base(cp["netBase"], model)
+    if "netInstance" in cp:
+        params["netInstance"] = convert_net_instance(cp["netInstance"],
+                                                     model)
+    return params

@@ -25,9 +25,13 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def load_jax_params(model: nn.Module, tree: dict) -> None:
+def load_jax_params(model: nn.Module, tree: dict, strict: bool = True) -> None:
+    """Set the model's parameters from `tree`. With `strict=False` (a warm
+    start from a partial checkpoint) parameters absent from the tree keep
+    their values, leaves without a parameter of their shape are skipped,
+    and both counts are printed."""
     params = dict(model.named_parameters())
-    done = set()
+    done, skipped = set(), []
     for path, leaf in _leaves(tree):
         leaf = np.asarray(leaf)
         *mod_path, name = path
@@ -45,18 +49,27 @@ def load_jax_params(model: nn.Module, tree: dict) -> None:
         else:
             target = ".".join(mod_path + [name])
         if target not in params:
+            if not strict:
+                skipped.append("/".join(path))
+                continue
             raise KeyError(f"{'/'.join(path)}: no parameter {target}")
         if target in done:
             raise KeyError(f"{target} set twice")
         p = params[target]
         if tuple(p.shape) != leaf.shape:
+            if not strict:
+                skipped.append("/".join(path))
+                continue
             raise ValueError(f"{target}: shape {tuple(p.shape)} vs "
                              f"{leaf.shape} from {'/'.join(path)}")
         with torch.no_grad():
             p.copy_(torch.from_numpy(np.array(leaf, copy=True)))
         done.add(target)
     missing = sorted(set(params) - done)
-    if missing:
+    if not strict:
+        print(f"warm start: {len(missing)} parameters kept at init, "
+              f"{len(skipped)} leaves of the tree skipped")
+    elif missing:
         raise KeyError(f"parameters not in the tree: {missing}")
 
 

@@ -1,5 +1,19 @@
-"""Synthetic training batches made with numpy from a seed."""
+"""Synthetic data: training batches made with numpy from a seed, and tiny
+image folders in the reference's on-disk format (port of
+`animals3d_tpu.data.synth`).
+
+`write_synth_dataset` writes `<stem>rgb.jpg` + `mask.png` + `box.txt` +
+`feat<D>.png` with procedurally generated blob silhouettes, so the data
+pipeline and the training loop run without the real downloads. The same
+seed gives the same files as the JAX package's writer.
+
+Usage: `python -m animals3d_tpu_torch.data.synth <out_dir> [--n 8]
+[--size 256] [--dino-dim 16] [--seed 0]`.
+"""
 from __future__ import annotations
+
+import argparse
+import os
 
 import numpy as np
 import torch
@@ -33,3 +47,58 @@ def fake_batch(model, B: int, seed: int = 0) -> dict:
         "frame_idx": torch.zeros((B, Fr), dtype=torch.int32,
                                  device=model.device),
     }
+
+
+def _write_sample(stem: str, size: int, dino_dim: int, rng):
+    from PIL import Image
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    cx, cy = rng.uniform(0.35, 0.65, 2)
+    rx, ry = rng.uniform(0.15, 0.3, 2)
+    mask = (((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2) < 1.0
+    color = rng.uniform(0.3, 0.9, 3)
+    img = np.ones((size, size, 3), np.float32) * 0.1
+    img[mask] = color + rng.normal(0, 0.05, (int(mask.sum()), 3))
+    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)) \
+        .save(stem + "rgb.jpg")
+    Image.fromarray((mask * 255).astype(np.uint8)).save(stem + "mask.png")
+    np.savetxt(stem + "box.txt",
+               np.array([[0, 100, 100, 512, 512, 1920, 1080, 10.0]]), fmt="%s")
+    # packed DINO features: tiles of 3 channels horizontally
+    n_tiles = -(-dino_dim // 3)
+    feat = rng.uniform(0, 255, (size // 4, n_tiles * (size // 4), 3)) \
+        .astype(np.uint8)
+    Image.fromarray(feat).save(stem + f"feat{dino_dim}.png")
+
+
+def _write_background(dir_path: str, rng):
+    """Shared full-frame background (crop boxes reach 100+512 px)."""
+    from PIL import Image
+    full = rng.uniform(0.05, 0.25, (640, 640, 3)).astype(np.float32)
+    full += np.linspace(0, 0.3, 640)[None, :, None]
+    Image.fromarray((np.clip(full, 0, 1) * 255).astype(np.uint8)) \
+        .save(os.path.join(dir_path, "background_frame.jpg"))
+
+
+def write_synth_dataset(out_dir: str, n: int = 8, size: int = 256,
+                        dino_dim: int = 16, seed: int = 0):
+    """An image folder of `n` samples at `size`² (sequence folders are not
+    ported)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(n):
+        _write_sample(os.path.join(out_dir, f"{i:06d}_"), size, dino_dim, rng)
+    _write_background(out_dir, rng)
+    return out_dir
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out_dir")
+    ap.add_argument("--n", type=int, default=8)
+    ap.add_argument("--size", type=int, default=256)
+    ap.add_argument("--dino-dim", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    write_synth_dataset(args.out_dir, args.n, args.size, args.dino_dim,
+                        seed=args.seed)
+    print(f"wrote synthetic dataset to {args.out_dir}")

@@ -1,12 +1,62 @@
-"""Optimizer and training step (port of `make_optimizer` and the body of
-`Trainer._train_step_for` of `animals3d_tpu.trainer`).
+"""Trainer: the training loop, checkpointing, the test path and metrics
+(port of `animals3d_tpu.trainer`).
 
-The train loop, checkpointing, loaders, logging and the CLI are not ported
-yet.
+Reference: `reference model/Trainer.py` (config `:15-50`, train loop
+`:232-311`, test `:129-146`). One `train_step` a batch: the eager forward,
+`loss.backward()` and a step of each predictor's Adam
+(`make_optimizer`). Checkpoints are `torch.save` files with the model's,
+the optimizers' and the schedulers' state (`checkpoint.py`); metrics go to
+stdout, `metrics.json` and tensorboardX scalars where it imports. One
+device: the data-parallel mesh of the JAX package (`mesh_shape`) is not
+ported, and neither are the visual logs, the turntable videos, the code
+archive and Fauna's discriminator step.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+import os
+import time
+from typing import Any, Optional
+
+import numpy as np
 import torch
+
+from animals3d_tpu_torch import checkpoint as ckpt
+from animals3d_tpu_torch import config as cfglib
+from animals3d_tpu_torch.data.loaders import (DataLoaderConfig,
+                                              get_data_loaders)
+from animals3d_tpu_torch.precision import set_mixed_precision
+from animals3d_tpu_torch.utils.meters import MetricsTrace, StandardMetrics
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    run_train: bool = False
+    run_test: bool = False
+    seed: int = 0
+    num_iters: int = 1
+    checkpoint_dir: str = "results"
+    checkpoint_name: Optional[str] = None
+    save_checkpoint_freq: int = 5000
+    keep_num_checkpoint: int = 2
+    resume: bool = True
+    archive_code: bool = False
+    test_result_dir: Optional[str] = None
+    checkpoint_path: Optional[str] = None   # warm-start file (ours or .pth)
+    load_optim: bool = True
+    use_logger: bool = True
+    logger_type: str = "tensorboard"
+    log_loss_freq: int = 50
+    log_image_freq: int = 500
+    save_train_result_freq: Optional[int] = None
+    mixed_precision: Optional[str] = "bf16"
+    # torch.autograd.set_detect_anomaly: the backward raises at the first
+    # op that makes a NaN instead of at the finite-loss check; slow
+    debug_nans: bool = False
+    remake_dataloader_iter: int = -1
+    remake_dataloader_num: int = -1
+    mesh_shape: Optional[Any] = None
 
 
 class Optimizer:
@@ -45,6 +95,32 @@ class Optimizer:
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=set_to_none)
 
+    def state_dict(self) -> dict:
+        return {"optimizer": {k: o.state_dict()
+                              for k, o in self.optimizers.items()},
+                "scheduler": {k: s.state_dict()
+                              for k, s in self.schedulers.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load each optimizer's and scheduler's saved state where it is
+        present and, for an optimizer, its parameter groups have the sizes
+        of this one's (strict=False); the rest keep their init, and both
+        lists are printed."""
+        missing, unexpected = [], []
+        for section, objs in (("optimizer", self.optimizers),
+                              ("scheduler", self.schedulers)):
+            saved = state.get(section) or {}
+            unexpected += [f"{section}/{k}" for k in saved if k not in objs]
+            for name, obj in objs.items():
+                sd = saved.get(name)
+                if sd is None or (section == "optimizer" and [
+                        len(g["params"]) for g in sd["param_groups"]] != [
+                        len(g["params"]) for g in obj.param_groups]):
+                    missing.append(f"{section}/{name}")
+                    continue
+                obj.load_state_dict(sd)
+        ckpt._report("optimizer state", missing, unexpected)
+
 
 def make_optimizer(model) -> Optimizer:
     return Optimizer(model)
@@ -61,3 +137,226 @@ def train_step(model, optimizer: Optimizer, batch, total_iter, gen=None,
     optimizer.zero_grad(set_to_none=True)
     return {k: v.detach() if torch.is_tensor(v) else v
             for k, v in metrics.items()}
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A loader's numpy batch as tensors on `device` (None stays None)."""
+    return {k: None if v is None else torch.as_tensor(np.asarray(v)).to(
+        device, non_blocking=True) for k, v in batch.items()}
+
+
+def _not_ported(what):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A8c)")
+
+
+class Trainer:
+    def __init__(self, cfg: dict, model):
+        self.cfg_full = cfg
+        self.cfg = cfglib.bind(TrainerConfig, cfg)
+        self.model = model
+        set_mixed_precision(self.cfg.mixed_precision)
+        if self.cfg.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+        mesh = self.cfg.mesh_shape
+        if mesh is not None and math.prod(
+                int(v) for v in dict(mesh).values()) != 1:
+            raise NotImplementedError(
+                f"mesh_shape {mesh}: one device only; data parallelism is "
+                "not ported (ROADMAP A13)")
+        ds_cfg = dict(cfg.get("dataset") or {})
+        ds_cfg.pop("path", None)
+        self.cfg_dataset = cfglib.bind(DataLoaderConfig, ds_cfg)
+        self.metrics_trace = MetricsTrace()
+        self._writer = None
+        self.optimizer = None
+        self.start_iter = None
+
+    # ------------------------------------------------------------------
+    def _logger(self):
+        """tensorboardX scalars under `<checkpoint_dir>/logs`, or None where
+        logging is off or tensorboardX does not import."""
+        if not self.cfg.use_logger or self._writer is not None:
+            return self._writer
+        if self.cfg.logger_type == "wandb":
+            raise _not_ported("the wandb logger")
+        logdir = os.path.join(self.cfg.checkpoint_dir, "logs")
+        os.makedirs(logdir, exist_ok=True)
+        try:
+            from tensorboardX import SummaryWriter
+            self._writer = SummaryWriter(logdir, flush_secs=10)
+        except ImportError:
+            self._writer = None
+        return self._writer
+
+    def _eval_aux(self, batch, it, gen):
+        """The eval-mode forward's aux at iteration `it` (no gradients)."""
+        phase = self.model.phase_for_iter(it, is_training=False)
+        with torch.no_grad():
+            _, (_metrics, aux) = self.model.forward(batch, it, gen, phase)
+        return aux
+
+    def restore(self):
+        """Initialize from `seed`, then resume from the latest checkpoint
+        of `checkpoint_dir` (optimizer and scheduler state included) or,
+        at iteration 0, warm-start from `checkpoint_path`. Returns (the
+        `Optimizer`, the iteration to start at)."""
+        cfg = self.cfg
+        self.model.init_params(cfg.seed)
+        optimizer = make_optimizer(self.model)
+        total_iter = 0
+        if cfg.resume:
+            total_iter = ckpt.load_checkpoint(cfg.checkpoint_dir, self.model,
+                                              optimizer)
+        if total_iter == 0 and cfg.checkpoint_path:
+            # warm start (`config/train_ponymation_horse_stage1.yaml:48`:
+            # stage configs start from a MagicPony / stage-1 checkpoint)
+            self._warm_start(cfg.checkpoint_path,
+                             optimizer if cfg.load_optim else None)
+        return optimizer, total_iter
+
+    def _warm_start(self, path, optimizer=None):
+        """Tolerant warm start (strict=False, `AnimalModel.py:127-132`) from
+        the port's own checkpoint file, with its optimizer and scheduler
+        state where `optimizer` is given, or from a reference `.pth`
+        (`convert.convert_checkpoint`; its weights only)."""
+        from animals3d_tpu_torch.convert_jax import load_jax_params
+        state = ckpt.read_checkpoint(path)
+        if "model" in state:
+            ckpt.load_model_state(self.model, state["model"],
+                                  what="warm start")
+            if optimizer is not None:
+                optimizer.load_state_dict(state)
+            return
+        from animals3d_tpu_torch import convert
+        load_jax_params(self.model, convert.convert_checkpoint(path,
+                                                               self.model),
+                        strict=False)
+
+    # ------------------------------------------------------------------
+    def train(self):
+        cfg = self.cfg
+        model = self.model
+        optimizer, total_iter = self.restore()
+        self.optimizer, self.start_iter = optimizer, total_iter
+
+        train_loader, _, _ = get_data_loaders(self.cfg_dataset)
+        if train_loader is None:
+            raise ValueError("dataset.train_data_dir is not configured")
+        writer = self._logger()
+        if cfg.archive_code:
+            raise _not_ported("archive_code")
+        metrics = StandardMetrics()
+        epoch_len = max(len(train_loader), 1)
+        gen = torch.Generator(device=model.device).manual_seed(cfg.seed)
+
+        print(f"training {model.name}: {cfg.num_iters} iters from "
+              f"{total_iter}, batch {self.cfg_dataset.batch_size}, "
+              f"device {model.device}")
+        t_start = time.time()
+        train_iter = iter(train_loader)
+        while total_iter < cfg.num_iters:
+            if cfg.remake_dataloader_iter > 0 and \
+                    total_iter == cfg.remake_dataloader_iter:
+                # Fauna curriculum re-split (`Trainer.py:237-242`)
+                self.cfg_dataset = dataclasses.replace(
+                    self.cfg_dataset,
+                    dataset_split_num=cfg.remake_dataloader_num)
+                train_loader, _, _ = get_data_loaders(self.cfg_dataset)
+                train_iter = iter(train_loader)
+            try:
+                batch = next(train_iter)
+            except StopIteration:
+                train_iter = iter(train_loader)
+                batch = next(train_iter)
+
+            phase = model.phase_for_iter(total_iter)
+            device_batch = batch_to_device(batch, model.device)
+            step_metrics = train_step(model, optimizer, device_batch,
+                                      total_iter, gen, phase)
+            total_iter += 1
+
+            if total_iter % cfg.log_loss_freq == 0 or total_iter == 1:
+                host_metrics = {k: float(v) for k, v in step_metrics.items()
+                                if torch.is_tensor(v) and v.ndim == 0}
+                if not math.isfinite(host_metrics.get("loss", 0.0)):
+                    # the reference drops into pdb on a NaN loss
+                    # (`AnimalModel.py:504-506`); fail fast with context
+                    raise FloatingPointError(
+                        f"non-finite loss at iter {total_iter}: "
+                        f"{host_metrics}")
+                bsz = batch["images"].shape[0]
+                metrics.update(host_metrics, bsz)
+                epoch = total_iter // epoch_len
+                print(f"T{total_iter:07d}/{epoch:04d}/{metrics}")
+                if writer is not None:
+                    for k, v in host_metrics.items():
+                        writer.add_scalar(f"train_loss/{k}", v, total_iter)
+                    writer.add_scalar("train/speed", metrics.speed.get(),
+                                      total_iter)
+                self.metrics_trace.push(epoch, "train", host_metrics)
+
+            if cfg.save_train_result_freq and \
+                    total_iter % cfg.save_train_result_freq == 0:
+                # eval-mode forward on the current batch, artifacts to
+                # train_results/ (`Trainer.py:281-284`)
+                from animals3d_tpu_torch.utils import results_io
+                aux = self._eval_aux(device_batch, total_iter - 1, gen)
+                train_result_dir = os.path.join(cfg.checkpoint_dir,
+                                                "train_results")
+                os.makedirs(train_result_dir, exist_ok=True)
+                results_io.save_results(model, batch, aux, train_result_dir,
+                                        start_index=total_iter)
+
+            if writer is not None and cfg.log_image_freq and \
+                    total_iter % cfg.log_image_freq == 0 and \
+                    model.cfg_model.enable_render:
+                raise _not_ported("visual logging (log_image_freq)")
+
+            if total_iter % cfg.save_checkpoint_freq == 0:
+                ckpt.save_checkpoint(
+                    cfg.checkpoint_dir, total_iter,
+                    {"model": model.state_dict(), **optimizer.state_dict()},
+                    keep_num=cfg.keep_num_checkpoint)
+                self.metrics_trace.save(
+                    os.path.join(cfg.checkpoint_dir, "metrics.json"))
+
+        ckpt.save_checkpoint(cfg.checkpoint_dir, total_iter,
+                             {"model": model.state_dict(),
+                              **optimizer.state_dict()},
+                             keep_num=cfg.keep_num_checkpoint)
+        self.metrics_trace.save(os.path.join(cfg.checkpoint_dir,
+                                             "metrics.json"))
+        wall = time.time() - t_start
+        print(f"done: {total_iter} iters in {wall:.1f}s "
+              f"({metrics.speed.get():.2f} imgs/s)")
+        return model
+
+    # ------------------------------------------------------------------
+    def test(self):
+        """Load the named (or latest) checkpoint, run the eval forward at
+        iteration max(total_iter, 1) - 1 over the test loader and write
+        `results_io.save_results` files. Returns the result directory."""
+        from animals3d_tpu_torch.utils import results_io
+        cfg = self.cfg
+        model = self.model
+        model.init_params(cfg.seed)
+        total_iter = ckpt.load_checkpoint(cfg.checkpoint_dir, model,
+                                          checkpoint_name=cfg.checkpoint_name)
+        _, _, test_loader = get_data_loaders(self.cfg_dataset)
+        if test_loader is None:
+            raise ValueError("dataset.test_data_dir is not configured")
+        result_dir = cfg.test_result_dir or os.path.join(
+            cfg.checkpoint_dir, f"test_results_{total_iter:07d}")
+        os.makedirs(result_dir, exist_ok=True)
+        it = max(total_iter, 1) - 1
+        count = 0
+        for batch in test_loader:
+            gen = torch.Generator(device=model.device).manual_seed(
+                cfg.seed + count)
+            aux = self._eval_aux(batch_to_device(batch, model.device), it,
+                                 gen)
+            results_io.save_results(model, batch, aux, result_dir,
+                                    start_index=count)
+            count += batch["images"].shape[0]
+        print(f"saved {count} test results to {result_dir}")
+        return result_dir

@@ -69,7 +69,17 @@ Phases, in this order, each fatal on failure:
      cull kernel, K2; every render's z and face_id equal to K1's on the
      same posed meshes) and with `raster_variant=6, resolve_rows="kernel"`
      (1 + 3: the cull kernel with the unit boxes, K3, K5; the images equal
-     to the default path's within 1e-6).
+     to the default path's within 1e-6);
+  5. the port's CLI (`animals3d_tpu_torch.run.main`) at the same widths on
+     synthetic folders of 20 train and 10 test images (`cli_phase`):
+     `cli_train` — 3 iterations from 0 (a checkpoint every 2, the eval
+     forward's files at 3) and a resume to 4 from the saved Adam state,
+     checked bit for bit; `cli_train_fine` — 2 steps from a checkpoint of
+     the init weights at iteration 100,000 (grid 256, deformation,
+     attached legs), with each step's time and the peak memory;
+     `cli_test_fine` — the test config at grid 256 writing mesh, image
+     and pose files; then K1 and the cull kernel against their plain
+     versions on the fine step's own posed meshes, bit for bit.
 
 Prints a `kernels` JSON line (all nine kernel entries, each with its
 status: ported, redesigned or fused, and in which PR; `unit_boxes` is the
@@ -77,7 +87,7 @@ cull kernel's instantiation that also writes the unit boxes; `launches`
 is the count on the path that drives the kernel — `recon_v4` for K2,
 `train_v6_kernel_rows` for the unit boxes, K3 and K5, the default
 training path for the others — and `launches_by_path` the counts on
-every path), the card's name
+every path, the CLI's included), the card's name
 and power limit, and as the last line `{"ok": true, "device": {...}}`.
 Exits non-zero without a CUDA card.
 """
@@ -1214,6 +1224,14 @@ PATHS = {
     "recon_v4": (dict(raster_variant=4), ("cull_boxes", "raster_vis_v4")),
     "recon_v6_kernel_rows": (dict(raster_variant=6, resolve_rows="kernel"),
                              ("unit_boxes", "raster_vis_v6", "resolve_fwd")),
+    # the port's CLI (`animals3d_tpu_torch.run`): the coarse loop from
+    # iteration 0 and its resume, two steps at the fine grid, and the test
+    # config's eval forward at the fine grid
+    "cli_train": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                       "fused_mlp_bwd", "resolve_bwd")),
+    "cli_train_fine": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                            "fused_mlp_bwd", "resolve_bwd")),
+    "cli_test_fine": ({}, ("cull_boxes", "raster_vis")),
 }
 
 
@@ -1237,14 +1255,16 @@ def reset_counts():
 
 
 def check_counts(path, runs):
-    """Every kernel of `path` launched `runs` times since `reset_counts`,
-    every other kernel not at all; returns the counts."""
+    """Every kernel of `path` launched `runs` times (a number, or one by
+    kernel name) since `reset_counts`, every other kernel not at all;
+    returns the counts."""
     launches = {name: k.launches for name, k in counters().items()}
     want = PATHS[path][1]
     for name, n in launches.items():
-        if n != (runs if name in want else 0):
+        runs_k = runs.get(name, 0) if isinstance(runs, dict) else runs
+        if n != (runs_k if name in want else 0):
             raise AssertionError(f"{path}: {name} launched {n} times in "
-                                 f"{runs} runs")
+                                 f"{runs_k} runs")
     return launches
 
 
@@ -1670,6 +1690,273 @@ def check_slice(shaded, out, B, H):
     return alpha
 
 
+# ---------------------------------------------------------------------------
+# the port's CLI at full width: train, resume, the fine grid, the test path
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_IMAGES, CLI_TEST_IMAGES, CLI_SIZE, CLI_DINO = 20, 10, 256, 16
+FINE_IT = 100000
+
+
+def cli_data(root):
+    """(train dir, test dir): synthetic folders of `write_synth_dataset`,
+    which the CLI's loaders decode with PIL."""
+    import os
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    train, test = os.path.join(root, "train"), os.path.join(root, "test")
+    write_synth_dataset(train, n=CLI_TRAIN_IMAGES, size=CLI_SIZE,
+                        dino_dim=CLI_DINO, seed=0)
+    write_synth_dataset(test, n=CLI_TEST_IMAGES, size=CLI_SIZE,
+                        dino_dim=CLI_DINO, seed=1)
+    print(f"cli: synthetic folders of {CLI_TRAIN_IMAGES} train and "
+          f"{CLI_TEST_IMAGES} test images at {CLI_SIZE}², dino_dim "
+          f"{CLI_DINO}, decoded by PIL")
+    return train, test
+
+
+def timed_steps(times):
+    """A context in which `trainer.train_step` (the loop's step) records
+    its wall time (ms, synchronized) into `times`."""
+    import contextlib
+    import torch
+    from animals3d_tpu_torch import trainer as trainer_mod
+
+    @contextlib.contextmanager
+    def ctx():
+        real = trainer_mod.train_step
+
+        def step(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        trainer_mod.train_step = step
+        try:
+            yield
+        finally:
+            trainer_mod.train_step = real
+    return ctx()
+
+
+def first_render_scene(record):
+    """A context in which the first `rasterize_cuda` call of the render
+    keeps a copy of its inputs in `record` (a visibility scene)."""
+    import contextlib
+    import animals3d_tpu_torch.render.render as rr
+
+    @contextlib.contextmanager
+    def ctx():
+        real = rr.rasterize_cuda
+
+        def recording(v_clip, faces, f_valid, res, **kw):
+            if not record:
+                record.append((v_clip.detach().clone(),
+                               kw["v_pos0"].detach().clone(), faces.clone(),
+                               f_valid.clone(), tuple(res), 1024))
+            return real(v_clip, faces, f_valid, res, **kw)
+        rr.rasterize_cuda = recording
+        try:
+            yield
+        finally:
+            rr.rasterize_cuda = real
+    return ctx()
+
+
+def k1_scene_check(name, scene):
+    """The cull kernel's boxes and K1's z, face_id and flags against their
+    plain versions, bit for bit, on one scene; returns the plain version's
+    ms."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    v_clip, v_pos0, faces, f_valid, res, chunk = scene
+    prep = rc.prepare(v_clip, v_pos0, faces, f_valid, res, chunk)
+    same_outputs(f"cull kernel {name}", (prep["fbox"],),
+                 (rc.cull_boxes(prep["table"], res),), ("boxes",))
+    out = rc.visibility(prep["table"], prep["orig"], prep["order"],
+                        prep["counts"], prep["masks"], prep["zlo"],
+                        prep["fbox"], res, prep["nsub"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rc.visibility_reference(prep["table"], prep["orig"], prep["order"],
+                                  prep["counts"], prep["masks"], prep["zlo"],
+                                  res, prep["nsub"])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same_outputs(f"K1 {name}", out, ref)
+    covered = int((out[1] > 0).sum())
+    if covered == 0:
+        raise AssertionError(f"{name}: the mesh covers no pixel")
+    print(f"visibility[{name}]: B={out[1].shape[0]} res={res} faces="
+          f"{faces.shape[0]} covered_px={covered}: K1's z, face_id and flags "
+          f"identical to the plain version ({plain_s:.2f} s); cull boxes "
+          "identical to `cull_boxes`")
+
+
+def cli_phase(card):
+    """The port's entry point at the full width of `train_magicpony_horse`
+    (batch 10, 256², dino_vits8 with random weights, bf16, DINO features
+    of 16): the coarse loop from iteration 0 (3 iterations, a checkpoint
+    every 2, eval artifacts at 3), a resume to 4 (from iteration 3, with
+    the saved Adam state bit for bit), two steps from a checkpoint of the
+    init weights at iteration 100,000 (the fine grid 256, deformation,
+    attached legs, articulation), and the test config's eval forward over
+    the test images at that grid. Each run's launches are counted from 0;
+    returns ({path: launches}, {path: (ms, peak bytes)})."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import checkpoint as ckpt
+    from animals3d_tpu_torch import run
+    from animals3d_tpu_torch.data import util as dutil
+    from animals3d_tpu_torch.trainer import make_optimizer
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    by_path, summary = {}, {}
+    try:
+        train_dir, test_dir = cli_data(root)
+        print(f"cli: distance transforms by the {dutil.distance_transform_backend()} "
+              "path")
+        coarse = os.path.join(root, "coarse")
+        common = ["--config-name", "train_magicpony_horse",
+                  f"dataset.train_data_dir={train_dir}",
+                  "dataset.val_data_dir=null", "log_loss_freq=1",
+                  "use_logger=false", "save_checkpoint_freq=2"]
+
+        # the coarse loop from iteration 0, and its resume
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        t0 = time.perf_counter()
+        with timed_steps(times):
+            run.main(common + [f"checkpoint_dir={coarse}", "num_iters=3",
+                               "save_train_result_freq=3"])
+        with open(os.path.join(coarse, "metrics.json")) as f:
+            losses = [m["loss"] for m in _json.load(f)["train"]]
+        if len(losses) != 3 or not all(np.isfinite(losses)):
+            raise AssertionError(f"cli_train: losses {losses}")
+        results = os.listdir(os.path.join(coarse, "train_results"))
+        if not any(f.endswith("_mesh.obj") for f in results):
+            raise AssertionError(f"cli_train: train_results {results}")
+        saved = ckpt.read_checkpoint(os.path.join(coarse,
+                                                  "checkpoint0000003.pth"))
+        resume = common + [f"checkpoint_dir={coarse}", "num_iters=4"]
+        _cfg, m, tr = run.build(resume)
+        opt, start = tr.restore()
+        n_equal = 0
+        for name, o in opt.optimizers.items():
+            want = saved["optimizer"][name]["state"]
+            got = o.state_dict()["state"]
+            if set(got) != set(want):
+                raise AssertionError(f"cli_train: Adam {name} state keys")
+            for i, st in want.items():
+                for k, v in st.items():
+                    if not torch.equal(got[i][k].cpu(), v):
+                        raise AssertionError(f"cli_train: Adam {name} "
+                                             f"state {i}/{k} differs")
+                    n_equal += 1
+        if start != 3:
+            raise AssertionError(f"cli_train: the resume starts at {start}")
+        del m, tr, opt, saved
+        with timed_steps(times):
+            trainer = run.main(resume)
+        if trainer.start_iter != 3 or not os.path.isfile(
+                os.path.join(coarse, "checkpoint0000004.pth")):
+            raise AssertionError("cli_train: the resume did not run 3 -> 4")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        # 4 steps, and one eval forward (train_results) that renders too
+        by_path["cli_train"] = check_counts(
+            "cli_train", {"cull_boxes": 5, "raster_vis": 5,
+                          "fused_mlp_fwd": 4, "fused_mlp_bwd": 4,
+                          "resolve_bwd": 4})
+        peak = torch.cuda.max_memory_allocated()
+        summary["cli_train"] = (statistics.median(times), peak)
+        print(f"cli_train: 3 iterations from 0 and a resume 3 -> 4 "
+              f"(restored Adam state equal to the saved one in all "
+              f"{n_equal} tensors); losses {[round(x, 4) for x in losses]}; "
+              f"step ms {[round(x, 1) for x in times]}; {wall / 1e3:.1f} s "
+              f"for both runs; peak memory {peak / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in by_path['cli_train'].items() if v} }; "
+              f"card {card}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # two steps at the fine grid from the init weights at 100,000
+        fine = os.path.join(root, "fine")
+        _cfg, model, trainer = run.build(
+            common + [f"checkpoint_dir={fine}", f"num_iters={FINE_IT + 2}",
+                      "save_checkpoint_freq=5000"])
+        model.init_params(SEED)
+        ckpt.save_checkpoint(fine, FINE_IT, {
+            "model": model.state_dict(),
+            **make_optimizer(model).state_dict()})
+        phase = model.phase_for_iter(FINE_IT)
+        grid, v_cap, f_cap = model.grid_for_phase(phase)
+        print(f"cli_train_fine: iter {FINE_IT} phase {phase} grid {grid.res} "
+              f"v_cap {v_cap} f_cap {f_cap}")
+        scene, times = [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_steps(times), first_render_scene(scene):
+            trainer.train()
+        peak = torch.cuda.max_memory_allocated()
+        by_path["cli_train_fine"] = check_counts("cli_train_fine", 2)
+        if trainer.start_iter != FINE_IT:
+            raise AssertionError(f"cli_train_fine: starts at "
+                                 f"{trainer.start_iter}")
+        fine_losses = [m["loss"] for m in trainer.metrics_trace.data["train"]]
+        if not all(np.isfinite(fine_losses)):
+            raise AssertionError(f"cli_train_fine: losses {fine_losses}")
+        summary["cli_train_fine"] = (statistics.median(times), peak)
+        print(f"cli_train_fine: steps at grid {grid.res}: "
+              f"{[round(x, 1) for x in times]} ms; losses "
+              f"{[round(x, 4) for x in fine_losses]}; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in by_path['cli_train_fine'].items() if v} }"
+              f"; card {card}")
+        del model, trainer
+        torch.cuda.empty_cache()
+
+        # the test config at the fine grid
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tester = run.main(["--config-name", "test_magicpony_horse",
+                           f"checkpoint_dir={fine}",
+                           f"checkpoint_name=checkpoint{FINE_IT + 2:07d}.pth",
+                           f"dataset.test_data_dir={test_dir}"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        by_path["cli_test_fine"] = check_counts("cli_test_fine", 1)
+        out_dir = os.path.join(fine, f"test_results_{FINE_IT + 2:07d}")
+        files = os.listdir(out_dir)
+        for suffix in ("_mesh.obj", "_image_pred.png", "_pose.txt"):
+            n = sum(f.endswith(suffix) for f in files)
+            if n != CLI_TEST_IMAGES:
+                raise AssertionError(f"cli_test_fine: {n} {suffix} files")
+        summary["cli_test_fine"] = (ms, peak)
+        grid = tester.model.grid_for_phase(tester.model.phase_for_iter(
+            FINE_IT + 1, is_training=False))[0]
+        print(f"cli_test_fine: test_magicpony_horse at grid {grid.res} over "
+              f"{CLI_TEST_IMAGES} images: {ms / 1e3:.2f} s (model build, "
+              f"checkpoint load, eval forward, files), peak memory "
+              f"{peak / 2**30:.2f} GiB; {len(files)} files; launches "
+              f"{ {k: v for k, v in by_path['cli_test_fine'].items() if v} }"
+              f"; card {card}")
+        del tester
+        torch.cuda.empty_cache()
+        # K1 on the fine step's own posed meshes (after the counted runs)
+        k1_scene_check("train_fine", scene[0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1738,6 +2025,9 @@ def main() -> int:
           f"{IMAGE_TOL:g})")
     if not gap <= IMAGE_TOL:
         raise AssertionError(f"recon_v6_kernel_rows: images differ by {gap}")
+    cli_by_path, cli_summary = cli_phase(card)
+    by_path.update(cli_by_path)
+    summary.update(cli_summary)
     print("paths (ms, peak GiB): " + ", ".join(
         f"{k} {ms:.2f} ms {peak / 2**30:.2f} GiB"
         for k, (ms, peak) in summary.items()) + f"; card {card}")

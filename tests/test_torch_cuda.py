@@ -901,3 +901,110 @@ def test_resolve_fwd_kernel_block_rows_and_alignment(card, offset):
         x = pf
         assert x.data_ptr() % 8 == 0
     assert torch.equal(rv.resolve_fwd(x, fid, (H, W)), want)
+
+
+# ---------------------------------------------------------------------------
+# the training loop, the test path and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+CARD_CLI_OVERRIDES = [
+    "dataset.in_image_size=64", "dataset.out_image_size=64",
+    "dataset.batch_size=2", "dataset.num_workers=2", "dataset.dino_feature_dim=4",
+    "model.cfg_predictor_base.cfg_shape.grid_res=16",
+    "model.cfg_predictor_base.cfg_shape.grid_res_coarse=16",
+    "model.cfg_predictor_base.cfg_shape.num_layers=2",
+    "model.cfg_predictor_base.cfg_shape.hidden_size=256",
+    "model.cfg_predictor_base.cfg_dino.feature_dim=4",
+    "model.cfg_predictor_instance.cfg_encoder.cout=32",
+    "model.cfg_predictor_instance.cfg_texture.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_articulation.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_light.hidden_size=32",
+    "use_logger=false", "log_loss_freq=1", "mixed_precision=false"]
+
+
+def _synth_folders(root):
+    pytest.importorskip("PIL")
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    write_synth_dataset(str(root / "train"), n=4, size=64, dino_dim=4)
+    write_synth_dataset(str(root / "test"), n=3, size=64, dino_dim=4, seed=1)
+    return str(root / "train"), str(root / "test")
+
+
+def test_train_and_test_paths_on_card(card, tmp_path):
+    """`run.main` on the card (its default device) at a small width: two
+    training iterations write checkpoint 2 with finite losses, the test
+    config loads it by name and writes mesh, image and pose files for
+    every test image; the kernels of each path launch."""
+    import json
+    import os
+    from animals3d_tpu_torch import run
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    train, test = _synth_folders(tmp_path)
+    ckpt_dir = str(tmp_path / "ckpt")
+    kernels = (rc.cull, rc.visibility, fm.fused_mlp_fwd, fm.fused_mlp_bwd,
+               rv.resolve_bwd)
+    counts = [k.launches for k in kernels]
+    try:
+        trainer = run.main(["--config-name", "train_magicpony_horse",
+                            *CARD_CLI_OVERRIDES,
+                            f"dataset.train_data_dir={train}",
+                            "dataset.val_data_dir=null",
+                            f"checkpoint_dir={ckpt_dir}", "num_iters=2"])
+        assert trainer.model.device.type == "cuda"
+        assert [k.launches - c for k, c in zip(kernels, counts)] == [2] * 5
+        with open(os.path.join(ckpt_dir, "metrics.json")) as f:
+            losses = [m["loss"] for m in json.load(f)["train"]]
+        assert len(losses) == 2 and np.isfinite(losses).all()
+        counts = [k.launches for k in kernels]
+        run.main(["--config-name", "test_magicpony_horse",
+                  *CARD_CLI_OVERRIDES, f"dataset.test_data_dir={test}",
+                  f"checkpoint_dir={ckpt_dir}",
+                  "checkpoint_name=checkpoint0000002.pth"])
+        # two test batches (2 + 1 images), one render each
+        assert [k.launches - c for k, c in zip(kernels, counts)] == \
+            [2, 2, 0, 0, 0]
+    finally:
+        set_mixed_precision(None)
+    files = os.listdir(os.path.join(ckpt_dir, "test_results_0000002"))
+    for suffix in ("_mesh.obj", "_image_pred.png", "_pose.txt"):
+        assert sum(f.endswith(suffix) for f in files) == 3, suffix
+
+
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """A checkpoint of a model and its optimizers after a step on the card
+    reloads onto the card: every parameter, Adam moment and step count
+    equal bit for bit, on the parameters' device."""
+    from animals3d_tpu_torch import checkpoint as ckpt
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch.data.synth import fake_batch
+    from animals3d_tpu_torch.models import build_model
+    from animals3d_tpu_torch.trainer import make_optimizer, train_step
+    cfg = cfglib.load_config("train_magicpony_horse",
+                             overrides=CARD_CLI_OVERRIDES)
+    mcfg = dict(cfg["model"], dataset=cfg["dataset"])
+    model = build_model(mcfg, device="cuda")
+    model.init_params(0)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    train_step(model, opt, fake_batch(model, 2), 50000, gen)
+    ckpt.save_checkpoint(str(tmp_path), 7,
+                         {"model": model.state_dict(), **opt.state_dict()})
+    other = build_model(mcfg, device="cuda")
+    other.init_params(1)
+    opt2 = make_optimizer(other)
+    assert ckpt.load_checkpoint(str(tmp_path), other, opt2,
+                                map_location="cuda") == 7
+    for k, v in model.state_dict().items():
+        w = other.state_dict()[k]
+        assert w.device.type == "cuda" and torch.equal(w, v), k
+    for name, o in opt.optimizers.items():
+        want, got = o.state_dict()["state"], opt2.optimizers[name] \
+            .state_dict()["state"]
+        assert set(got) == set(want)
+        for i, st in want.items():
+            for k, v in st.items():
+                assert torch.equal(got[i][k].to(v.device), v), (name, i, k)
+                if k != "step":
+                    assert got[i][k].device.type == "cuda"

@@ -139,8 +139,9 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     """No file of the port, nor chip_smoke.py, the profile script or the
-    card-only tests, imports jax, flax, optax or the JAX package. The
-    training slice's modules are among the files scanned."""
+    card-only tests, imports jax, flax, optax, orbax or the JAX package.
+    The training slice's modules, the loop's, the loaders', the
+    checkpoints' and the CLI's are among the files scanned."""
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_recon_profile.py"),
              os.path.join(REPO, "tests", "test_torch_cuda.py")]
@@ -150,9 +151,11 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     scanned = {os.path.relpath(f, REPO) for f in files}
     for new in ("ops/fused_mlp.py", "ops/resolve_cuda.py", "trainer.py",
-                "noise.py", "data/synth.py", "models/animal.py"):
+                "noise.py", "data/synth.py", "models/animal.py", "run.py",
+                "checkpoint.py", "data/loaders.py", "native.py",
+                "utils/results_io.py"):
         assert os.path.join("animals3d_tpu_torch", new) in scanned, new
-    banned = ("jax", "flax", "optax", "animals3d_tpu")
+    banned = ("jax", "flax", "optax", "orbax", "animals3d_tpu")
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -79,15 +79,18 @@ NOISY_TOL = 5e-3
 
 def forward_agrees(jaux, taux, arti_atol=1e-4, pixel_atol=1e-3):
     """The discrete decisions of one forward that its outputs show agree:
-    feet (articulation within `arti_atol`; another foot moves it by ~0.1)
-    and winning faces (rendered mask, image and features within
-    `pixel_atol` on every pixel; a flipped face moves them by ~0.1)."""
+    feet (articulation, where the phase has it, within `arti_atol`;
+    another foot moves it by ~0.1) and winning faces (rendered mask, image
+    and features within `pixel_atol` on every pixel; a flipped face moves
+    them by ~0.1)."""
     def gap(k):
         return np.abs(np.asarray(jaux[k])
                       - taux[k].detach().numpy()).max()
-    return gap("arti_params") <= arti_atol and all(
-        gap(k) <= pixel_atol for k in ("mask_pred", "image_pred",
-                                       "dino_pred"))
+    if (jaux["arti_params"] is None) != (taux["arti_params"] is None):
+        return False
+    arti_ok = taux["arti_params"] is None or gap("arti_params") <= arti_atol
+    return arti_ok and all(gap(k) <= pixel_atol
+                           for k in ("mask_pred", "image_pred", "dino_pred"))
 
 
 def agree(jaux, taux, arti_atol=1e-4, pixel_atol=1e-3):
@@ -215,13 +218,18 @@ def torch_threads(n):
 
 
 class Pair:
-    def __init__(self):
+    """Both packages' models with the same weights (`build_pair`, or
+    `models` from another `Pair`), the dark batch, and the training
+    forward at iteration `it` (default `IT`)."""
+
+    def __init__(self, it=IT, overrides=TRAIN_OVERRIDES, models=None):
         set_mixed_precision(None)
-        self.jm, self.jp, self.tm = build_pair(TRAIN_OVERRIDES)
+        self.it = it
+        self.jm, self.jp, self.tm = models or build_pair(overrides)
         self.init_state = {k: v.clone() for k, v in
                            self.tm.state_dict().items()}
-        self.phase = self.jm.phase_for_iter(IT)
-        self.tphase = self.tm.phase_for_iter(IT)
+        self.phase = self.jm.phase_for_iter(it)
+        self.tphase = self.tm.phase_for_iter(it)
         self.batch = fake_batch_np(0)
         for k in ("images", "dino_features"):
             self.batch[k] = (self.batch[k] * DARK).astype(np.float32)
@@ -229,7 +237,7 @@ class Pair:
         self.tbatch = batch_to(self.batch, torch.from_numpy)
         grid, _, _ = self.jm.grid_for_phase(self.phase)
         self.value_and_grad = jax.jit(jax.value_and_grad(
-            lambda p, rng: self.jm.forward(p, self.jbatch, IT, rng,
+            lambda p, rng: self.jm.forward(p, self.jbatch, it, rng,
                                            self.phase, grid), has_aux=True))
         self.tie_keys = []        # keys skipped for a blend-branch tie
         self.relu_keys = []       # keys skipped for a texture ReLU tie
@@ -246,7 +254,7 @@ class Pair:
                     caught.setdefault(self.relu_layers[path], []).append(out)
                 return out
             with nn.intercept_methods(catch):
-                self.jm.forward(p, self.jbatch, IT, rng, self.phase, grid)
+                self.jm.forward(p, self.jbatch, it, rng, self.phase, grid)
             return caught
         self.jax_preactivations = jax.jit(texture_preactivations)
 
@@ -260,7 +268,7 @@ class Pair:
             for n in self.relu_layers.values()]
         try:
             with torch.no_grad():
-                self.tm.forward(self.tbatch, IT, None, self.tphase,
+                self.tm.forward(self.tbatch, self.it, None, self.tphase,
                                 noise=self.noise(rng))
         finally:
             for h in hooks:
@@ -319,7 +327,7 @@ class Pair:
                         up = torch.rand(p.shape, generator=gen) > 0.5
                         p.mul_(1 + (up.float() * 2 - 1) * ULP)
         self.tm.zero_grad(set_to_none=True)
-        loss, (_met, aux) = self.tm.forward(self.tbatch, IT, None,
+        loss, (_met, aux) = self.tm.forward(self.tbatch, self.it, None,
                                             self.tphase, noise=noise)
         loss.backward()
         grads = flat_tree(export_jax_grads(self.tm))
@@ -379,10 +387,9 @@ def pair():
     return Pair()
 
 
-@pytest.fixture(scope="module")
-def step(pair):
-    """One forward and backward of both packages, at the first key on
-    which their discrete decisions agree: feet and faces
+def search_step(pair):
+    """One forward and backward of both packages at `pair.it`, at the
+    first key on which their discrete decisions agree: feet and faces
     (`forward_agrees`), the antialias blend branches
     (`same_blend_branches`) and, where it matters, the texture field's
     ReLUs (`Pair.relu_tie`). Keys skipped for one of the last two ties are
@@ -392,7 +399,7 @@ def step(pair):
         rng = jax.random.PRNGKey(seed)
         (jloss, (jmet, jaux)), jgrads = pair.value_and_grad(pair.jp, rng)
         tloss, (tmet, taux) = pair.tm.forward(
-            pair.tbatch, IT, None, pair.tphase, noise=pair.noise(rng))
+            pair.tbatch, pair.it, None, pair.tphase, noise=pair.noise(rng))
         if not forward_agrees(jaux, taux):
             continue
         if not same_blend_branches(jaux, taux):
@@ -410,6 +417,12 @@ def step(pair):
     return dict(seed=seed, jloss=jloss, jmet=jmet, jaux=jaux, jgrads=jgrads,
                 tloss=tloss.detach(), tmet=tmet, taux=taux, tgrads=grads,
                 no_grad=none)
+
+
+@pytest.fixture(scope="module")
+def step(pair):
+    """`search_step` at `IT`."""
+    return search_step(pair)
 
 
 def test_forward_loss_and_metrics_match_jax(pair, step):
