@@ -8,7 +8,11 @@ named by iteration, the latest chosen by its digits, the newest
 reference's own form, one `torch.save` file `checkpoint{iter:07d}.pth`
 holding a state dict of sections: `model` (the model's `state_dict`),
 `optimizer` and `scheduler` (`trainer.Optimizer.state_dict`: each Adam's
-and each MultiStepLR's state by name), and `total_iter`.
+and each MultiStepLR's state by name), and `total_iter`. For Fauna the
+`optimizer` section also holds `disc`, the discriminator's Adam, and a
+resume restores it. The JAX checkpoint drops the discriminator optimizer's
+state (its trainer re-initializes it); the port's optimizer state is its
+own contract, so the port keeps it.
 """
 from __future__ import annotations
 

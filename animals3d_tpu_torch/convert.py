@@ -14,8 +14,10 @@ dicts onto the flax parameter tree's layout, which
     `layer_{0..}`; Encoder32 `network.{0,1,3,4,6,7,9}` → conv_/norm_{0..2},
     conv_out)
 
-The VGG and ResNet encoders, the mod-demod SDF, the motion VAE and the
-discriminator are not ported, and neither are their remaps.
+Fauna's parts are here too: the mod-demod SDF (`convert_coord_mlp_mod`),
+the memory bank and its keys, and the mask discriminator
+(`convert_discriminator`). The VGG and ResNet encoders and the motion VAE
+are not ported, and neither are their remaps.
 """
 from __future__ import annotations
 
@@ -59,6 +61,28 @@ def convert_mlp(sd, num_layers):
     for i in range(num_layers):
         out[f"layer_{i}"] = linear(sd, f"network.{seq_idx}", bias=False)
         seq_idx += 2 if i < num_layers - 1 else 1
+    return out
+
+
+def convert_mlp_mod(sd, num_layers):
+    """reference MLP_Mod (`MLPs.py:183-205`): `LinearMod` weights (out, in)
+    → the flax `weight` leaf (in, out)."""
+    return {f"linear_{i}": {"weight": _t(sd[f"linear_{i}.weight"]).T}
+            for i in range(num_layers)}
+
+
+def convert_coord_mlp_mod(sd, num_layers):
+    """reference CoordMLP_Mod (`MLPs.py:104-169`)."""
+    return {"in_layer": linear(sd, "in_layer"),
+            "style_mlp": convert_mlp(sub(sd, "style_mlp"), 2),
+            "mlp": convert_mlp_mod(sub(sd, "mlp"), num_layers)}
+
+
+def convert_discriminator(sd, n_layers=6):
+    """reference DCDiscriminator (`discriminator_architecture.py:8-66`):
+    `blocks.{i}` → conv_{i}, `conv_out`."""
+    out = {f"conv_{i}": conv(sd, f"blocks.{i}") for i in range(n_layers)}
+    out["conv_out"] = conv(sd, "conv_out", bias="conv_out.bias" in sd)
     return out
 
 
@@ -136,13 +160,20 @@ def convert_directional_light(sd, num_layers):
 
 def convert_net_base(sd, model):
     cfg = model.cfg_predictor_base
+    shape_layers = cfg.cfg_shape.num_layers
+    out = {}
     if any(k.startswith("netShape.mlp.style_mlp") for k in sd):
-        raise NotImplementedError(
-            "the mod-demod netSDF (Fauna) is not ported (ROADMAP A10)")
-    return {"netSDF": convert_coord_mlp(sub(sd, "netShape.mlp"),
-                                        cfg.cfg_shape.num_layers),
-            "netDINO": convert_coord_mlp(sub(sd, "netDINO"),
-                                         cfg.cfg_dino.num_layers)}
+        out["netSDF"] = convert_coord_mlp_mod(sub(sd, "netShape.mlp"),
+                                              shape_layers)
+    else:
+        out["netSDF"] = convert_coord_mlp(sub(sd, "netShape.mlp"),
+                                          shape_layers)
+    out["netDINO"] = convert_coord_mlp(sub(sd, "netDINO"),
+                                       cfg.cfg_dino.num_layers)
+    if "memory_bank" in sd:
+        out["memory_bank"] = _t(sd["memory_bank"])
+        out["memory_bank_keys"] = _t(sd["memory_bank_keys"])
+    return out
 
 
 def convert_net_instance(sd, model):
@@ -192,4 +223,7 @@ def convert_checkpoint(path_or_cp, model) -> dict:
     if "netInstance" in cp:
         params["netInstance"] = convert_net_instance(cp["netInstance"],
                                                      model)
+    if "netDisc" in cp:
+        params["netDisc"] = convert_discriminator(cp["netDisc"],
+                                                  model.netDisc.n_layers)
     return params

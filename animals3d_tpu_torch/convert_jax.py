@@ -4,11 +4,13 @@ package's `init_params` returns it) into the port's modules.
 The port names its submodules as the flax modules are named, so a leaf at
 path a/b/c/kernel lands on module a.b.c: a Dense kernel (in, out) becomes
 a Linear weight (out, in), a Conv kernel HWIO becomes OIHW, a norm's
-`scale` becomes `weight`, and `_SplitFirstDense` keeps its (pixel ⊕
-feature) split. Every leaf is consumed exactly once and every parameter
-of the module is set, or this raises. `export_jax_params` is the inverse
-(the module's parameters as a flax-layout numpy tree) and `export_jax_grads`
-lays the parameters' gradients out the same way.
+`scale` becomes `weight`, `_SplitFirstDense` keeps its (pixel ⊕
+feature) split, and a `LinearMod`'s (in, out) `weight` leaf becomes its
+(out, in) weight (`FLAX_WEIGHT_IN_OUT`); Fauna's memory bank, its keys
+and `netDisc` need nothing more. Every leaf is consumed exactly once and
+every parameter of the module is set, or this raises. `export_jax_params`
+is the inverse (the module's parameters as a flax-layout numpy tree) and
+`export_jax_grads` lays the parameters' gradients out the same way.
 """
 from __future__ import annotations
 
@@ -25,12 +27,21 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _in_out_weights(model: nn.Module) -> set:
+    """Names of the parameters whose flax leaf is an (in, out) `weight`
+    (the modules with `FLAX_WEIGHT_IN_OUT`)."""
+    return {f"{n}.weight" if n else "weight"
+            for n, m in model.named_modules()
+            if getattr(m, "FLAX_WEIGHT_IN_OUT", False)}
+
+
 def load_jax_params(model: nn.Module, tree: dict, strict: bool = True) -> None:
     """Set the model's parameters from `tree`. With `strict=False` (a warm
     start from a partial checkpoint) parameters absent from the tree keep
     their values, leaves without a parameter of their shape are skipped,
     and both counts are printed."""
     params = dict(model.named_parameters())
+    in_out = _in_out_weights(model)
     done, skipped = set(), []
     for path, leaf in _leaves(tree):
         leaf = np.asarray(leaf)
@@ -48,6 +59,8 @@ def load_jax_params(model: nn.Module, tree: dict, strict: bool = True) -> None:
             target = ".".join(mod_path + ["weight"])
         else:
             target = ".".join(mod_path + [name])
+            if target in in_out:
+                leaf = leaf.T
         if target not in params:
             if not strict:
                 skipped.append("/".join(path))
@@ -73,9 +86,11 @@ def load_jax_params(model: nn.Module, tree: dict, strict: bool = True) -> None:
         raise KeyError(f"parameters not in the tree: {missing}")
 
 
-def _to_flax(name: str, value: np.ndarray):
+def _to_flax(name: str, value: np.ndarray, in_out: set):
     """(path, array) of one port tensor in the flax tree's layout."""
     *mod_path, leaf = name.split(".")
+    if name in in_out:
+        return tuple(mod_path) + ("weight",), value.T
     if leaf == "weight":
         if value.ndim == 2:
             return tuple(mod_path) + ("kernel",), value.T
@@ -89,11 +104,12 @@ def _to_flax(name: str, value: np.ndarray):
 
 def _tree(model: nn.Module, pick) -> dict:
     tree: dict = {}
+    in_out = _in_out_weights(model)
     for name, p in model.named_parameters():
         value = pick(name, p)
         if value is None:
             continue
-        path, arr = _to_flax(name, value.detach().cpu().numpy())
+        path, arr = _to_flax(name, value.detach().cpu().numpy(), in_out)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

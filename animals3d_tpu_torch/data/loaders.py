@@ -7,8 +7,10 @@ and a prefetch queue keeps batches ahead of the device. The index stream
 is the JAX package's: each epoch shuffles with numpy
 `default_rng(seed + epoch)`, the train stream drops the last partial batch
 and never ends, so one folder gives the same batches in the same order in
-both packages. Batches are numpy; the `Trainer` moves them to the model's
-device. One host; sharding the stream over hosts is not ported.
+both packages. A dataset with `set_epoch` (Fauna's) is told each epoch
+before its indices are drawn, as the JAX loader does. Batches are numpy;
+the `Trainer` moves them to the model's device. One host; sharding the
+stream over hosts is not ported.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class DataLoaderConfig:
-    data_type: str = "image"               # image; sequence, fauna not ported
+    data_type: str = "image"               # image | fauna (sequence: A11)
     batch_size: int = 64
     num_workers: int = 4
     in_image_size: int = 256
@@ -37,6 +39,7 @@ class DataLoaderConfig:
     load_dino_cluster: bool = False
     dino_feature_dim: int = 64
     background_mode: str = "none"
+    num_frames: int = 1
     # Fauna's pseudo-category split (`Trainer.remake_dataloader_iter`)
     dataset_split_num: int = -1
 
@@ -77,6 +80,10 @@ class Loader:
     def _index_stream(self):
         n = len(self.dataset)
         while True:
+            # the per-epoch dataset-side reshuffle (Fauna `_shuffle_all`,
+            # reference `Trainer.py:224-225`)
+            if hasattr(self.dataset, "set_epoch"):
+                self.dataset.set_epoch(self._epoch)
             order = np.arange(n)
             if self.shuffle:
                 rng = np.random.default_rng(self.seed + self._epoch)
@@ -138,17 +145,23 @@ class Loader:
 
 
 def _build_dataset(cfg: DataLoaderConfig, data_dir: str, is_train: bool):
-    if cfg.data_type != "image":
-        raise NotImplementedError(
-            f"data_type {cfg.data_type!r} is not ported (ROADMAP A10/A11)")
-    from animals3d_tpu_torch.data.image_dataset import ImageDataset
-    return ImageDataset(data_dir, in_image_size=cfg.in_image_size,
-                        out_image_size=cfg.out_image_size,
-                        load_background=cfg.background_mode == "background",
-                        random_xflip=cfg.random_xflip_train and is_train,
-                        load_dino_feature=cfg.load_dino_feature,
-                        load_dino_cluster=cfg.load_dino_cluster,
-                        dino_feature_dim=cfg.dino_feature_dim)
+    common = dict(in_image_size=cfg.in_image_size,
+                  out_image_size=cfg.out_image_size,
+                  load_background=cfg.background_mode == "background",
+                  random_xflip=cfg.random_xflip_train and is_train,
+                  load_dino_feature=cfg.load_dino_feature,
+                  load_dino_cluster=cfg.load_dino_cluster,
+                  dino_feature_dim=cfg.dino_feature_dim)
+    if cfg.data_type == "image":
+        from animals3d_tpu_torch.data.image_dataset import ImageDataset
+        return ImageDataset(data_dir, **common)
+    if cfg.data_type == "fauna":
+        from animals3d_tpu_torch.data.fauna_dataset import FaunaDataset
+        return FaunaDataset(data_dir, batch_size=cfg.batch_size,
+                            num_frames=cfg.num_frames,
+                            dataset_split_num=cfg.dataset_split_num, **common)
+    raise NotImplementedError(
+        f"data_type {cfg.data_type!r} is not ported (ROADMAP A11)")
 
 
 def get_data_loaders(cfg: DataLoaderConfig):

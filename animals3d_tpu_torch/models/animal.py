@@ -8,8 +8,12 @@ forward: the same chain with grid jitter and random pose sampling, renders
 of `shaded` and `dino_pred`, the reconstruction losses weighted by the
 pose hypothesis' probability, the logit loss and the regularizers; it
 returns (total_loss, (metrics, aux)) and `loss.backward()` is the whole
-backward pass. The flow loss and the sequence smoothness terms are not
-ported yet.
+backward pass. Subclasses hook in as in the JAX package: `make_net_base`
+and `make_net_instance` build the predictors, `forward_base` returns
+(prior mesh, sdf, class vector, bank aux) from the batch (Fauna's memory
+bank), and `extra_losses` adds to the total after the weighted sum
+(Fauna's mask discriminator). The flow loss and the sequence smoothness
+terms are not ported yet.
 
 Batch contract: a dict with images (B, F, 3, H, W) in [0, 1], masks
 (B, F, 1, H, W), mask_dt (B, F, 2, H, W), mask_valid (B, F, H, W),
@@ -18,7 +22,7 @@ dino_features (B, F, D, h, w) or None.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +71,15 @@ class LossConfig:
     deform_reg_loss_weight: float = 10.0
     prior_normal_reg_loss_weight: float = 0.0
     instance_normal_reg_loss_weight: float = 0.0
+    # Fauna: the generator's mask-discriminator loss, and the
+    # iteration-scheduled dicts {start iteration: weight} in their order
+    mask_disc_loss_weight: float = 0.1
+    mask_disc_loss_rv_weight: float = 0.0
+    mask_disc_loss_iv_weight: float = 0.0
+    logit_loss_dino_feat_im_loss_multiplier_dict: Any = None
+    dino_feat_im_loss_weight_dict: Any = None
+    logit_loss_mask_multiplier: float = 0.05
+    logit_loss_mask_inv_dt_multiplier: float = 0.05
 
 
 def expand_bf(x, b, f):
@@ -137,11 +150,18 @@ class AnimalModel(nn.Module):
         self.out_image_size = ds.get("out_image_size", 256)
         self.num_frames = ds.get("num_frames", 1)
         self.dino_feature_dim = self.cfg_predictor_base.cfg_dino.feature_dim
-        self.netBase = BasePredictor(self.cfg_predictor_base)
-        self.netInstance = InstancePredictor(self.cfg_predictor_instance,
-                                             image_size=self.in_image_size)
+        self.netBase = self.make_net_base()
+        self.netInstance = self.make_net_instance()
         self._grids: Dict[int, tetlib.DeviceTetGrid] = {}
         self.to(self.device)
+
+    # -- construction hooks (Fauna overrides them) -------------------------
+    def make_net_base(self):
+        return BasePredictor(self.cfg_predictor_base)
+
+    def make_net_instance(self):
+        return InstancePredictor(self.cfg_predictor_instance,
+                                 image_size=self.in_image_size)
 
     # -- grids and phases ---------------------------------------------------
     def grid_for_phase(self, phase: Phase):
@@ -207,15 +227,23 @@ class AnimalModel(nn.Module):
 
     def render(self, render_modes, shape, mvp, w2c, campos, resolution,
                im_features=None, light_params=None, prior_mesh=None,
-               use_dino: bool = False, background=None):
+               use_dino: bool = False, background=None, class_vector=None):
+        """`class_vector` (1 or N, dim) conditions the DINO field; one row
+        is broadcast to the N images."""
         h, w = resolution
+        N = mvp.shape[0]
         material_fn = None
         if im_features is not None:
             material_fn = lambda tex_pos: self.netInstance.sample_texture(
                 tex_pos, im_features)
-        dino_fn = self.netBase.dino_field if use_dino else None
+        if class_vector is not None and class_vector.shape[0] == 1 and N > 1:
+            class_vector = class_vector.expand(N, class_vector.shape[1])
+        dino_fn = None
+        if use_dino:
+            dino_fn = lambda tex_pos: self.netBase.dino_field(tex_pos,
+                                                              class_vector)
         if background is None:
-            background = self.background_image(mvp.shape[0], h, w)
+            background = self.background_image(N, h, w)
         return render_mesh(shape, mvp, w2c, campos, (h, w),
                            material_fn=material_fn, light_params=light_params,
                            background=background,
@@ -274,12 +302,15 @@ class AnimalModel(nn.Module):
 
     def compute_regularizers(self, grid, sdf, prior_mesh, gen=None,
                              noise: Noise = None, arti_params=None,
-                             deformation=None):
-        """SDF regularizers, articulation and deformation magnitudes, and
-        the prior's normal consistency (image data; the sequence smoothness
-        terms are not ported)."""
+                             deformation=None, class_vector=None):
+        """SDF regularizers (the eikonal term conditioned by the detached
+        `class_vector` where there is one), articulation and deformation
+        magnitudes, and the prior's normal consistency (image data; the
+        sequence smoothness terms are not ported)."""
+        feats = None if class_vector is None else class_vector.detach()
         losses = dict(self.netBase.sdf_reg_losses(grid, sdf, prior_mesh,
-                                                  gen=gen, noise=noise))
+                                                  gen=gen, noise=noise,
+                                                  feats=feats))
         if arti_params is not None:
             losses["arti_reg_loss"] = (arti_params ** 2).mean()
         if deformation is not None:
@@ -299,10 +330,13 @@ class AnimalModel(nn.Module):
         return losses
 
     # -- forwards -----------------------------------------------------------
-    def forward_base(self, grid, v_cap: int, f_cap: int, jitter=None):
-        """Prior mesh and SDF; `jitter` (a uniform scalar) is the training
-        forward's grid jitter, None at eval."""
-        return self.netBase(grid, v_cap, f_cap, jitter=jitter)
+    def forward_base(self, grid, v_cap: int, f_cap: int, jitter=None,
+                     batch=None):
+        """(prior mesh, sdf, class vector, bank aux); `jitter` (a uniform
+        scalar) is the training forward's grid jitter, None at eval.
+        MagicPony's prior has no condition: (mesh, sdf, None, {})."""
+        prior_mesh, sdf = self.netBase(grid, v_cap, f_cap, jitter=jitter)
+        return prior_mesh, sdf, None, {}
 
     def instance_forward(self, images, prior_mesh, total_iter, phase: Phase,
                          gen=None, noise: Noise = None):
@@ -341,7 +375,8 @@ class AnimalModel(nn.Module):
             grid = _g
         jitter = uniform(noise.jitter_u, (), gen, self.device) \
             if phase.is_training else None
-        prior_mesh, sdf = self.forward_base(grid, v_cap, f_cap, jitter=jitter)
+        prior_mesh, sdf, class_vector, _bank_aux = self.forward_base(
+            grid, v_cap, f_cap, jitter=jitter, batch=batch)
 
         (shape, pose_raw, pose, mvp, w2c, campos, im_features, _feat_key,
          deformation, arti_params, light_params, fw_aux) = \
@@ -360,7 +395,8 @@ class AnimalModel(nn.Module):
             renders = self.render(
                 ["shaded", "dino_pred"], shape, mvp, w2c, campos, (h, w),
                 im_features=im_features, light_params=light_params,
-                prior_mesh=prior_mesh, use_dino=True)
+                prior_mesh=prior_mesh, use_dino=True,
+                class_vector=class_vector)
             shaded = expand_bf(renders["shaded"], B, Fr)
             dino_pred = expand_bf(renders["dino_pred"], B, Fr)
             image_pred = shaded[:, :, :3]
@@ -388,7 +424,8 @@ class AnimalModel(nn.Module):
 
         final_losses.update(self.compute_regularizers(
             grid, sdf, prior_mesh, gen=gen, noise=noise,
-            arti_params=arti_params, deformation=deformation))
+            arti_params=arti_params, deformation=deformation,
+            class_vector=class_vector))
 
         total = 0.0
         tex_range = self.cfg_predictor_instance.cfg_texture.texture_iter_range
@@ -404,13 +441,21 @@ class AnimalModel(nn.Module):
                                  self.cfg_loss.arti_reg_loss_iter_range)
             total = total + loss * weight * gate
 
+        ctx = dict(phase=phase, gen=gen, noise=noise,
+                   class_vector=class_vector, mask_gt=mask_gt,
+                   mask_pred=mask_pred, shape=shape, prior_mesh=prior_mesh,
+                   w2c=w2c)
+        total = total + self.extra_losses(batch, total_iter, final_losses,
+                                          metrics, ctx)
+
         metrics.update(final_losses)
         metrics["loss"] = total
         aux = {"mask_pred": mask_pred, "image_pred": image_pred,
                "shape": shape, "prior_mesh": prior_mesh, "pose": pose,
                "mvp": mvp, "w2c": w2c, "campos": campos,
                "im_features": im_features, "light_params": light_params,
-               "arti_params": arti_params, "pose_raw": pose_raw,
+               "arti_params": arti_params, "class_vector": class_vector,
+               "pose_raw": pose_raw,
                "deformation": deformation, "sdf": sdf, "mask_gt": mask_gt,
                "dino_pred": dino_pred, "dino_gt": dino_gt,
                "rots_probs": fw_aux.get("rots_probs"),
@@ -421,7 +466,8 @@ class AnimalModel(nn.Module):
 
     @torch.no_grad()
     def reconstruct(self, params, images, total_iter: int):
-        """Single-image reconstruction: netBase → netInstance →
+        """Single-image reconstruction: netBase (for Fauna through the
+        memory bank, queried by the images' class tokens) → netInstance →
         render(["shaded"]) of the input view, at the eval phase of
         `total_iter`. `params` is this model itself (or None) or a state
         dict to load first; images (B, F, 3, H, W) in [0, 1]. Returns the
@@ -430,7 +476,8 @@ class AnimalModel(nn.Module):
             self.load_state_dict(params)
         phase = self.phase_for_iter(total_iter, is_training=False)
         grid, v_cap, f_cap = self.grid_for_phase(phase)
-        prior_mesh, _sdf = self.forward_base(grid, v_cap, f_cap)
+        prior_mesh, _sdf, _class_vector, _bank_aux = self.forward_base(
+            grid, v_cap, f_cap, batch={"images": images})
         out = self.instance_forward(images, prior_mesh, total_iter, phase)
         (shape, _pose_raw, _pose, mvp, w2c, campos, im_features, _feat_key,
          _deformation, _arti_params, light_params, _aux) = out
@@ -440,3 +487,10 @@ class AnimalModel(nn.Module):
                               light_params=light_params,
                               prior_mesh=prior_mesh)
         return renders["shaded"], out
+
+    # -- hooks for subclasses ------------------------------------------------
+    def extra_losses(self, batch, total_iter, final_losses, metrics, ctx):
+        """Added to the total after the weighted sum; may add entries to
+        `final_losses` and `metrics`. `ctx` holds the forward's phase,
+        gen, noise, class vector, masks, posed shape, prior and w2c."""
+        return 0.0

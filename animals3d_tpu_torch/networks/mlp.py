@@ -6,8 +6,8 @@ package, so a flax parameter tree maps 1:1 onto these modules
 `CoordMLP.in_layer` has a bias, the conditioning feature is ReLU'd with
 the pixel half and folded into `layer_0` (`SplitFirstDense`), and the
 embedding is [sin block | cos block] with per-coordinate contiguous
-frequencies. Fauna's modulated layers (`CoordMLPMod`, `MLPMod`,
-`LinearMod`) are not ported yet.
+frequencies. Fauna's weight-modulated SDF is `CoordMLPMod` (`MLPMod` of
+`LinearMod` layers, conditioned through a 2-layer `style_mlp`).
 """
 from __future__ import annotations
 
@@ -194,4 +194,94 @@ class CoordMLP(nn.Module):
             # relu(concat(x, feat)) = concat(relu(x), relu(feat))
             split_feat = F.relu(feat.reshape(feat.shape[0], -1))
         out = self.mlp(F.relu(h), split_feat=split_feat)
+        return _apply_min_max(out.float(), self.min_max)
+
+
+class LinearMod(nn.Module):
+    """StyleGAN-style modulated-demodulated linear layer, bias-free.
+
+    The weight is kept as (out, in), as `nn.Linear` keeps it; flax keeps it
+    as (in, out) under the leaf name `weight`, which `convert_jax`
+    transposes (`FLAX_WEIGHT_IN_OUT`). Only the first style vector of the
+    batch modulates, as in the reference. The input axis is scaled by the
+    style, then each output row is divided by sqrt(sum over the input axis
+    of the squared weight + 1e-5). Computes in float32 whatever the
+    precision policy: flax promotes the bf16 activation against the
+    float32 weight."""
+
+    FLAX_WEIGHT_IN_OUT = True
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+
+    def init_weights(self, gen: torch.Generator):
+        fan_in = self.weight.shape[1]
+        uniform_(self.weight, 1.0 / math.sqrt(fan_in) if fan_in else 0.0, gen)
+
+    def forward(self, x, style):
+        style = style.reshape(-1, style.shape[-1])[0].float()     # (in,)
+        w = self.weight * style[None, :]
+        w = w / torch.sqrt((w * w).sum(1, keepdim=True) + 1e-5)
+        return F.linear(x.float(), w)
+
+
+class MLPMod(nn.Module):
+    """`LinearMod` / ReLU stack with an optional output activation."""
+
+    def __init__(self, cin: int, cout: int, num_layers: int, nf: int = 256,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.activation = activation
+        for i in range(num_layers):
+            setattr(self, f"linear_{i}", LinearMod(
+                cin if i == 0 else nf, cout if i == num_layers - 1 else nf))
+
+    def forward(self, x, style):
+        for i in range(self.num_layers):
+            x = getattr(self, f"linear_{i}")(x, style)
+            if i < self.num_layers - 1:
+                x = F.relu(x)
+        return get_activation(self.activation)(x)
+
+
+class CoordMLPMod(nn.Module):
+    """Conditional CoordMLP with weight modulation (Fauna's conditional
+    SDF): harmonic-embed the points, a biased `in_layer` and ReLU, then
+    `MLPMod` modulated by `style_mlp(feat)`, a plain 2-layer `MLP` on the
+    condition (B, condition_dim)."""
+
+    def __init__(self, cin: int, cout: int, num_layers: int, nf: int = 256,
+                 activation: Optional[str] = None,
+                 min_max: Optional[Sequence] = None,
+                 n_harmonic_functions: int = 10, embedder_scalar: float = 1.0,
+                 embed_concat_pts: bool = True, symmetrize: bool = False,
+                 condition_dim: int = 128):
+        super().__init__()
+        self.n_harmonic_functions = n_harmonic_functions
+        self.embedder_scalar = embedder_scalar
+        self.embed_concat_pts = embed_concat_pts
+        self.symmetrize = symmetrize
+        self.condition_dim = condition_dim
+        self.min_max = None if min_max is None else \
+            tuple(tuple(float(v) for v in r) for r in min_max)
+        if n_harmonic_functions > 0:
+            dim_in = cin * 2 * n_harmonic_functions + \
+                (cin if embed_concat_pts else 0)
+        else:
+            dim_in = cin
+        self.in_layer = Dense(dim_in, nf, bias=True, bias_fan_in=dim_in)
+        self.style_mlp = MLP(condition_dim, nf, 2, nf, None)
+        self.mlp = MLPMod(nf, cout, num_layers, nf, activation)
+
+    embed = CoordMLP.embed
+
+    def forward(self, x, feat):
+        if feat is None or feat.shape[-1] != self.condition_dim:
+            raise ValueError(f"CoordMLPMod needs a (B, {self.condition_dim})"
+                             " condition")
+        h = F.relu(self.in_layer(self.embed(x)))
+        style = self.style_mlp(feat)
+        out = self.mlp(h, style)
         return _apply_min_max(out.float(), self.min_max)

@@ -4,7 +4,7 @@
 seed, so every random site of the training forward takes either the drawn
 values (a `Noise`, as the parity tests hand to both packages) or a
 generator to draw them from. All fields are uniform [0, 1) draws except
-the two index fields.
+the two index fields and the random view's whole degrees.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ class Noise:
     rand_pts_u: Optional[torch.Tensor] = None  # (5000, 3) eikonal points
     surf_idx: Optional[torch.Tensor] = None    # (5000,) int surface vertices
     surf_u: Optional[torch.Tensor] = None      # (5000, 3) surface offsets
+    rv_deg: Optional[torch.Tensor] = None      # (N,) int random view, degrees
 
 
 def uniform(value, shape, gen: Optional[torch.Generator], device):

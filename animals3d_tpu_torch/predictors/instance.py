@@ -90,6 +90,13 @@ class ViTEncoder(nn.Module):
         g_key = self.final_layer_patch_key(pk)
         return g_out, g_key, patch_out, pk
 
+    @torch.no_grad()
+    def class_token(self, images):
+        """The ViT's class token after its final norm, without gradient
+        (the query of Fauna's memory bank); images in (-1, 1)."""
+        tokens, _ = self.ViT(images)
+        return tokens[:, 0]
+
 
 class InstancePredictor(nn.Module):
 
@@ -423,6 +430,12 @@ class InstancePredictor(nn.Module):
             else None
         return (shape, pose_raw, pose, mvp, w2c, campos, feat_out, feat_key,
                 deformation, arti_params, light_params, aux)
+
+    def frozen_vit_class_token(self, images):
+        """images (B, F, 3, H, W) in [0, 1] → the frozen ViT's class
+        tokens (B·F, D), without gradient."""
+        return self.netEncoder.class_token(
+            images.reshape(-1, *images.shape[2:]) * 2 - 1)
 
     def sample_texture(self, tex_pos, feat):
         return self.netTexture(tex_pos, feat)

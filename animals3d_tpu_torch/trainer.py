@@ -4,12 +4,14 @@
 Reference: `reference model/Trainer.py` (config `:15-50`, train loop
 `:232-311`, test `:129-146`). One `train_step` a batch: the eager forward,
 `loss.backward()` and a step of each predictor's Adam
-(`make_optimizer`). Checkpoints are `torch.save` files with the model's,
-the optimizers' and the schedulers' state (`checkpoint.py`); metrics go to
-stdout, `metrics.json` and tensorboardX scalars where it imports. One
-device: the data-parallel mesh of the JAX package (`mesh_shape`) is not
-ported, and neither are the visual logs, the turntable videos, the code
-archive and Fauna's discriminator step.
+(`make_optimizer`). Fauna adds a separate discriminator step after it in
+its discriminator window (`disc_step`): its own Adam on `netDisc`, which
+the generator's optimizers never touch. Checkpoints are `torch.save`
+files with the model's, the optimizers' and the schedulers' state
+(`checkpoint.py`); metrics go to stdout, `metrics.json` and tensorboardX
+scalars where it imports. One device: the data-parallel mesh of the JAX
+package (`mesh_shape`) is not ported, and neither are the visual logs,
+the turntable videos and the code archive.
 """
 from __future__ import annotations
 
@@ -54,8 +56,13 @@ class TrainerConfig:
     # torch.autograd.set_detect_anomaly: the backward raises at the first
     # op that makes a NaN instead of at the finite-loss check; slow
     debug_nans: bool = False
+    # read nowhere, as in the JAX trainer: the discriminator step runs
+    # whenever the phase's `disc_on` is set
+    disc_train: bool = False
     remake_dataloader_iter: int = -1
     remake_dataloader_num: int = -1
+    # read nowhere, as in the JAX trainer: FaunaDataset always reshuffles
+    shuffle_dataset_paths: bool = True
     mesh_shape: Optional[Any] = None
 
 
@@ -63,10 +70,19 @@ class Optimizer:
     """One Adam (AdamW where `weight_decay` is non-zero) per predictor,
     `base` (netBase) and `instance` (netInstance), each with its config's
     learning rate and, where `use_scheduler` is set, a MultiStepLR stepped
-    once per iteration. Frozen parameters (the DINO ViT) are in no group."""
+    once per iteration. Frozen parameters (the DINO ViT) are in no group.
+    A model with a discriminator (Fauna) also gets `disc`, a plain Adam on
+    `netDisc` at `cfg_optim_discriminator.lr` (`optax.adam` in the JAX
+    trainer), which `step` and `zero_grad` leave alone: `disc_step` runs
+    it. Its state is saved and restored with the others."""
 
     def __init__(self, model):
         self.optimizers, self.schedulers = {}, {}
+        self.disc = None
+        if getattr(model, "netDisc", None) is not None:
+            self.disc = torch.optim.Adam(
+                model.netDisc.parameters(),
+                lr=model.cfg_optim_discriminator.lr, eps=1e-8)
         for name, net, cfg in (
                 ("base", model.netBase, model.cfg_optim_base),
                 ("instance", model.netInstance, model.cfg_optim_instance)):
@@ -95,9 +111,14 @@ class Optimizer:
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=set_to_none)
 
+    def _all(self) -> dict:
+        """Every optimizer by name, `disc` included where there is one."""
+        return {**self.optimizers,
+                **({"disc": self.disc} if self.disc is not None else {})}
+
     def state_dict(self) -> dict:
         return {"optimizer": {k: o.state_dict()
-                              for k, o in self.optimizers.items()},
+                              for k, o in self._all().items()},
                 "scheduler": {k: s.state_dict()
                               for k, s in self.schedulers.items()}}
 
@@ -107,7 +128,7 @@ class Optimizer:
         of this one's (strict=False); the rest keep their init, and both
         lists are printed."""
         missing, unexpected = [], []
-        for section, objs in (("optimizer", self.optimizers),
+        for section, objs in (("optimizer", self._all()),
                               ("scheduler", self.schedulers)):
             saved = state.get(section) or {}
             unexpected += [f"{section}/{k}" for k in saved if k not in objs]
@@ -137,6 +158,20 @@ def train_step(model, optimizer: Optimizer, batch, total_iter, gen=None,
     optimizer.zero_grad(set_to_none=True)
     return {k: v.detach() if torch.is_tensor(v) else v
             for k, v in metrics.items()}
+
+
+def disc_step(model, optimizer: Optimizer, record):
+    """The discriminator's step on the masks the generator step recorded:
+    `discriminator_loss` (its R1 penalty included), backward into
+    `netDisc` alone, a step of the `disc` Adam. The generator's backward
+    leaves gradients on `netDisc`; they are dropped first. Returns the
+    detached loss."""
+    model.netDisc.zero_grad(set_to_none=True)
+    loss = model.discriminator_loss(record)
+    loss.backward()
+    optimizer.disc.step()
+    model.netDisc.zero_grad(set_to_none=True)
+    return loss.detach()
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -273,6 +308,13 @@ class Trainer:
             device_batch = batch_to_device(batch, model.device)
             step_metrics = train_step(model, optimizer, device_batch,
                                       total_iter, gen, phase)
+            # Fauna: the discriminator's step on the recorded masks
+            # (`Trainer.py:248-259`), in its window
+            disc_record = step_metrics.pop("_disc_record", None)
+            if disc_record is not None and phase.disc_on and \
+                    optimizer.disc is not None:
+                step_metrics["discriminator_loss"] = disc_step(
+                    model, optimizer, disc_record)
             total_iter += 1
 
             if total_iter % cfg.log_loss_freq == 0 or total_iter == 1:

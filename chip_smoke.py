@@ -13,7 +13,11 @@ Phases, in this order, each fatal on failure:
      the card against the CPU from the same weights, batch and noise:
      loss, every parameter's gradient and the parameters after the step —
      once on the default render path and once on `raster_variant=6,
-     resolve_rows="kernel"` (K3 and K5 on the card);
+     resolve_rows="kernel"` (K3 and K5 on the card); then one step of a
+     small float32 3D-Fauna model (`train_fauna` at the parity tests'
+     widths, grid 8, iteration 100,000: the memory bank, the modulated
+     SDF, the random view and the mask discriminator) the same way, on a
+     seed where the random view's mask agrees within 1e-3;
   3. kernels: run each kernel against its plain PyTorch version on the
      card — the tile visibility kernels K1, K2 (variant 4) and K3 (variant
      6) on a random scene, the exact-z depth-stack scene, the prior mesh of
@@ -79,7 +83,24 @@ Phases, in this order, each fatal on failure:
      attached legs), with each step's time and the peak memory;
      `cli_test_fine` — the test config at grid 256 writing mesh, image
      and pose files; then K1 and the cull kernel against their plain
-     versions on the fine step's own posed meshes, bit for bit.
+     versions on the fine step's own posed meshes, bit for bit;
+  6. 3D-Fauna at the full width of `train_fauna` (batch 6 at 256²,
+     dino_vits8 random, bf16, DINO features of 16, bank 60 × 128 with top
+     10, grid 128, `v_cap` 98,304, `f_cap` 196,608, iteration 100,000:
+     the discriminator window, articulation on, legs attached, no
+     deformation): `fauna_train` — 1 + 3 steps of `train_step` and the
+     discriminator's `disc_step` (the cull kernel and K1 twice a step, K4
+     once, K6 and K7 never), each step's and the discriminator step's
+     time, the peak memory, one step's device busy time (torch.profiler)
+     and the plain modulated sweep's time alone, then K1, the cull kernel
+     and K4 against their plain versions on one step's own calls, the
+     random view's meshes among them; `fauna_recon` — `reconstruct`
+     through the bank (1 + 5; the cull kernel and K1 once a recon);
+     `cli_train_fauna` — `python -m animals3d_tpu_torch.run --config-name
+     train_fauna` on a synthetic category tree (2 categories of 9 images),
+     2 steps from a checkpoint of the init weights at 100,000, its
+     checkpoint holding `netDisc` and the `disc` Adam's state, and a
+     resume one step further with that state restored bit for bit.
 
 Prints a `kernels` JSON line (all nine kernel entries, each with its
 status: ported, redesigned or fused, and in which PR; `unit_boxes` is the
@@ -223,7 +244,7 @@ def posed_prior_scene(model, n_views: int = 10, res: int = 256):
     phase = model.phase_for_iter(50000, is_training=False)
     grid, v_cap, f_cap = model.grid_for_phase(phase)
     with torch.no_grad():
-        prior, _sdf = model.forward_base(grid, v_cap, f_cap)
+        prior, _sdf, *_ = model.forward_base(grid, v_cap, f_cap)
     ang = torch.arange(n_views, dtype=torch.float32) * (2 * np.pi / n_views)
     c, s, o, z = torch.cos(ang), torch.sin(ang), torch.ones_like(ang), \
         torch.zeros_like(ang)
@@ -245,7 +266,7 @@ def recon_scene(model, images, it):
     phase = model.phase_for_iter(it, is_training=False)
     grid, v_cap, f_cap = model.grid_for_phase(phase)
     with torch.no_grad():
-        prior, _sdf = model.forward_base(grid, v_cap, f_cap)
+        prior, _sdf, *_ = model.forward_base(grid, v_cap, f_cap)
         out = model.instance_forward(images, prior, it, phase)
     shape, mvp = out[0], out[3]
     v_clip = xfm_points(shape.v_pos, mvp).contiguous()
@@ -1201,10 +1222,10 @@ def resolve_fwd_phase(model, batch):
 # models
 # ---------------------------------------------------------------------------
 
-def build(overrides, device, **render):
+def build(overrides, device, config="train_magicpony_horse", **render):
     from animals3d_tpu_torch import config as cfglib
     from animals3d_tpu_torch.models import build_model
-    cfg = cfglib.load_config("train_magicpony_horse", overrides=overrides)
+    cfg = cfglib.load_config(config, overrides=overrides)
     model_cfg = dict(cfg["model"])
     model_cfg["dataset"] = cfg["dataset"]
     return cfg, build_model(model_cfg, device=device, **render)
@@ -1232,6 +1253,14 @@ PATHS = {
     "cli_train_fine": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
                             "fused_mlp_bwd", "resolve_bwd")),
     "cli_test_fine": ({}, ("cull_boxes", "raster_vis")),
+    # 3D-Fauna (`train_fauna`): the step renders the input view and, inside
+    # the discriminator window, a random view (the cull kernel and K1
+    # twice); K4 runs once, on the input view's backward: the random
+    # view's render is untextured and unlit, so only its antialiased mask
+    # reaches a loss. The modulated SDF keeps the fused sweep off
+    "fauna_train": ({}, ("cull_boxes", "raster_vis", "resolve_bwd")),
+    "fauna_recon": ({}, ("cull_boxes", "raster_vis")),
+    "cli_train_fauna": ({}, ("cull_boxes", "raster_vis", "resolve_bwd")),
 }
 
 
@@ -1307,14 +1336,17 @@ def draw_noise(model, gen, n_images):
     u = lambda *shape: torch.rand(shape, generator=gen)
     return Noise(jitter_u=u(), rand_idx=torch.floor(u(n_images) * K).long(),
                  best_u=u(n_images), rand_pts_u=u(5000, 3),
-                 surf_idx=None, surf_u=u(5000, 3))
+                 surf_idx=None, surf_u=u(5000, 3),
+                 rv_deg=torch.floor(u(n_images) * 360).long())
 
 
-def train_reference_phase(path="train"):
-    """One training step of a small float32 model on the card against the
-    same step on the CPU, from the same weights, batch and noise, on the
-    render path `path` of `PATHS` (the card's kernels against their plain
-    versions on the CPU): loss to
+def train_reference_phase(path="train", config="train_magicpony_horse",
+                          overrides=None, it=TRAIN_IT):
+    """One training step of a small float32 model of `config` (with
+    `overrides`, by default `TRAIN_SMALL_OVERRIDES`) at iteration `it` on
+    the card against the same step on the CPU, from the same weights,
+    batch and noise, on the render path `path` of `PATHS` (the card's
+    kernels against their plain versions on the CPU): loss to
     1e-4 relative (7e-7 seen), every parameter's gradient to
     `REF_GRAD_TOL` of its norm (2e-3; 9.1e-4 seen on the articulation
     leaves, 6.2e-4 on the encoder's, 4.0e-4 on netSDF's), `REF_NOISY_TOL`
@@ -1342,7 +1374,9 @@ def train_reference_phase(path="train"):
     the last bit. Which vertex is a leg's foot (the lowest of a quadrant,
     among marching-tets vertices that share their height up to rounding):
     the phase draws noise from seeds 0, 1, ... until the articulation
-    agrees within 1e-4, at most 8 seeds. And which face wins a pixel on a
+    agrees within 1e-4 (and, for Fauna, the random view's mask, the
+    discriminator's input, within 1e-3 on every pixel), at most 16 seeds.
+    And which face wins a pixel on a
     shared edge: a first pass without gradients finds the pixels whose
     rendered mask, image or features differ by more than 1e-3 or whose
     mask is positive on one device only (at most 0.5% of them), and the
@@ -1360,14 +1394,18 @@ def train_reference_phase(path="train"):
     from animals3d_tpu_torch.trainer import make_optimizer
     set_mixed_precision(False)
     render, kernels = PATHS[path]
-    _cfg, gpu = build(TRAIN_SMALL_OVERRIDES, "cuda", **render)
+    overrides = TRAIN_SMALL_OVERRIDES if overrides is None else overrides
+    _cfg, gpu = build(overrides, "cuda", config, **render)
     state = {k: v.detach().cpu().clone()
              for k, v in gpu.init_params(SEED).items()}
-    _cfg, cpu = build(TRAIN_SMALL_OVERRIDES, "cpu", **render)
+    _cfg, cpu = build(overrides, "cpu", config, **render)
     cpu.load_state_dict(state)
-    phase = gpu.phase_for_iter(TRAIN_IT)
-    if not gpu.netBase._use_fused_sweep(training=True):
-        raise AssertionError(f"train reference [{path}]: the fused sweep is off")
+    phase = gpu.phase_for_iter(it)
+    # the fused sweep: on for MagicPony's netSDF, off for the modulated one
+    if gpu.netBase._use_fused_sweep(training=True) != \
+            (gpu.netBase.condition_choice != "mod"):
+        raise AssertionError(f"train reference [{path}]: the fused sweep's "
+                             "gate is wrong")
     B = 2
     batches = {"gpu": fake_batch(gpu, B, SEED),
                "cpu": fake_batch(cpu, B, SEED)}
@@ -1382,20 +1420,21 @@ def train_reference_phase(path="train"):
         for name, model in models.items():
             model.zero_grad(set_to_none=True)
             with torch.set_grad_enabled(grad):
-                loss, (_met, aux) = model.forward(batches[name], TRAIN_IT,
-                                                  None, phase, noise=noise)
+                loss, (met, aux) = model.forward(batches[name], it,
+                                                 None, phase, noise=noise)
                 if grad:
                     loss.backward()
-            out[name] = (loss.detach().cpu(), aux)
+            out[name] = (loss.detach().cpu(), aux, met)
         return out
 
-    for seed in range(8):
+    for seed in range(16):
         gen = torch.Generator().manual_seed(seed)
         noise = draw_noise(cpu, gen, B)
         grid, v_cap, f_cap = cpu.grid_for_phase(phase)
         with torch.no_grad():
-            prior, _ = cpu.forward_base(grid, v_cap, f_cap,
-                                        jitter=noise.jitter_u)
+            prior, _sdf, *_ = cpu.forward_base(
+                grid, v_cap, f_cap, jitter=noise.jitter_u,
+                batch=batches["cpu"])
         noise = dataclasses.replace(noise, surf_idx=torch.floor(
             torch.rand(5000, generator=gen)
             * max(int(prior.num_verts), 1)).long())
@@ -1403,17 +1442,27 @@ def train_reference_phase(path="train"):
         a_gpu, a_cpu = out["gpu"][1], out["cpu"][1]
         d = lambda k: (a_gpu[k].detach().cpu() - a_cpu[k].detach()).abs()
         arti = float(d("arti_params").max())
+        # Fauna's random view: its mask is the discriminator's input, and no
+        # pixel of it can be taken out through the batch
+        rv = 0.0
+        if "_disc_record" in out["cpu"][2]:
+            rv = float((out["gpu"][2]["_disc_record"]["mask_rv"][:, 0].cpu()
+                        - out["cpu"][2]["_disc_record"]["mask_rv"][:, 0])
+                       .abs().max())
         differ = (d("mask_pred") > 1e-3) | (d("image_pred").amax(2) > 1e-3) \
             | (d("dino_pred").amax(2) > 1e-3) \
             | ((a_gpu["mask_pred"].cpu() > 0) != (a_cpu["mask_pred"] > 0))
         share = float(differ.float().mean())
         print(f"train reference [{path}]: seed {seed}: articulation |gpu - cpu| "
-              f"{arti:.3g}, share of pixels that differ {share:.4f}")
-        if arti <= 1e-4:
+              f"{arti:.3g}, share of pixels that differ {share:.4f}"
+              + (f", random view's mask max |gpu - cpu| {rv:.3g}"
+                 if "_disc_record" in out["cpu"][2] else ""))
+        if arti <= 1e-4 and rv <= 1e-3:
             break
     else:
-        raise AssertionError(f"train reference [{path}]: no seed of 8 on which the "
-                             "card and the CPU pick the same feet")
+        raise AssertionError(f"train reference [{path}]: no seed of 16 on which "
+                             "the card and the CPU pick the same feet (and "
+                             "the same random view's mask)")
     if not share <= 0.005:
         raise AssertionError(f"train reference [{path}]: {share:.4f} of the pixels "
                              "differ between the card and the CPU")
@@ -1425,7 +1474,7 @@ def train_reference_phase(path="train"):
         batches[name]["mask_dt"] = batches[name]["mask_dt"] \
             * keep[:, :, None]
     out = both(noise, grad=True)
-    (l_gpu, _), (l_cpu, _) = out["gpu"], out["cpu"]
+    l_gpu, l_cpu = out["gpu"][0], out["cpu"][0]
     now = {k: c.launches for k, c in counters().items()}
     if any(now[k] == 0 for k in kernels) or any(
             now[k] for k in now if k not in kernels):
@@ -1691,6 +1740,405 @@ def check_slice(shaded, out, B, H):
 
 
 # ---------------------------------------------------------------------------
+# 3D-Fauna at the full width of `train_fauna`
+# ---------------------------------------------------------------------------
+
+FAUNA_IT = 100000       # disc window, articulation on, legs attached
+FAUNA_TIMED = 3
+# the reference model: `tests/test_fauna.py`'s widths and grid (8: at 16
+# the random view's mask differs between the card and the CPU by a flipped
+# face on each of the first 16 seeds, and the discriminator's gradient
+# follows its input)
+FAUNA_SMALL_OVERRIDES = [
+    "dataset.in_image_size=64",
+    "dataset.out_image_size=64",
+    "dataset.batch_size=2",
+    "dataset.dino_feature_dim=4",
+    "model.cfg_predictor_base.cfg_shape.grid_res=8",
+    "model.cfg_predictor_base.cfg_shape.grid_res_coarse=8",
+    "model.cfg_predictor_base.cfg_shape.num_layers=2",
+    "model.cfg_predictor_base.cfg_shape.hidden_size=32",
+    "model.cfg_predictor_base.cfg_dino.num_layers=2",
+    "model.cfg_predictor_base.cfg_dino.hidden_size=32",
+    "model.cfg_predictor_base.cfg_dino.feature_dim=4",
+    "model.cfg_predictor_base.cfg_bank.memory_bank_size=14",
+    "+model.cfg_predictor_base.cfg_bank.memory_bank_topk=3",
+    "model.cfg_predictor_instance.cfg_encoder.cout=32",
+    "model.cfg_predictor_instance.cfg_texture.num_layers=2",
+    "model.cfg_predictor_instance.cfg_texture.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_articulation.num_layers=1",
+    "model.cfg_predictor_instance.cfg_articulation.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_light.num_layers=2",
+    "model.cfg_predictor_instance.cfg_light.hidden_size=32",
+]
+CLI_FAUNA_CATEGORIES, CLI_FAUNA_IMAGES = ("bear", "horse"), 9
+
+
+def fauna_batch(model, B):
+    """`fake_batch` with the Fauna dataset's 9-column boxes."""
+    import torch
+    from animals3d_tpu_torch.data.synth import fake_batch
+    batch = fake_batch(model, B, SEED)
+    batch["bboxs"] = torch.zeros((B, 1, 9), device=model.device)
+    return batch
+
+
+def recorded_calls():
+    """A context in which every render's `rasterize_cuda` call keeps a copy
+    of its inputs (a visibility scene) and every `resolve_bwd` call its
+    cotangent and winner ids; yields ({"scenes", "k4"} lists)."""
+    import contextlib
+    import animals3d_tpu_torch.ops.rasterize as ro
+    import animals3d_tpu_torch.render.render as rr
+
+    @contextlib.contextmanager
+    def ctx():
+        rec = {"scenes": [], "k4": []}
+        real_r, real_b = rr.rasterize_cuda, ro.resolve_bwd
+
+        def rast(v_clip, faces, f_valid, res, **kw):
+            rec["scenes"].append((v_clip.detach().clone(),
+                                  kw["v_pos0"].detach().clone(),
+                                  faces.clone(), f_valid.clone(), tuple(res),
+                                  1024))
+            return real_r(v_clip, faces, f_valid, res, **kw)
+
+        def bwd(g, face_id, num_faces):
+            rec["k4"].append((g.detach().clone(), face_id.clone(),
+                              num_faces))
+            return real_b(g, face_id, num_faces)
+        rr.rasterize_cuda, ro.resolve_bwd = rast, bwd
+        try:
+            yield rec
+        finally:
+            rr.rasterize_cuda, ro.resolve_bwd = real_r, real_b
+    return ctx()
+
+
+def k4_call_check(name, call):
+    """K4 against its plain version on one recorded call: exact where no
+    face collects two pixels, else within 1e-5 of the largest entry (the
+    order of the float32 atomics changes from run to run)."""
+    import torch
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    g, fid, Fn = call
+    got = rv.resolve_bwd(g, fid, Fn)
+    torch.cuda.synchronize()
+    want = rv.resolve_bwd_reference(g, fid, Fn)
+    per_face = torch.bincount(fid[fid > 0].long())
+    err = float((got - want).abs().max())
+    tol = 0.0 if int(per_face.max()) <= 1 else 1e-5 * float(want.abs().max())
+    print(f"resolve_bwd[{name}]: {tuple(g.shape)} {str(g.dtype)[6:]} F={Fn} "
+          f"foreground px {int((fid > 0).sum())}, nonzero cotangent rows "
+          f"{int((g != 0).any(-1).sum())}, max|err| {err:.3g} (tol "
+          f"{tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"resolve_bwd[{name}] differs by {err}")
+
+
+def device_busy_ms(fn):
+    """The device's busy time (ms) of one `fn()`: the union of the CUDA
+    events' intervals that `torch.profiler` records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for s_, e_ in spans:
+        if e_ > end:
+            busy += e_ - max(s_, end)
+            end = e_
+    return busy / 1e3, len(spans)
+
+
+def fauna_slice():
+    """The full-width Fauna model (`train_fauna`: batch 6 at 256²,
+    dino_vits8 with random weights, bf16, DINO features of 16, bank 60 ×
+    128 with top 10, grid 128), its init state and sizes."""
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    cfg, model = build([], "cuda", "train_fauna")
+    set_mixed_precision(cfg.get("mixed_precision"))
+    state = {k: v.clone() for k, v in model.init_params(SEED).items()}
+    B = cfg["dataset"]["batch_size"]
+    phase = model.phase_for_iter(FAUNA_IT)
+    grid, v_cap, f_cap = model.grid_for_phase(phase)
+    bank = model.cfg_bank
+    vit = cfg["model"]["cfg_predictor_instance"]["cfg_encoder"]["which_vit"]
+    print(f"fauna: iter {FAUNA_IT} phase {phase} grid {grid.res} v_cap "
+          f"{v_cap} f_cap {f_cap} batch {B} {model.in_image_size}² {vit} "
+          f"compute {cfg.get('mixed_precision')} DINO features "
+          f"{model.dino_feature_dim} bank {bank.memory_bank_size} x "
+          f"{bank.memory_bank_dim} top {bank.memory_bank_topk}")
+    if not (phase.disc_on and phase.articulation_on and phase.attach_legs
+            and not phase.deform_on):
+        raise AssertionError(f"fauna: phase {phase}")
+    if model.netBase._use_fused_sweep(training=True):
+        raise AssertionError("fauna: the fused sweep is on for the "
+                             "modulated SDF")
+    if (v_cap, f_cap, grid.res) != (98304, 196608, 128):
+        raise AssertionError(f"fauna: caps {v_cap} {f_cap} grid {grid.res}")
+    return model, state, B
+
+
+def fauna_train_phase(model, state, B, card):
+    """Full-width Fauna steps at `FAUNA_IT`: `train_step` then the
+    discriminator's `disc_step` on the recorded masks, 1 warm-up and
+    `FAUNA_TIMED` timed, the launch counters set to 0 just before and read
+    just after (per step: the cull kernel and K1 twice, K4 once, K6 and K7
+    never); every loss finite (the loss on the batch with fixed draws is
+    printed before and after: Adam's first steps at netBase's lr 1e-3 from
+    random weights need not lower it); `netDisc` moved by its own Adam. Then, outside the counted run: one step's
+    device busy time, the plain modulated sweep alone (forward, and
+    forward + backward, over the jittered 129³ lattice), and K1, the cull
+    kernel and K4 against their plain versions on one step's own calls
+    (the input view's and the random view's meshes). Returns (launches,
+    summary)."""
+    import torch
+    from animals3d_tpu_torch.trainer import (disc_step, make_optimizer,
+                                             train_step)
+    model.load_state_dict(state)
+    batch = fauna_batch(model, B)
+    phase = model.phase_for_iter(FAUNA_IT)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fixed = draw_noise(model, torch.Generator().manual_seed(SEED), B)
+
+    def fixed_loss():
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        with torch.no_grad():
+            loss, _ = model.forward(batch, FAUNA_IT, g, phase, noise=fixed)
+        return float(loss)
+
+    def step():
+        met = train_step(model, opt, batch, FAUNA_IT, gen, phase)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dl = disc_step(model, opt, met.pop("_disc_record"))
+        return met, dl, t1
+    first = fixed_loss()
+    disc0 = {k: v.clone() for k, v in model.netDisc.state_dict().items()}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, gen_ms, disc_ms, losses, dlosses = [], [], [], [], []
+    steps = WARMUP_RUNS + FAUNA_TIMED
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met, dl, t1 = step()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i >= WARMUP_RUNS:
+            times.append((t2 - t0) * 1e3)
+            gen_ms.append((t1 - t0) * 1e3)
+            disc_ms.append((t2 - t1) * 1e3)
+        losses.append(float(met["loss"]))
+        dlosses.append(float(dl))
+    launches = check_counts("fauna_train", {
+        "cull_boxes": 2 * steps, "raster_vis": 2 * steps,
+        "resolve_bwd": steps})
+    peak = torch.cuda.max_memory_allocated()
+    last = fixed_loss()
+    if not (all(np.isfinite(losses)) and all(np.isfinite(dlosses))):
+        raise AssertionError(f"fauna_train: losses {losses} {dlosses}")
+    if not np.isfinite(last):
+        raise AssertionError(f"fauna_train: the loss on the trained batch "
+                             f"(same draws) went {first} -> {last}")
+    moved = sum(not torch.equal(disc0[k], v)
+                for k, v in model.netDisc.state_dict().items())
+    if moved != len(disc0) or len(opt.disc.state) != len(disc0):
+        raise AssertionError(f"fauna_train: {moved} of {len(disc0)} netDisc "
+                             "tensors moved")
+    med = statistics.median(times)
+    print(f"fauna_train: losses per step {[round(x, 4) for x in losses]}, "
+          f"discriminator {[round(x, 4) for x in dlosses]}; loss on the "
+          f"batch with fixed draws {first:.4f} -> {last:.4f}")
+    print(f"fauna_train: step (train_step + disc_step) median {med:.2f} ms "
+          f"per batch of {B} ({B / med * 1e3:.2f} imgs/s), min "
+          f"{min(times):.2f} max {max(times):.2f} ms over {len(times)} steps "
+          f"(spread {(max(times) - min(times)) / med * 100:.1f}%); "
+          f"train_step median {statistics.median(gen_ms):.2f} ms, disc_step "
+          f"median {statistics.median(disc_ms):.2f} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches in {steps} steps "
+          f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+    busy, n_events = device_busy_ms(step)
+    print(f"fauna_train: one step's device busy time {busy:.3f} ms "
+          f"({n_events} device events); card {card}")
+
+    # the plain modulated sweep alone, at the step's grid and condition
+    grid, _v, _f = model.grid_for_phase(phase)
+    shape_cfg = model.cfg_predictor_base.cfg_shape
+    pos = grid.verts * shape_cfg.spatial_scale
+    with torch.no_grad():
+        cls_tok = model.netInstance.frozen_vit_class_token(batch["images"])
+        feats = model.netBase.retrieve_memory_bank(cls_tok)[0][None]
+
+    def sweep_fwd():
+        with torch.no_grad():
+            return model.netBase.get_sdf(pos, feats)
+
+    def sweep_fwd_bwd():
+        model.netBase.get_sdf(pos, feats)[..., 0].sum().backward()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sweep_fwd_bwd()
+    sweep_peak = torch.cuda.max_memory_allocated() - base
+    fwd_ms = statistics.median(cuda_ms(sweep_fwd, 3))
+    fb_ms = statistics.median(cuda_ms(sweep_fwd_bwd, 3))
+    model.zero_grad(set_to_none=True)
+    print(f"fauna_train: the plain modulated sweep over {pos.shape[0]} "
+          f"lattice rows (CoordMLPMod, {shape_cfg.num_layers} x "
+          f"{shape_cfg.hidden_size}, float32 LinearMod): forward "
+          f"{fwd_ms:.2f} ms, forward + backward {fb_ms:.2f} ms "
+          + (f"({fb_ms / busy * 100:.1f}% of the step's device busy time), "
+             if busy > 0 else "(the profiler saw no device time), ")
+          + f"its own peak above the resident {sweep_peak / 2**30:.2f} GiB; "
+          f"card {card}")
+
+    # the kernels on one step's own calls, against their plain versions
+    with recorded_calls() as rec:
+        step()
+    torch.cuda.synchronize()
+    if len(rec["scenes"]) != 2 or len(rec["k4"]) != 1:
+        raise AssertionError(f"fauna_train: {len(rec['scenes'])} renders, "
+                             f"{len(rec['k4'])} resolve backwards")
+    for name, scene in zip(("fauna_input_view", "fauna_random_view"),
+                           rec["scenes"]):
+        k1_scene_check(name, scene)
+    k4_call_check("fauna_input_view", rec["k4"][0])
+    model.load_state_dict(state)
+    return launches, {"fauna_train": (med, peak),
+                      "fauna_train_disc_step": (statistics.median(disc_ms),
+                                                peak)}
+
+
+def fauna_recon_path(model, state, B, card):
+    """`reconstruct` of batch 6 through the bank (class tokens → the bank →
+    the conditioned prior → the instance forward → the input view), 1
+    warm-up and 5 timed, each kernel once a recon. Returns (launches,
+    median ms, peak bytes)."""
+    import torch
+    model.load_state_dict(state)
+    H = model.in_image_size
+    rng = np.random.default_rng(SEED)
+    images = torch.as_tensor(
+        rng.uniform(0, 1, (B, 1, 3, H, H)).astype(np.float32), device="cuda")
+    reset_counts()
+    shaded, out, times, renders = drive(model, images, FAUNA_IT)
+    launches = check_counts("fauna_recon", renders)
+    alpha = check_slice(shaded, out, B, H)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"fauna_recon: reconstruct median {med:.2f} ms per batch of {B} "
+          f"({B / med * 1e3:.2f} imgs/s), min {min(times):.2f} max "
+          f"{max(times):.2f} ms over {len(times)} runs, peak memory "
+          f"{peak / 2**30:.2f} GiB, mask px per image {alpha.tolist()}, "
+          f"launches in {renders} renders "
+          f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+    return launches, med, peak
+
+
+def cli_fauna_phase(card):
+    """`python -m animals3d_tpu_torch.run --config-name train_fauna` at full
+    width on a synthetic category tree (`large_scale/<category>`, 2
+    categories of `CLI_FAUNA_IMAGES` images at 256², DINO features of 16):
+    2 steps from a checkpoint of the init weights at `FAUNA_IT` (its
+    `disc` Adam state empty), whose checkpoint must hold `netDisc` and the
+    `disc` Adam's state; then a resume one step further, whose restored
+    `disc` Adam state must equal the saved one bit for bit. Returns
+    (launches, (median step ms, peak bytes))."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import checkpoint as ckpt
+    from animals3d_tpu_torch import run
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    from animals3d_tpu_torch.trainer import make_optimizer
+    root = tempfile.mkdtemp(prefix="chip_smoke_fauna_")
+    try:
+        data = os.path.join(root, "data")
+        for i, cat in enumerate(CLI_FAUNA_CATEGORIES):
+            write_synth_dataset(os.path.join(data, "large_scale", cat),
+                                n=CLI_FAUNA_IMAGES, size=CLI_SIZE,
+                                dino_dim=CLI_DINO, seed=10 + i)
+        out = os.path.join(root, "exp")
+        common = ["--config-name", "train_fauna",
+                  f"dataset.train_data_dir={data}",
+                  "dataset.val_data_dir=null", "dataset.test_data_dir=null",
+                  "log_loss_freq=1", "use_logger=false",
+                  f"checkpoint_dir={out}", "save_checkpoint_freq=5000"]
+        _cfg, model, trainer = run.build(common + [
+            f"num_iters={FAUNA_IT + 2}"])
+        model.init_params(SEED)
+        ckpt.save_checkpoint(out, FAUNA_IT, {
+            "model": model.state_dict(), **make_optimizer(model).state_dict()})
+        times = []
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_steps(times):
+            trainer.train()
+        launches = check_counts("cli_train_fauna", {
+            "cull_boxes": 4, "raster_vis": 4, "resolve_bwd": 2})
+        peak = torch.cuda.max_memory_allocated()
+        metrics = trainer.metrics_trace.data["train"]
+        if trainer.start_iter != FAUNA_IT or len(metrics) != 2 or not all(
+                np.isfinite([m["loss"], m["discriminator_loss"],
+                             m["mask_disc_loss"]]).all() for m in metrics):
+            raise AssertionError(f"cli_train_fauna: start "
+                                 f"{trainer.start_iter}, metrics {metrics}")
+        saved = ckpt.read_checkpoint(os.path.join(
+            out, f"checkpoint{FAUNA_IT + 2:07d}.pth"))
+        disc_state = saved["optimizer"]["disc"]["state"]
+        if not any(k.startswith("netDisc.") for k in saved["model"]) or \
+                len(disc_state) != len(list(model.netDisc.parameters())):
+            raise AssertionError("cli_train_fauna: the checkpoint lacks "
+                                 "netDisc or the disc Adam's state")
+        del model, trainer
+        torch.cuda.empty_cache()
+        _cfg, m2, tr2 = run.build(common + [f"num_iters={FAUNA_IT + 3}"])
+        opt, start = tr2.restore()
+        n_equal = 0
+        for i, st in disc_state.items():
+            for k, v in st.items():
+                if not torch.equal(opt.disc.state_dict()["state"][i][k]
+                                   .cpu(), v):
+                    raise AssertionError(f"cli_train_fauna: disc Adam "
+                                         f"state {i}/{k} differs")
+                n_equal += 1
+        if start != FAUNA_IT + 2:
+            raise AssertionError(f"cli_train_fauna: resume at {start}")
+        del m2, tr2, opt
+        with timed_steps(times):
+            resumed = run.main(common + [f"num_iters={FAUNA_IT + 3}"])
+        if resumed.start_iter != FAUNA_IT + 2 or not os.path.isfile(
+                os.path.join(out, f"checkpoint{FAUNA_IT + 3:07d}.pth")):
+            raise AssertionError("cli_train_fauna: the resume did not run")
+        losses = [m["loss"] for m in metrics] + \
+            [m["loss"] for m in resumed.metrics_trace.data["train"]]
+        print(f"cli_train_fauna: train_fauna on {len(CLI_FAUNA_CATEGORIES)} "
+              f"categories of {CLI_FAUNA_IMAGES} images at {CLI_SIZE}²: 2 "
+              f"steps from {FAUNA_IT} and a resume {FAUNA_IT + 2} -> "
+              f"{FAUNA_IT + 3} (restored disc Adam state equal to the saved "
+              f"one in all {n_equal} tensors); losses "
+              f"{[round(x, 4) for x in losses]}; discriminator losses "
+              f"{[round(m['discriminator_loss'], 4) for m in metrics]}; step "
+              f"ms {[round(x, 1) for x in times]}; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, (statistics.median(times), peak)
+
+
+# ---------------------------------------------------------------------------
 # the port's CLI at full width: train, resume, the fine grid, the test path
 # ---------------------------------------------------------------------------
 
@@ -1737,30 +2185,6 @@ def timed_steps(times):
             yield
         finally:
             trainer_mod.train_step = real
-    return ctx()
-
-
-def first_render_scene(record):
-    """A context in which the first `rasterize_cuda` call of the render
-    keeps a copy of its inputs in `record` (a visibility scene)."""
-    import contextlib
-    import animals3d_tpu_torch.render.render as rr
-
-    @contextlib.contextmanager
-    def ctx():
-        real = rr.rasterize_cuda
-
-        def recording(v_clip, faces, f_valid, res, **kw):
-            if not record:
-                record.append((v_clip.detach().clone(),
-                               kw["v_pos0"].detach().clone(), faces.clone(),
-                               f_valid.clone(), tuple(res), 1024))
-            return real(v_clip, faces, f_valid, res, **kw)
-        rr.rasterize_cuda = recording
-        try:
-            yield
-        finally:
-            rr.rasterize_cuda = real
     return ctx()
 
 
@@ -1897,11 +2321,11 @@ def cli_phase(card):
         grid, v_cap, f_cap = model.grid_for_phase(phase)
         print(f"cli_train_fine: iter {FINE_IT} phase {phase} grid {grid.res} "
               f"v_cap {v_cap} f_cap {f_cap}")
-        scene, times = [], []
+        times = []
         torch.cuda.synchronize()
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        with timed_steps(times), first_render_scene(scene):
+        with timed_steps(times), recorded_calls() as rec:
             trainer.train()
         peak = torch.cuda.max_memory_allocated()
         by_path["cli_train_fine"] = check_counts("cli_train_fine", 2)
@@ -1951,7 +2375,7 @@ def cli_phase(card):
         del tester
         torch.cuda.empty_cache()
         # K1 on the fine step's own posed meshes (after the counted runs)
-        k1_scene_check("train_fine", scene[0])
+        k1_scene_check("train_fine", rec["scenes"][0])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return by_path, summary
@@ -1978,6 +2402,8 @@ def main() -> int:
     reference_phase()
     train_reference_phase("train")
     train_reference_phase("train_v6_kernel_rows")
+    train_reference_phase("fauna_train", "train_fauna",
+                          FAUNA_SMALL_OVERRIDES, FAUNA_IT)
 
     model, images, it, B, H = slice_phase()
     from animals3d_tpu_torch.data.synth import fake_batch
@@ -2028,6 +2454,19 @@ def main() -> int:
     cli_by_path, cli_summary = cli_phase(card)
     by_path.update(cli_by_path)
     summary.update(cli_summary)
+
+    # 3D-Fauna: the step, the recon and the CLI at the width of train_fauna
+    del model, m4, m6, again, shaded, s6, state
+    torch.cuda.empty_cache()
+    fauna, fstate, fB = fauna_slice()
+    by_path["fauna_train"], fsum = fauna_train_phase(fauna, fstate, fB, card)
+    summary.update(fsum)
+    by_path["fauna_recon"], *summary["fauna_recon"] = fauna_recon_path(
+        fauna, fstate, fB, card)
+    del fauna, fstate
+    torch.cuda.empty_cache()
+    by_path["cli_train_fauna"], summary["cli_train_fauna"] = \
+        cli_fauna_phase(card)
     print("paths (ms, peak GiB): " + ", ".join(
         f"{k} {ms:.2f} ms {peak / 2**30:.2f} GiB"
         for k, (ms, peak) in summary.items()) + f"; card {card}")

@@ -1008,3 +1008,180 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
                 assert torch.equal(got[i][k].to(v.device), v), (name, i, k)
                 if k != "step":
                     assert got[i][k].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# 3D-Fauna at a small width
+# ---------------------------------------------------------------------------
+
+FAUNA_CARD_OVERRIDES = [
+    "dataset.in_image_size=64", "dataset.out_image_size=64",
+    "dataset.batch_size=2", "dataset.dino_feature_dim=4",
+    "model.cfg_predictor_base.cfg_shape.grid_res=16",
+    "model.cfg_predictor_base.cfg_shape.grid_res_coarse=16",
+    "model.cfg_predictor_base.cfg_shape.num_layers=2",
+    "model.cfg_predictor_base.cfg_shape.hidden_size=32",
+    "model.cfg_predictor_base.cfg_dino.num_layers=2",
+    "model.cfg_predictor_base.cfg_dino.hidden_size=32",
+    "model.cfg_predictor_base.cfg_dino.feature_dim=4",
+    "model.cfg_predictor_base.cfg_bank.memory_bank_size=14",
+    "+model.cfg_predictor_base.cfg_bank.memory_bank_topk=3",
+    "model.cfg_predictor_instance.cfg_encoder.cout=32",
+    "model.cfg_predictor_instance.cfg_texture.num_layers=2",
+    "model.cfg_predictor_instance.cfg_texture.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_articulation.num_layers=1",
+    "model.cfg_predictor_instance.cfg_articulation.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_light.num_layers=2",
+    "model.cfg_predictor_instance.cfg_light.hidden_size=32"]
+
+
+def _fauna(overrides=()):
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch.models import build_model
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    set_mixed_precision(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfglib.load_config("train_fauna", overrides=FAUNA_CARD_OVERRIDES
+                             + list(overrides))
+    model = build_model(dict(cfg["model"], dataset=cfg["dataset"]),
+                        device="cuda")
+    model.init_params(0)
+    return model
+
+
+def _fauna_batch(model):
+    from animals3d_tpu_torch.data.synth import fake_batch
+    batch = fake_batch(model, 2)
+    batch["bboxs"] = torch.zeros((2, 1, 9), device="cuda")
+    return batch
+
+
+def _fauna_kernels():
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    return (rc.cull, rc.visibility, rv.resolve_bwd, fm.fused_mlp_fwd,
+            fm.fused_mlp_bwd)
+
+
+def test_fauna_step_and_recon_on_card(card):
+    """A float32 Fauna `train_step` inside the discriminator window, then
+    its `disc_step`, and a `reconstruct` through the bank, on the card: per
+    step the cull kernel and K1 twice (input and random view), K4 once,
+    K6 and K7 never (the modulated SDF keeps the fused sweep off); the
+    generator step moves netBase (the bank among it) and netInstance but
+    not netDisc, the discriminator step moves netDisc alone; per recon
+    the cull kernel and K1 once."""
+    from animals3d_tpu_torch.trainer import (disc_step, make_optimizer,
+                                             train_step)
+    model = _fauna()
+    batch = _fauna_batch(model)
+    kernels = _fauna_kernels()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    counts = [k.launches for k in kernels]
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    met = train_step(model, opt, batch, 100000, gen)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == \
+        [2, 2, 1, 0, 0]
+    assert np.isfinite(float(met["loss"])) and "mask_disc_loss" in met
+    mid = {k: v.clone() for k, v in model.state_dict().items()}
+    for k, v in mid.items():
+        moved = not torch.equal(v, before[k])
+        if k.startswith("netDisc.") or ".ViT." in k:
+            assert not moved, k
+    assert not torch.equal(mid["netBase.memory_bank"],
+                           before["netBase.memory_bank"])
+    loss = disc_step(model, opt, met["_disc_record"])
+    assert np.isfinite(float(loss))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, mid[k]) != k.startswith("netDisc."), k
+    counts = [k.launches for k in kernels]
+    images = batch["images"]
+    shaded, out = model.reconstruct(model, images, 100000)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == \
+        [1, 1, 0, 0, 0]
+    assert shaded.shape == (2, 4, 64, 64)
+    assert bool(torch.isfinite(shaded).all()) and float(shaded[:, 3].sum()) > 0
+
+
+def test_kernels_on_a_fauna_random_view_equal_plain_versions(card):
+    """K1 and the cull kernel bit for bit their plain versions on the
+    random view's posed meshes of a Fauna step (cameras from any azimuth
+    about the predicted translation), and K4 within 1e-5 of the largest
+    entry on the step's own cotangent."""
+    import animals3d_tpu_torch.ops.rasterize as ro
+    import animals3d_tpu_torch.render.render as rr
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    model = _fauna()
+    batch = _fauna_batch(model)
+    scenes, calls = [], []
+    real_r, real_b = rr.rasterize_cuda, ro.resolve_bwd
+
+    def rast(v_clip, faces, f_valid, res, **kw):
+        scenes.append((v_clip.detach().clone(), kw["v_pos0"].detach(),
+                       faces, f_valid, res))
+        return real_r(v_clip, faces, f_valid, res, **kw)
+
+    def bwd(g, face_id, num_faces):
+        calls.append((g.detach().clone(), face_id.clone(), num_faces))
+        return real_b(g, face_id, num_faces)
+    rr.rasterize_cuda, ro.resolve_bwd = rast, bwd
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        loss, _ = model.forward(batch, 100000, gen)
+        loss.backward()
+    finally:
+        rr.rasterize_cuda, ro.resolve_bwd = real_r, real_b
+    assert len(scenes) == 2 and len(calls) == 1
+    for v_clip, v0, faces, f_valid, res in scenes:
+        prep = rc.prepare(v_clip, v0, faces, f_valid, res)
+        assert torch.equal(prep["fbox"], rc.cull_boxes(prep["table"], res))
+        args = (prep["table"], prep["orig"], prep["order"], prep["counts"],
+                prep["masks"], prep["zlo"])
+        got = rc.visibility(*args, prep["fbox"], res, prep["nsub"])
+        want = rc.visibility_reference(*args, res, prep["nsub"])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int((got[1] > 0).sum()) > 0
+    g, fid, Fn = calls[0]
+    got = rv.resolve_bwd(g, fid, Fn)
+    want = rv.resolve_bwd_reference(g, fid, Fn)
+    assert float((got - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+
+
+def test_fauna_checkpoint_round_trip_with_the_disc_adam_on_card(card,
+                                                                tmp_path):
+    """A Fauna checkpoint after a generator and a discriminator step on the
+    card reloads onto the card: the model (netDisc and the bank among it)
+    and every optimizer's state, the `disc` Adam's included, bit for
+    bit."""
+    from animals3d_tpu_torch import checkpoint as ckpt
+    from animals3d_tpu_torch.trainer import (disc_step, make_optimizer,
+                                             train_step)
+    model = _fauna()
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    met = train_step(model, opt, _fauna_batch(model), 100000, gen)
+    disc_step(model, opt, met["_disc_record"])
+    ckpt.save_checkpoint(str(tmp_path), 100001,
+                         {"model": model.state_dict(), **opt.state_dict()})
+    other = _fauna()
+    other.init_params(1)
+    opt2 = make_optimizer(other)
+    assert ckpt.load_checkpoint(str(tmp_path), other, opt2,
+                                map_location="cuda") == 100001
+    for k, v in model.state_dict().items():
+        assert torch.equal(other.state_dict()[k], v), k
+    want_all, got_all = opt.state_dict()["optimizer"], \
+        opt2.state_dict()["optimizer"]
+    assert set(want_all) == {"base", "instance", "disc"}
+    for name, sd in want_all.items():
+        assert set(got_all[name]["state"]) == set(sd["state"]) != set()
+        for i, st in sd["state"].items():
+            for k, v in st.items():
+                assert torch.equal(got_all[name]["state"][i][k]
+                                   .to(v.device), v), (name, i, k)

@@ -35,7 +35,7 @@ def priors(pair):
     jmesh, jsdf = jm.netBase.apply({"params": jp["netBase"]}, jgrid, v_cap,
                                    f_cap, IT, None)
     tgrid, _, _ = tm.grid_for_phase(tm.phase_for_iter(IT))
-    tmesh, tsdf = tm.forward_base(tgrid, v_cap, f_cap)
+    tmesh, tsdf, *_ = tm.forward_base(tgrid, v_cap, f_cap)
     assert int(tmesh.num_verts) == int(jmesh.num_verts) > 50
     return jgrid, jmesh, jsdf, tgrid, tmesh, tsdf
 

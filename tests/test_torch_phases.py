@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 
 from test_torch_train import (Pair, gradient_gaps, leaf_tolerance,
-                              search_step)
+                              search_steps)
 from torch_parity import TRAIN_OVERRIDES, flat_tree, numpy_tree
 
 COARSE, FINE = 8, 10
@@ -63,7 +63,9 @@ ITERS = list(PHASES)
 
 class Phases:
     """One `Pair` per iteration, all on one pair of models, and the
-    `search_step` of each (a failed search is kept and fails again)."""
+    search of each (`search_steps`: every iteration's in one child
+    process, on the first call; a failed search is kept and fails
+    again)."""
 
     def __init__(self):
         self.pairs, self.steps = {}, {}
@@ -76,13 +78,11 @@ class Phases:
         return self.pairs[it]
 
     def step(self, it):
-        if it not in self.steps:
-            try:
-                self.steps[it] = search_step(self.pair(it))
-            except pytest.fail.Exception as e:
-                self.steps[it] = f"iteration {it}: {e}"
-            else:
-                print(f"iteration {it}: key {self.steps[it]['seed']}")
+        if not self.steps:
+            self.steps = search_steps({i: self.pair(i) for i in ITERS})
+            for i, s in self.steps.items():
+                print(s if isinstance(s, str)
+                      else f"iteration {i}: key {s['seed']}")
         if isinstance(self.steps[it], str):
             pytest.fail(self.steps[it])
         return self.steps[it]

@@ -90,7 +90,7 @@ def test_get_prior_mesh(res):
         tm.phase_for_iter(50000, is_training=False))
     assert (tgrid.res, tv_cap, tf_cap) == (grid.res, v_cap, f_cap)
     with torch.no_grad():
-        got, sdf = tm.forward_base(tgrid, tv_cap, tf_cap)
+        got, sdf, *_ = tm.forward_base(tgrid, tv_cap, tf_cap)
     np.testing.assert_allclose(to_np(sdf), np.asarray(sdf_want), atol=1e-6,
                                rtol=1e-5)
     assert int(got.num_faces) > 0

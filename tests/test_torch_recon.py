@@ -153,7 +153,9 @@ def test_port_imports_no_jax():
     for new in ("ops/fused_mlp.py", "ops/resolve_cuda.py", "trainer.py",
                 "noise.py", "data/synth.py", "models/animal.py", "run.py",
                 "checkpoint.py", "data/loaders.py", "native.py",
-                "utils/results_io.py"):
+                "utils/results_io.py", "models/fauna.py",
+                "predictors/bank.py", "predictors/fauna.py",
+                "networks/discriminator.py", "data/fauna_dataset.py"):
         assert os.path.join("animals3d_tpu_torch", new) in scanned, new
     banned = ("jax", "flax", "optax", "orbax", "animals3d_tpu")
     for path in files:

@@ -59,6 +59,7 @@ from animals3d_tpu_torch.ops.rasterize_cuda import rasterize_cuda
 from animals3d_tpu_torch.precision import set_mixed_precision
 from animals3d_tpu_torch.render.camera import xfm_points as tpu_xfm
 from animals3d_tpu_torch.trainer import make_optimizer, train_step
+import torch_search
 from torch_parity import (TRAIN_OVERRIDES, batch_to, build_pair,
                           fake_batch_np, flat_tree, jax_noise, numpy_tree)
 
@@ -222,15 +223,17 @@ class Pair:
     `models` from another `Pair`), the dark batch, and the training
     forward at iteration `it` (default `IT`)."""
 
-    def __init__(self, it=IT, overrides=TRAIN_OVERRIDES, models=None):
+    def __init__(self, it=IT, overrides=TRAIN_OVERRIDES, models=None,
+                 batch_size=2):
         set_mixed_precision(None)
         self.it = it
+        self.overrides = list(overrides)
         self.jm, self.jp, self.tm = models or build_pair(overrides)
         self.init_state = {k: v.clone() for k, v in
                            self.tm.state_dict().items()}
         self.phase = self.jm.phase_for_iter(it)
         self.tphase = self.tm.phase_for_iter(it)
-        self.batch = fake_batch_np(0)
+        self.batch = fake_batch_np(0, B=batch_size)
         for k in ("images", "dino_features"):
             self.batch[k] = (self.batch[k] * DARK).astype(np.float32)
         self.jbatch = batch_to(self.batch, jnp.asarray)
@@ -369,17 +372,24 @@ class Pair:
         self.tm.load_state_dict(self.init_state)
         self.tm.zero_grad(set_to_none=True)
 
+    def other_views_agree(self, rng, jout, tout):
+        """Whether the decisions of renders beyond the input view agree
+        (`search_here`); MagicPony renders none. `jout` and `tout` are
+        each package's (metrics, aux)."""
+        return True
+
     def noise(self, rng):
         """The JAX forward's draws for `rng`; the surface indices need the
         jittered prior's vertex count, which is exact between the two
         packages (`tests/test_torch_prior.py`)."""
         K = self.tm.netInstance.num_pose_hypos
-        first = jax_noise(rng, 2, K)
+        n = self.batch["images"].shape[0]
+        first = jax_noise(rng, n, K)
         grid, v_cap, f_cap = self.tm.grid_for_phase(self.tphase)
         with torch.no_grad():
-            prior, _ = self.tm.forward_base(grid, v_cap, f_cap,
-                                            jitter=first.jitter_u)
-        return jax_noise(rng, 2, K, int(prior.num_verts))
+            prior, _sdf, *_ = self.tm.forward_base(
+                grid, v_cap, f_cap, jitter=first.jitter_u, batch=self.tbatch)
+        return jax_noise(rng, n, K, int(prior.num_verts))
 
 
 @pytest.fixture(scope="module")
@@ -387,13 +397,14 @@ def pair():
     return Pair()
 
 
-def search_step(pair):
+def search_here(pair):
     """One forward and backward of both packages at `pair.it`, at the
     first key on which their discrete decisions agree: feet and faces
     (`forward_agrees`), the antialias blend branches
     (`same_blend_branches`) and, where it matters, the texture field's
     ReLUs (`Pair.relu_tie`). Keys skipped for one of the last two ties are
-    kept in `pair.tie_keys` and `pair.relu_keys`."""
+    kept in `pair.tie_keys` and `pair.relu_keys`. Runs in this process;
+    the tests call `search_step`, which runs it in a child."""
     pair.reset()
     for seed in range(MAX_KEYS):
         rng = jax.random.PRNGKey(seed)
@@ -402,7 +413,8 @@ def search_step(pair):
             pair.tbatch, pair.it, None, pair.tphase, noise=pair.noise(rng))
         if not forward_agrees(jaux, taux):
             continue
-        if not same_blend_branches(jaux, taux):
+        if not same_blend_branches(jaux, taux) or \
+                not pair.other_views_agree(rng, (jmet, jaux), (tmet, taux)):
             pair.tie_keys.append(seed)
             continue
         if not pair.relu_tie(rng, taux):
@@ -417,6 +429,52 @@ def search_step(pair):
     return dict(seed=seed, jloss=jloss, jmet=jmet, jaux=jaux, jgrads=jgrads,
                 tloss=tloss.detach(), tmet=tmet, taux=taux, tgrads=grads,
                 no_grad=none)
+
+
+def child_search(its, overrides):
+    """`search_here` at each iteration of `its` on one pair of models
+    built from `overrides` (`torch_search`'s child calls this): {it:
+    (the step, tie keys, ReLU keys)}, or {it: the failure's message}."""
+    out, first = {}, None
+    for it in its:
+        pair = Pair(it, overrides, models=first and (first.jm, first.jp,
+                                                     first.tm))
+        first = first or pair
+        try:
+            out[it] = (search_here(pair), pair.tie_keys, pair.relu_keys)
+        except pytest.fail.Exception as e:
+            out[it] = f"iteration {it}: {e}"
+    return out
+
+
+def search_steps(pairs, module="test_torch_train"):
+    """`search_here` for each {iteration: Pair} (all from one set of
+    overrides), run in one child process with passive OpenMP waits
+    (`torch_search`: under tier-1's six workers a rejected key costs
+    ~35 s of spinning threads here, ~1 s there). Each pair gets its
+    `tie_keys` and `relu_keys`; returns {it: step, or the failure's
+    message}. `module` names the test module whose `child_search` builds
+    the pairs there. The step's JAX values come back as numpy arrays and the
+    port's as detached tensors: the same numbers, and the tests that
+    recompute a step here hold them to it (`tloss`, rtol 1e-6)."""
+    overrides = {tuple(p.overrides) for p in pairs.values()}
+    assert len(overrides) == 1, "one set of overrides per child"
+    got = torch_search.in_child(module, list(pairs), list(overrides.pop()))
+    out = {}
+    for it, pair in pairs.items():
+        if isinstance(got[it], str):
+            out[it] = got[it]
+            continue
+        out[it], pair.tie_keys, pair.relu_keys = got[it]
+    return out
+
+
+def search_step(pair):
+    """`search_here` at `pair.it`, run in a child (`search_steps`)."""
+    s = search_steps({pair.it: pair})[pair.it]
+    if isinstance(s, str):
+        pytest.fail(s)
+    return s
 
 
 @pytest.fixture(scope="module")

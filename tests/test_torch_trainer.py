@@ -350,8 +350,8 @@ def test_first_three_losses_match_the_jax_trainer(synth_dir, tmp_path):
         n = batch["images"].shape[0] * batch["images"].shape[1]
         g, v_cap, f_cap = tm.grid_for_phase(phase)
         with torch.no_grad():
-            prior, _ = tm.forward_base(g, v_cap, f_cap,
-                                       jitter=jax_noise(r, n, K).jitter_u)
+            prior, _sdf, *_ = tm.forward_base(
+                g, v_cap, f_cap, jitter=jax_noise(r, n, K).jitter_u)
         return real_forward(batch, total_iter, gen, phase, grid,
                             noise=jax_noise(r, n, K, int(prior.num_verts)))
     tm.forward = forward

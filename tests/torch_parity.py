@@ -22,15 +22,18 @@ def numpy_tree(params):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def build_pair(overrides=TINY_OVERRIDES):
-    """(JAX model, its init params, port model carrying the same weights)."""
-    cfg = jcfg.load_config("train_magicpony_horse", overrides=overrides)
+def build_pair(overrides=TINY_OVERRIDES, config="train_magicpony_horse",
+               iters=(0, 50000)):
+    """(JAX model, its init params, port model carrying the same weights)
+    of `config` with `overrides`; the grids of `iters`' phases are loaded
+    outside the traced init."""
+    cfg = jcfg.load_config(config, overrides=overrides)
     cfg["model"]["dataset"] = cfg["dataset"]
     jm = jbuild(cfg["model"])
-    for it in (0, 50000):       # cache the grids outside the traced init
+    for it in iters:
         jm.grid_for_phase(jm.phase_for_iter(it))
     jp = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
-    tcfg_ = tcfg.load_config("train_magicpony_horse", overrides=overrides)
+    tcfg_ = tcfg.load_config(config, overrides=overrides)
     tcfg_["model"]["dataset"] = tcfg_["dataset"]
     tm = tbuild(tcfg_["model"], device="cpu")
     load_jax_params(tm, numpy_tree(jp))
@@ -187,8 +190,9 @@ def batch_to(batch, conv):
 def jax_noise(rng, n_images, num_hypos, num_verts=None):
     """The draws `AnimalModel.forward` makes from `rng`, reproduced by
     splitting the key as the JAX code does (`models/animal.py:415` →
-    `predictors/instance.py:534,293-297`; `predictors/base.py:170,227-237`),
-    as a port `Noise`. `surf_idx` needs the prior mesh's vertex count."""
+    `predictors/instance.py:534,293-297`; `predictors/base.py:170,227-237`;
+    Fauna's random view `models/fauna.py:178` from `rngs[3]`), as a port
+    `Noise`. `surf_idx` needs the prior mesh's vertex count."""
     from animals3d_tpu_torch.noise import Noise
     rngs = jax.random.split(rng, 5)
     jitter_u = jax.random.uniform(rngs[0], ())
@@ -205,7 +209,8 @@ def jax_noise(rng, n_images, num_hypos, num_verts=None):
     return Noise(jitter_u=t(jitter_u), rand_idx=t(rand_idx), best_u=t(best_u),
                  rand_pts_u=t(jax.random.uniform(e1, (n, 3))),
                  surf_idx=surf_idx,
-                 surf_u=t(jax.random.uniform(e3, (n, 3))))
+                 surf_u=t(jax.random.uniform(e3, (n, 3))),
+                 rv_deg=t(jax.random.randint(rngs[3], (n_images,), 0, 360)))
 
 
 def flat_tree(tree, prefix=()):
@@ -217,3 +222,4 @@ def flat_tree(tree, prefix=()):
         else:
             out[prefix + (k,)] = np.asarray(v)
     return out
+
