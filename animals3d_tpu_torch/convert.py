@@ -16,7 +16,9 @@ dicts onto the flax parameter tree's layout, which
 
 Fauna's parts are here too: the mod-demod SDF (`convert_coord_mlp_mod`),
 the memory bank and its keys, and the mask discriminator
-(`convert_discriminator`). The VGG and ResNet encoders and the motion VAE
+(`convert_discriminator`); and Ponymation's motion VAE
+(`convert_motion_vae`: torch `nn.MultiheadAttention`'s packed
+`in_proj_weight` splits into q, k and v). The VGG and ResNet encoders
 are not ported, and neither are their remaps.
 """
 from __future__ import annotations
@@ -154,6 +156,61 @@ def convert_articulation_net(sd, num_layers, architecture="attention"):
     return out
 
 
+def convert_mha(sd, prefix):
+    """torch `nn.MultiheadAttention` → `networks.motion_vae.MHA`: the
+    packed `in_proj_weight` / `in_proj_bias` split into q, k and v."""
+    w = _t(sd[f"{prefix}.in_proj_weight"])
+    b = _t(sd[f"{prefix}.in_proj_bias"])
+    d = w.shape[0] // 3
+    return {"q": {"kernel": w[:d].T, "bias": b[:d]},
+            "k": {"kernel": w[d:2 * d].T, "bias": b[d:2 * d]},
+            "v": {"kernel": w[2 * d:].T, "bias": b[2 * d:]},
+            "proj": linear(sd, f"{prefix}.out_proj")}
+
+
+def convert_transformer_enc_layer(sd):
+    return {"self_attn": convert_mha(sd, "self_attn"),
+            "linear1": linear(sd, "linear1"),
+            "linear2": linear(sd, "linear2"),
+            "norm1": norm(sd, "norm1"), "norm2": norm(sd, "norm2")}
+
+
+def convert_transformer_dec_layer(sd):
+    return {"self_attn": convert_mha(sd, "self_attn"),
+            "cross_attn": convert_mha(sd, "multihead_attn"),
+            "linear1": linear(sd, "linear1"),
+            "linear2": linear(sd, "linear2"),
+            "norm1": norm(sd, "norm1"), "norm2": norm(sd, "norm2"),
+            "norm3": norm(sd, "norm3")}
+
+
+def convert_motion_vae(sd, num_layers=4):
+    """The reference's ArticulationVAE (`MotionVAE.py:130-222`)."""
+    enc = sub(sd, "encoder")
+    dec = sub(sd, "decoder")
+    out = {
+        "in_dense": linear(sd, "in_layer.0"),
+        "in_norm": norm(sd, "in_layer.2"),
+        "encoder": {
+            "boneFeatQuery": _t(enc["boneFeatQuery"]),
+            "muQuery": _t(enc["muQuery"]),
+            "sigmaQuery": _t(enc["sigmaQuery"]),
+            "skelEmbedding": linear(enc, "skelEmbedding"),
+        },
+        "decoder": {"finallayer": linear(dec, "finallayer")},
+    }
+    for i in range(num_layers):
+        out["encoder"][f"bone_{i}"] = convert_transformer_enc_layer(
+            sub(enc, f"boneTransEncoder.layers.{i}"))
+        out["encoder"][f"seq_{i}"] = convert_transformer_enc_layer(
+            sub(enc, f"seqTransEncoder.layers.{i}"))
+        out["decoder"][f"seq_{i}"] = convert_transformer_dec_layer(
+            sub(dec, f"seqTransDecoder.layers.{i}"))
+        out["decoder"][f"bone_{i}"] = convert_transformer_dec_layer(
+            sub(dec, f"boneTransDecoder.layers.{i}"))
+    return out
+
+
 def convert_directional_light(sd, num_layers):
     return {"mlp": convert_mlp(sub(sd, "mlp"), num_layers)}
 
@@ -194,6 +251,9 @@ def convert_net_instance(sd, model):
     if any(k.startswith("netLight") for k in sd):
         out["netLight"] = convert_directional_light(
             sub(sd, "netLight"), cfg.cfg_light.num_layers)
+    if any(k.startswith("netVAE") for k in sd):
+        out["netVAE"] = convert_motion_vae(
+            sub(sd, "netVAE"), model.cfg_motion_vae.transformer_layer_num)
     return out
 
 

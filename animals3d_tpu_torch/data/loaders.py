@@ -25,7 +25,7 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class DataLoaderConfig:
-    data_type: str = "image"               # image | fauna (sequence: A11)
+    data_type: str = "image"               # image | sequence | fauna
     batch_size: int = 64
     num_workers: int = 4
     in_image_size: int = 256
@@ -35,11 +35,18 @@ class DataLoaderConfig:
     test_data_dir: Optional[str] = None
     random_shuffle_samples_train: bool = False
     random_xflip_train: bool = False
+    load_flow: bool = False
+    load_background: bool = False
     load_dino_feature: bool = False
     load_dino_cluster: bool = False
     dino_feature_dim: int = 64
     background_mode: str = "none"
     num_frames: int = 1
+    # sequence extras
+    skip_beginning: int = 4
+    skip_end: int = 4
+    min_seq_len: int = 10
+    random_sample_train_frames: bool = False
     # Fauna's pseudo-category split (`Trainer.remake_dataloader_iter`)
     dataset_split_num: int = -1
 
@@ -150,18 +157,27 @@ def _build_dataset(cfg: DataLoaderConfig, data_dir: str, is_train: bool):
                   load_background=cfg.background_mode == "background",
                   random_xflip=cfg.random_xflip_train and is_train,
                   load_dino_feature=cfg.load_dino_feature,
-                  load_dino_cluster=cfg.load_dino_cluster,
                   dino_feature_dim=cfg.dino_feature_dim)
     if cfg.data_type == "image":
         from animals3d_tpu_torch.data.image_dataset import ImageDataset
-        return ImageDataset(data_dir, **common)
+        return ImageDataset(data_dir, load_dino_cluster=cfg.load_dino_cluster,
+                            **common)
+    if cfg.data_type == "sequence":
+        from animals3d_tpu_torch.data.sequence_dataset import \
+            NFrameSequenceDataset
+        return NFrameSequenceDataset(
+            data_dir, num_frames=cfg.num_frames,
+            skip_beginning=cfg.skip_beginning, skip_end=cfg.skip_end,
+            min_seq_len=cfg.min_seq_len, load_flow=cfg.load_flow,
+            random_sample=cfg.random_sample_train_frames and is_train,
+            **common)
     if cfg.data_type == "fauna":
         from animals3d_tpu_torch.data.fauna_dataset import FaunaDataset
         return FaunaDataset(data_dir, batch_size=cfg.batch_size,
                             num_frames=cfg.num_frames,
+                            load_dino_cluster=cfg.load_dino_cluster,
                             dataset_split_num=cfg.dataset_split_num, **common)
-    raise NotImplementedError(
-        f"data_type {cfg.data_type!r} is not ported (ROADMAP A11)")
+    raise NotImplementedError(f"data_type {cfg.data_type!r}")
 
 
 def get_data_loaders(cfg: DataLoaderConfig):

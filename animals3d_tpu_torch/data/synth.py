@@ -4,11 +4,14 @@ image folders in the reference's on-disk format (port of
 
 `write_synth_dataset` writes `<stem>rgb.jpg` + `mask.png` + `box.txt` +
 `feat<D>.png` with procedurally generated blob silhouettes, so the data
-pipeline and the training loop run without the real downloads. The same
-seed gives the same files as the JAX package's writer.
+pipeline and the training loop run without the real downloads; with
+`sequences`, one folder per sequence of `frames` frames, each with a
+16-bit RGB `flow.png` (written by `util.png_write`), and a
+`background_frame.jpg` per sequence. The same seed gives the same images
+and samples as the JAX package's writer.
 
 Usage: `python -m animals3d_tpu_torch.data.synth <out_dir> [--n 8]
-[--size 256] [--dino-dim 16] [--seed 0]`.
+[--size 256] [--dino-dim 16] [--seed 0] [--sequences 0] [--frames 10]`.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import torch
 
 
 def fake_batch(model, B: int, seed: int = 0) -> dict:
-    """A batch of the training forward's contract for `model`, on its
-    device: uniform random images, distance transforms and DINO features,
-    and a centred square mask."""
+    """A batch of the training forward's contract for `model` (B sequences
+    of the model's `num_frames` frames), on its device: uniform random
+    images, distance transforms and DINO features, and a centred square
+    mask; no flows."""
     H = model.in_image_size
     Fr = model.num_frames
     D = model.dino_feature_dim
@@ -79,12 +83,33 @@ def _write_background(dir_path: str, rng):
         .save(os.path.join(dir_path, "background_frame.jpg"))
 
 
+def _write_flow(stem: str, size: int, rng):
+    """A 16-bit RGB flow png of near-zero motion, u/v in the file's R and
+    G samples: the pixels the JAX package's writer gives cv2 (in BGR
+    order) for the same draws."""
+    from animals3d_tpu_torch.data.util import png_write
+    flow = (rng.uniform(0.48, 0.52, (size, size, 3)) * 65535) \
+        .astype(np.uint16)
+    png_write(stem + "flow.png", np.ascontiguousarray(flow[..., ::-1]))
+
+
 def write_synth_dataset(out_dir: str, n: int = 8, size: int = 256,
-                        dino_dim: int = 16, seed: int = 0):
-    """An image folder of `n` samples at `size`² (sequence folders are not
-    ported)."""
+                        dino_dim: int = 16, seed: int = 0,
+                        sequences: int = 0, frames: int = 10):
+    """An image folder of `n` samples at `size`², or with `sequences` that
+    many sequence folders of `frames` frames with flows."""
     rng = np.random.default_rng(seed)
     os.makedirs(out_dir, exist_ok=True)
+    if sequences:
+        for s in range(sequences):
+            d = os.path.join(out_dir, f"seq{s:03d}")
+            os.makedirs(d, exist_ok=True)
+            for f in range(frames):
+                stem = os.path.join(d, f"{f:06d}_")
+                _write_sample(stem, size, dino_dim, rng)
+                _write_flow(stem, size, rng)
+            _write_background(d, rng)
+        return out_dir
     for i in range(n):
         _write_sample(os.path.join(out_dir, f"{i:06d}_"), size, dino_dim, rng)
     _write_background(out_dir, rng)
@@ -98,7 +123,10 @@ if __name__ == "__main__":
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--dino-dim", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sequences", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=10)
     args = ap.parse_args()
     write_synth_dataset(args.out_dir, args.n, args.size, args.dino_dim,
-                        seed=args.seed)
+                        seed=args.seed, sequences=args.sequences,
+                        frames=args.frames)
     print(f"wrote synthetic dataset to {args.out_dir}")

@@ -10,10 +10,17 @@ preserved exactly:
   * DINO features packed 3 channels per tile horizontally (`util.py:58-74`);
   * crop-boundary validity mask from the box geometry (`util.py:94-105`).
 
+  * 16-bit flow PNGs decoded by a numpy/zlib PNG codec (`png_read`,
+    `png_write`): PIL keeps 8 bits of a 16-bit RGB PNG, and the port does
+    not require cv2.
+
 PIL and cv2 are imported inside the functions that use them, so the
 package imports without either.
 """
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -114,6 +121,126 @@ def dino_loader(fpath, n_channels: int) -> np.ndarray:
     if out is not None:
         return out
     return decode_feat_from_img(img, n_channels)
+
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}    # gray, RGB, gray-alpha, RGBA
+
+
+def _png_chunks(data: bytes):
+    pos = len(_PNG_SIG)
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        yield kind, data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+
+
+def _png_unfilter(raw: np.ndarray, h: int, row_bytes: int,
+                  bpp: int) -> np.ndarray:
+    """Undo the per-row filters (None, Sub, Up, Average, Paeth) of a
+    non-interlaced image: (h, row_bytes) uint8. A byte depends on its left
+    (bpp bytes before), upper and upper-left neighbours, so the rows are
+    undone together along anti-diagonals of pixels."""
+    rows = raw.reshape(h, row_bytes + 1)
+    ftype = rows[:, 0]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"PNG filter type {int(ftype.max())}")
+    x = rows[:, 1:].astype(np.int32).reshape(h, -1, bpp)
+    w = x.shape[1]
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)   # a zero row and column
+    r_all = np.arange(h)
+    for d in range(h + w - 1):
+        r = r_all[max(0, d - w + 1):min(h, d + 1)]
+        c = d - r
+        a = out[r + 1, c]                  # left
+        b = out[r, c + 1]                  # up
+        cc = out[r, c]                     # upper left
+        p = a + b - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, cc))
+        f = ftype[r][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[r + 1, c + 1] = (x[r, c] + pred) & 0xFF
+    return out[1:, 1:].reshape(h, row_bytes).astype(np.uint8)
+
+
+def png_read(path) -> np.ndarray:
+    """A PNG file → (H, W, C) array in the file's channel order (uint8 at
+    bit depth 8, uint16 at 16). Grayscale, RGB and their alpha forms,
+    non-interlaced; raises ValueError on any other form (palette images,
+    depths under 8, interlacing)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    ihdr, idat = None, []
+    for kind, body in _png_chunks(data):
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, comp, filt, interlace = ihdr
+    if color not in _PNG_CHANNELS or depth not in (8, 16) or comp or filt \
+            or interlace:
+        raise ValueError(f"{path}: PNG form (depth {depth}, color type "
+                         f"{color}, interlace {interlace}) not decoded")
+    ch = _PNG_CHANNELS[color]
+    bpp = ch * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (w * bpp + 1):
+        raise ValueError(f"{path}: {raw.size} bytes of image data for "
+                         f"{w}x{h}x{bpp}")
+    img = _png_unfilter(raw, h, w * bpp, bpp)
+    if depth == 16:
+        img = img.view(">u2").astype(np.uint16)
+    return img.reshape(h, w, ch)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    crc = zlib.crc32(kind + body) & 0xFFFFFFFF
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+
+def png_write(path, img: np.ndarray) -> None:
+    """(H, W, C) uint8 or uint16 (C 1, 2, 3 or 4) → a non-interlaced PNG,
+    every row with filter None."""
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"png_write: dtype {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    color = {v: k for k, v in _PNG_CHANNELS.items()}[ch]
+    depth = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(img.astype(">u2" if depth == 16 else
+                                           np.uint8)).view(np.uint8) \
+        .reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG
+                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                                  color, 0, 0, 0))
+                + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+                + _png_chunk(b"IEND", b""))
+
+
+def flow_loader(fpath) -> np.ndarray:
+    """16-bit flow png → (2, H, W) in [-1, 1]: the file's R and G samples
+    / 65535 · 2 − 1. (The reference reads the file with cv2 in BGR order
+    and flips the channels back to RGB, so its first two channels are the
+    file's R and G.)"""
+    import os
+    if not os.path.isfile(fpath):
+        raise FileNotFoundError(fpath)
+    arr = png_read(fpath).astype(np.float32)
+    flow = arr[..., :2] / 65535.0 * 2 - 1
+    return np.ascontiguousarray(flow.transpose(2, 0, 1))
 
 
 def get_valid_mask(box: np.ndarray, image_size: int) -> np.ndarray:

@@ -2,9 +2,9 @@ from animals3d_tpu_torch.models.animal import AnimalModel, AnimalModelConfig
 
 
 def build_model(cfg: dict, device="cuda", **render):
-    """Model factory: dispatch on cfg['name'] (MagicPony or Fauna;
-    Ponymation is not ported). `render` (raster_variant, resolve_rows)
-    goes to `AnimalModel`."""
+    """Model factory: dispatch on cfg['name'] (MagicPony, Fauna or
+    Ponymation). `render` (raster_variant, resolve_rows) goes to
+    `AnimalModel`."""
     name = cfg.get("name", "MagicPony")
     if name == "MagicPony":
         from animals3d_tpu_torch.models.magicpony import MagicPony
@@ -12,4 +12,7 @@ def build_model(cfg: dict, device="cuda", **render):
     if name == "Fauna":
         from animals3d_tpu_torch.models.fauna import Fauna
         return Fauna(cfg, device=device, **render)
+    if name == "Ponymation":
+        from animals3d_tpu_torch.models.ponymation import Ponymation
+        return Ponymation(cfg, device=device, **render)
     raise NotImplementedError(f"{name} is not ported yet")

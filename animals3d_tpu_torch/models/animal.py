@@ -12,12 +12,17 @@ backward pass. Subclasses hook in as in the JAX package: `make_net_base`
 and `make_net_instance` build the predictors, `forward_base` returns
 (prior mesh, sdf, class vector, bank aux) from the batch (Fauna's memory
 bank), and `extra_losses` adds to the total after the weighted sum
-(Fauna's mask discriminator). The flow loss and the sequence smoothness
-terms are not ported yet.
+(Fauna's mask discriminator; Ponymation's VAE losses), `render_cameras`
+picks the cameras the forward renders from (Ponymation's default view),
+`use_recon_losses` switches the reconstruction losses off (Ponymation's
+stage 2) and `frozen_param` names the parameters no optimizer steps
+(Ponymation's stages). Sequence data (F > 1) adds the flow loss, where
+the config renders flow and the batch has flows, and the temporal
+smoothness terms.
 
 Batch contract: a dict with images (B, F, 3, H, W) in [0, 1], masks
 (B, F, 1, H, W), mask_dt (B, F, 2, H, W), mask_valid (B, F, H, W),
-dino_features (B, F, D, h, w) or None.
+flows (B, F - 1, 2, H, W) or None, dino_features (B, F, D, h, w) or None.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from animals3d_tpu_torch.predictors import (BasePredictor, BasePredictorConfig,
                                             InstancePredictor,
                                             InstancePredictorConfig)
 from animals3d_tpu_torch.render.render import render_mesh
+from animals3d_tpu_torch.utils.smooth_loss import smooth_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +77,18 @@ class LossConfig:
     deform_reg_loss_weight: float = 10.0
     prior_normal_reg_loss_weight: float = 0.0
     instance_normal_reg_loss_weight: float = 0.0
+    # sequences: temporal smoothness, and Ponymation's stage-2 VAE losses
+    smooth_type: str = "dislocation"
+    loss_type: str = "l2"
+    arti_smooth_loss_weight: float = 0.0
+    deform_smooth_loss_weight: float = 0.0
+    campose_smooth_loss_weight: float = 0.0
+    camposevel_smooth_loss_weight: float = 0.0
+    artivel_smooth_loss_weight: float = 0.0
+    bone_smooth_loss_weight: float = 0.0
+    bonevel_smooth_loss_weight: float = 0.0
+    arti_recon_loss_weight: float = 0.0
+    kld_loss_weight: float = 0.001
     # Fauna: the generator's mask-discriminator loss, and the
     # iteration-scheduled dicts {start iteration: weight} in their order
     mask_disc_loss_weight: float = 0.1
@@ -227,9 +245,11 @@ class AnimalModel(nn.Module):
 
     def render(self, render_modes, shape, mvp, w2c, campos, resolution,
                im_features=None, light_params=None, prior_mesh=None,
-               use_dino: bool = False, background=None, class_vector=None):
+               use_dino: bool = False, background=None, class_vector=None,
+               num_frames=None):
         """`class_vector` (1 or N, dim) conditions the DINO field; one row
-        is broadcast to the N images."""
+        is broadcast to the N images. `num_frames` groups the images into
+        sequences for the flow mode."""
         h, w = resolution
         N = mvp.shape[0]
         material_fn = None
@@ -249,7 +269,7 @@ class AnimalModel(nn.Module):
                            background=background,
                            spp=self.cfg_render.renderer_spp,
                            render_modes=render_modes, prior_mesh=prior_mesh,
-                           dino_fn=dino_fn,
+                           dino_fn=dino_fn, num_frames=num_frames,
                            raster_variant=self.raster_variant,
                            resolve_rows=self.resolve_rows)
 
@@ -268,8 +288,12 @@ class AnimalModel(nn.Module):
     # -- losses -------------------------------------------------------------
     def compute_reconstruction_losses(self, image_pred, image_gt, mask_pred,
                                       mask_gt, mask_dt, mask_valid, dino_gt,
-                                      dino_pred, background_mode="none"):
-        """Per-(B, F) unreduced losses."""
+                                      dino_pred, background_mode="none",
+                                      flow_pred=None, flow_gt=None):
+        """Per-(B, F) unreduced losses; the flow loss (where both flows
+        (B, F - 1, 2, H, W) are given and F > 1) is per (B, F - 1): the
+        squared error at the pixels of both masks, zero for a frame pair
+        whose ground truth exceeds 0.5 in magnitude at any of them."""
         losses = {}
         B, Fr = image_pred.shape[:2]
 
@@ -295,6 +319,17 @@ class AnimalModel(nn.Module):
             rgb = rgb * both[:, :, None]
         losses["rgb_loss"] = mean_bf(rgb)
 
+        if flow_pred is not None and flow_gt is not None and Fr > 1:
+            fl = (flow_pred - flow_gt) ** 2
+            fl_mask = both[:, :-1, None].expand(flow_gt.shape)
+            large = ((flow_gt.abs() > 0.5) * fl_mask).reshape(B, Fr - 1, -1) \
+                .sum(2) > 0
+            fl = fl * fl_mask * (1 - large[:, :, None, None, None]
+                                 .to(fl.dtype))
+            denom = torch.clamp(fl_mask.reshape(B, Fr - 1, -1).sum(2),
+                                min=1.0)
+            losses["flow_loss"] = fl.reshape(B, Fr - 1, -1).sum(2) / denom
+
         if dino_pred is not None and dino_gt is not None:
             dl = (dino_pred - dino_gt) ** 2 * both[:, :, None]
             losses["dino_feat_im_loss"] = mean_bf(dl)
@@ -302,11 +337,16 @@ class AnimalModel(nn.Module):
 
     def compute_regularizers(self, grid, sdf, prior_mesh, gen=None,
                              noise: Noise = None, arti_params=None,
-                             deformation=None, class_vector=None):
+                             deformation=None, class_vector=None,
+                             pose_raw=None, posed_bones=None,
+                             batch_size: int = 1, num_frames: int = 1):
         """SDF regularizers (the eikonal term conditioned by the detached
         `class_vector` where there is one), articulation and deformation
-        magnitudes, and the prior's normal consistency (image data; the
-        sequence smoothness terms are not ported)."""
+        magnitudes, the prior's normal consistency and, on sequence data,
+        the temporal smoothness of the deformation, the articulation and
+        its velocity, the camera pose and its velocity, and the posed
+        bones and their velocity (`utils.smooth_loss`, each where its
+        weight is positive)."""
         feats = None if class_vector is None else class_vector.detach()
         losses = dict(self.netBase.sdf_reg_losses(grid, sdf, prior_mesh,
                                                   gen=gen, noise=noise,
@@ -325,8 +365,33 @@ class AnimalModel(nn.Module):
             losses["prior_normal_reg_loss"] = \
                 (diffs * w).sum() / torch.clamp(w.sum(), min=1.0)
         if "sequence" in self.data_type and self.num_frames > 1:
-            raise NotImplementedError(
-                "sequence smoothness losses are not ported")
+            cl = self.cfg_loss
+
+            def sm(x):
+                return smooth_loss(x, cl.smooth_type, cl.loss_type)
+            b, f = batch_size, num_frames
+            if cl.deform_smooth_loss_weight > 0 and deformation is not None:
+                losses["deform_smooth_loss"] = sm(expand_bf(deformation, b,
+                                                            f))
+            if arti_params is not None:
+                if cl.arti_smooth_loss_weight > 0:
+                    losses["arti_smooth_loss"] = sm(arti_params)
+                if cl.artivel_smooth_loss_weight > 0:
+                    losses["artivel_smooth_loss"] = sm(
+                        arti_params[:, 1:] - arti_params[:, :-1])
+            if pose_raw is not None:
+                campose = expand_bf(pose_raw, b, f)
+                if cl.campose_smooth_loss_weight > 0:
+                    losses["campose_smooth_loss"] = sm(campose)
+                if cl.camposevel_smooth_loss_weight > 0:
+                    losses["camposevel_smooth_loss"] = sm(
+                        campose[:, 1:] - campose[:, :-1])
+            if posed_bones is not None:
+                if cl.bone_smooth_loss_weight > 0:
+                    losses["bone_smooth_loss"] = sm(posed_bones)
+                if cl.bonevel_smooth_loss_weight > 0:
+                    losses["bonevel_smooth_loss"] = sm(
+                        posed_bones[:, 1:] - posed_bones[:, :-1])
         return losses
 
     # -- forwards -----------------------------------------------------------
@@ -357,8 +422,7 @@ class AnimalModel(nn.Module):
         mask_gt = (batch["masks"][:, :, 0] > 0.9).to(images.dtype)
         mask_dt = batch["mask_dt"] / self.in_image_size
         mask_valid = batch["mask_valid"]
-        if batch.get("flows") is not None and self.cfg_render.render_flow:
-            raise NotImplementedError("the flow loss is not ported")
+        flow_gt = batch.get("flows")
         dino_feat_im = batch.get("dino_features")
 
         dino_gt = None
@@ -369,6 +433,9 @@ class AnimalModel(nn.Module):
         if self.out_image_size != self.in_image_size:
             image_gt = expand_bf(resize_nchw(collapse_bf(image_gt), (h, w)),
                                  B, Fr)
+            if flow_gt is not None:
+                flow_gt = expand_bf(resize_nchw(collapse_bf(flow_gt),
+                                                (h, w)), B, Fr - 1)
 
         _g, v_cap, f_cap = self.grid_for_phase(phase)
         if grid is None:
@@ -385,26 +452,39 @@ class AnimalModel(nn.Module):
 
         final_losses = {}
         metrics = {}
-        mask_pred = image_pred = dino_pred = None
+        mask_pred = image_pred = dino_pred = flow_pred = None
         do_render = self.cfg_model.enable_render or not phase.is_training
         if do_render:
+            # the batch shrinks at generation time (1 sequence × F frames)
+            N_out = mvp.shape[0]
+            if N_out != B * Fr:
+                B = N_out // Fr
+            render_flow = self.cfg_render.render_flow and Fr > 1
+            render_modes = ["shaded", "dino_pred"] + \
+                (["flow"] if render_flow else [])
             bg_mode = self.cfg_render.background_mode
             if bg_mode in ("background", "input"):
                 raise NotImplementedError(
                     f"background_mode {bg_mode!r} in the training forward")
+            r_mvp, r_w2c, r_campos = self.render_cameras(mvp, w2c, campos)
             renders = self.render(
-                ["shaded", "dino_pred"], shape, mvp, w2c, campos, (h, w),
+                render_modes, shape, r_mvp, r_w2c, r_campos, (h, w),
                 im_features=im_features, light_params=light_params,
                 prior_mesh=prior_mesh, use_dino=True,
-                class_vector=class_vector)
+                class_vector=class_vector, num_frames=Fr)
             shaded = expand_bf(renders["shaded"], B, Fr)
             dino_pred = expand_bf(renders["dino_pred"], B, Fr)
+            if render_flow:
+                flow_pred = expand_bf(renders["flow"], B, Fr)[:, :-1]
             image_pred = shaded[:, :, :3]
             mask_pred = shaded[:, :, 3]
 
+        if do_render and self.use_recon_losses(phase) and \
+                image_pred.shape[:2] == image_gt.shape[:2]:
             losses = self.compute_reconstruction_losses(
                 image_pred, image_gt, mask_pred, mask_gt, mask_dt, mask_valid,
-                dino_gt, dino_pred, background_mode=bg_mode)
+                dino_gt, dino_pred, background_mode=bg_mode,
+                flow_pred=flow_pred, flow_gt=flow_gt)
 
             # hypothesis-probability weighting + logit loss
             rot_logit = fw_aux["rot_logit"]
@@ -413,10 +493,16 @@ class AnimalModel(nn.Module):
             logit_target = torch.zeros((B, Fr), dtype=images.dtype,
                                        device=images.device)
             for name, loss in losses.items():
+                # (B, F - 1) losses (flow) pad to (B, F) for the target
+                n = loss.shape[1]
+                loss_bf = loss if n == Fr else F.pad(loss, (0, Fr - n))
                 logit_target = logit_target \
-                    + loss * self.logit_weight(name, total_iter)
-                final_losses[name] = \
-                    (loss * rot_prob.reshape(B, Fr) * num_hypos).mean()
+                    + loss_bf * self.logit_weight(name, total_iter)
+                loss = loss * rot_prob.reshape(B, Fr)[:, :n] * num_hypos
+                if name == "flow_loss":
+                    ri = fw_aux["rot_idx"].reshape(B, Fr)
+                    loss = loss * (ri[:, 1:] == ri[:, :-1]).to(loss.dtype)
+                final_losses[name] = loss.mean()
             logit_target = collapse_bf(logit_target).detach()
             final_losses["logit_loss"] = \
                 ((rot_logit - logit_target) ** 2).mean()
@@ -425,7 +511,9 @@ class AnimalModel(nn.Module):
         final_losses.update(self.compute_regularizers(
             grid, sdf, prior_mesh, gen=gen, noise=noise,
             arti_params=arti_params, deformation=deformation,
-            class_vector=class_vector))
+            class_vector=class_vector, pose_raw=pose_raw,
+            posed_bones=fw_aux.get("posed_bones"), batch_size=B,
+            num_frames=Fr))
 
         total = 0.0
         tex_range = self.cfg_predictor_instance.cfg_texture.texture_iter_range
@@ -444,7 +532,7 @@ class AnimalModel(nn.Module):
         ctx = dict(phase=phase, gen=gen, noise=noise,
                    class_vector=class_vector, mask_gt=mask_gt,
                    mask_pred=mask_pred, shape=shape, prior_mesh=prior_mesh,
-                   w2c=w2c)
+                   w2c=w2c, fw_aux=fw_aux)
         total = total + self.extra_losses(batch, total_iter, final_losses,
                                           metrics, ctx)
 
@@ -458,6 +546,7 @@ class AnimalModel(nn.Module):
                "pose_raw": pose_raw,
                "deformation": deformation, "sdf": sdf, "mask_gt": mask_gt,
                "dino_pred": dino_pred, "dino_gt": dino_gt,
+               "flow_pred": flow_pred, "flow_gt": flow_gt,
                "rots_probs": fw_aux.get("rots_probs"),
                "posed_bones": fw_aux.get("posed_bones"),
                "rot_idx": fw_aux["rot_idx"],
@@ -492,5 +581,19 @@ class AnimalModel(nn.Module):
     def extra_losses(self, batch, total_iter, final_losses, metrics, ctx):
         """Added to the total after the weighted sum; may add entries to
         `final_losses` and `metrics`. `ctx` holds the forward's phase,
-        gen, noise, class vector, masks, posed shape, prior and w2c."""
+        gen, noise, class vector, masks, posed shape, prior, w2c and the
+        instance predictor's aux (`fw_aux`)."""
         return 0.0
+
+    def use_recon_losses(self, phase: Phase) -> bool:
+        return True
+
+    def render_cameras(self, mvp, w2c, campos):
+        """The cameras the training forward renders from."""
+        return mvp, w2c, campos
+
+    def frozen_param(self, keys) -> bool:
+        """Whether the parameter at module path `keys` (its name split at
+        the dots) is frozen: a subclass that freezes some keeps them
+        without gradient, so that no optimizer holds them."""
+        return False

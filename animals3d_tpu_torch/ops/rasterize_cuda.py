@@ -86,8 +86,7 @@ from typing import Optional
 
 import torch
 
-from animals3d_tpu_torch.ops.rasterize import (Rast, affine,
-                                              compute_barycentrics)
+from animals3d_tpu_torch.ops.rasterize import Rast, affine
 
 BIG = 3.0e38
 TILE_H = 16          # pixel tile height
@@ -938,8 +937,9 @@ def rasterize_cuda(v_clip, faces, f_valid, resolution, v_pos0,
     `variant` (3: K1, 4: K2, 6: K3; the counterpart of
     `rasterize_pallas(..., fv_rows=...)` under `A3D_RASTER_V`, with
     `v6_cap` for `A3D_V6_CAP` and `nsub` for `A3D_NSUB`). v_pos0: (V, 3)
-    batch-0 world positions for the shared face order. Raises ValueError
-    for a variant that cannot run on these shapes."""
+    batch-0 world positions for the shared face order. The Rast's uv is
+    None: `resolve` recomputes the barycentrics it needs. Raises
+    ValueError for a variant that cannot run on these shapes."""
     prep = prepare(v_clip, v_pos0, faces, f_valid, resolution, chunk, nsub,
                    variant, v6_cap)
     common = (prep["table"], prep["orig"])
@@ -957,5 +957,4 @@ def rasterize_cuda(v_clip, faces, f_valid, resolution, v_pos0,
                                        resolution, prep["nsub"])
         flags = chunk_flags_v6(sflags, prep["units"], prep["counts6"],
                                prep["masks"], prep["nsub"])
-    uv = compute_barycentrics(v_clip, faces, fid, resolution)
-    return Rast(uv=uv, z=z, face_id=fid, flags=flags)
+    return Rast(uv=None, z=z, face_id=fid, flags=flags)

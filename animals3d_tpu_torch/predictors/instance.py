@@ -4,7 +4,7 @@ light) (port of `animals3d_tpu.predictors.instance`).
 Outside training the pose hypothesis is the most probable one; in training
 it is sampled (`sample_pose_hypothesis(random_sample=True)`) from the
 draws of a `Noise` or a generator. The articulation refinement pass is not
-ported yet and raises.
+ported yet and raises. Ponymation's `MotionVAEPredictor` subclasses it.
 """
 from __future__ import annotations
 
@@ -331,7 +331,7 @@ class InstancePredictor(nn.Module):
     def get_bones(self, verts, v_valid, feat, patch_feat, mvp, w2c,
                   batch_size, num_frames, attach_legs: bool):
         """Rest bones + per-bone network inputs (detached 2D/3D codes and
-        features)."""
+        features; no features where `feat` or `patch_feat` is None)."""
         a = self.cfg.cfg_articulation
         bones, structure = sk.estimate_bones(
             verts, v_valid, n_body_bones=a.num_body_bones, n_legs=a.num_legs,
@@ -360,6 +360,8 @@ class InstancePredictor(nn.Module):
         idx_in = idx_in[None, :, None].expand(N, K, 1)
         pos_in = torch.cat([mid_2d, pos3d, idx_in], -1).detach()
 
+        if feat is None or patch_feat is None:
+            return bones, structure, None, pos_in
         g = feat[:, None].expand(N, K, feat.shape[-1])
         local = grid_sample_bilinear(patch_feat, mid_2d[:, None])[:, 0]
         mode = a.bone_feature_mode
@@ -372,8 +374,10 @@ class InstancePredictor(nn.Module):
         return bones, structure, bones_feat, pos_in
 
     def forward_articulation(self, mesh: Mesh, feat, patch_feat, mvp, w2c,
-                             batch_size, num_frames, phase: Phase):
-        """bones → articulation net → constraints → skinning."""
+                             batch_size, num_frames, phase: Phase,
+                             gen=None, noise: Noise = None):
+        """bones → articulation net → constraints → skinning. `gen` and
+        `noise` serve the subclasses' random sites (Ponymation's VAE)."""
         a = self.cfg.cfg_articulation
         verts = mesh.v_pos
         N = batch_size * num_frames
@@ -423,7 +427,7 @@ class InstancePredictor(nn.Module):
         if self.cfg.enable_articulation and phase.articulation_on:
             shape, arti_params, arti_aux = self.forward_articulation(
                 shape, feat_key, patch_key, mvp, w2c, batch_size, num_frames,
-                phase)
+                phase, gen=gen, noise=noise)
             aux.update(arti_aux)
 
         light_params = self.netLight(feat_out) if self.cfg.enable_lighting \

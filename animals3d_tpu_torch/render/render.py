@@ -1,16 +1,23 @@
 """Deferred-shading mesh renderer (port of `render_mesh` of
-`animals3d_tpu.render.render`, for the modes the MagicPony forward asks
-for — `shaded` and `dino_pred` — at spp = 1).
+`animals3d_tpu.render.render`, for the modes the training forwards ask
+for: `shaded`, `dino_pred` and `flow`).
 
 Rasterize with a tile kernel (`ops.rasterize_cuda`, `raster_variant` 3, 4
 or 6; its plain version on the CPU), resolve barycentrics and interpolated
 attributes with one row per pixel (`resolve_rows` "gather" or "kernel",
-see `ops.rasterize.resolve`), shade with the texture MLP and a directional light,
-composite over the background and antialias silhouettes. Textures and
-DINO features are sampled at canonical (prior-mesh) positions, so
+see `ops.rasterize.resolve`), shade with the texture MLP and a directional
+light, composite over the background and antialias silhouettes. Textures
+and DINO features are sampled at canonical (prior-mesh) positions, so
 appearance is pose-invariant. `shaded` keeps RGBA: its alpha is the
-antialiased mask. Flow, tangent, depth, environment light and
-supersampling are not ported yet.
+antialiased mask. `flow` is the clip-space xy delta of each vertex to the
+next frame (zero on the last), interpolated by the same resolve.
+
+Supersampling (`spp` > 1) rasterizes at (H·spp, W·spp) and shades at the
+base resolution on the nearest-subsampled rast (the JAX package's
+`msaa=True`, its only form in use); the buffers are nearest-upsampled
+back, and compositing, antialiasing and the final average pooling run at
+full resolution: visibility is supersampled, shading is not. Tangent, depth
+and the environment light are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,13 +28,23 @@ import torch
 from animals3d_tpu_torch.geometry.mesh import Mesh, take_rows
 from animals3d_tpu_torch.ops import shading as sh
 from animals3d_tpu_torch.ops.antialias import antialias
-from animals3d_tpu_torch.ops.rasterize import resolve
+from animals3d_tpu_torch.ops.rasterize import Rast, resolve
 from animals3d_tpu_torch.ops.rasterize_cuda import rasterize_cuda
 from animals3d_tpu_torch.render.camera import xfm_points
 from animals3d_tpu_torch.render.light import directional_shade
 
-_ANTIALIAS_MODES = ("shaded", "dino_pred")
-_SUPPORTED_MODES = ("shaded", "dino_pred")
+_ANTIALIAS_MODES = ("shaded", "flow", "dino_pred")
+_SUPPORTED_MODES = ("shaded", "dino_pred", "flow")
+
+
+def avg_pool_nhwc(x, k: int):
+    b, h, w, c = x.shape
+    return x.reshape(b, h // k, k, w // k, k, c).mean((2, 4))
+
+
+def _upsample(x, k: int):
+    """Nearest upsampling of (B, H, W, C) by k on both axes."""
+    return x.repeat_interleave(k, 1).repeat_interleave(k, 2)
 
 
 def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
@@ -36,15 +53,15 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
                 render_modes: Sequence[str] = ("shaded",),
                 prior_mesh: Optional[Mesh] = None,
                 dino_fn: Optional[Callable] = None,
+                num_frames: Optional[int] = None,
                 two_sided_shading: bool = True, raster_variant: int = 3,
                 resolve_rows: str = "gather") -> dict:
     """mtx_in (B, 4, 4) mvp; w2c (B, 4, 4); campos (B, 3); background
-    (B, H, W, 3) or None. `raster_variant` and `resolve_rows` select the
+    (B, H, W, 3) or None; `num_frames` (> 1) groups the batch into
+    sequences for `flow`. `raster_variant` and `resolve_rows` select the
     visibility kernel and the resolve path (the JAX package's
     `A3D_RASTER_V` and `A3D_MXU_FWD`); the defaults are its defaults.
     Returns mode → (B, C, H, W)."""
-    if spp != 1:
-        raise NotImplementedError("supersampling (spp > 1) is not ported")
     for key in render_modes:
         if key not in _SUPPORTED_MODES:
             raise NotImplementedError(f"render mode {key!r}")
@@ -54,14 +71,30 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
         mesh = mesh.extend(B)
     faces = mesh.t_pos_idx
     v_clip = xfm_points(mesh.v_pos, mtx_in)                   # (B, V, 4)
-    rast = rasterize_cuda(v_clip, faces, mesh.f_valid, (H, W),
+    rast = rasterize_cuda(v_clip, faces, mesh.f_valid, (H * spp, W * spp),
                           v_pos0=mesh.v_pos[0], variant=raster_variant)
     mask = rast.mask[..., None].to(v_clip.dtype)
+    # MSAA: shade at the base resolution on the nearest-subsampled rast;
+    # visibility, compositing and antialiasing stay at full resolution
+    rast_full, mask_base = rast, mask
+    if spp > 1:
+        rast = Rast(uv=None, z=rast.z[:, ::spp, ::spp].contiguous(),
+                    face_id=rast.face_id[:, ::spp, ::spp].contiguous())
+        mask_base = mask[:, ::spp, ::spp]
 
     # ---- interpolated attribute buffers ----
     prior = prior_mesh if prior_mesh is not None else mesh
     v_tex = prior.v_pos.expand(B, *prior.v_pos.shape[1:])
     chans = [mesh.v_pos, mesh.v_nrm, v_tex]
+    if "flow" in render_modes:
+        # 2D flow: the clip-space xy delta to the next frame
+        if num_frames is None or num_frames < 2:
+            raise ValueError("the flow mode needs num_frames > 1")
+        xy = v_clip[..., :2] / v_clip[..., 3:4]
+        xy = xy.reshape(-1, num_frames, *xy.shape[1:])
+        delta = xy[:, 1:] - xy[:, :-1]
+        delta = torch.cat([delta, torch.zeros_like(delta[:, :1])], 1)
+        chans.append(delta.reshape(-1, *delta.shape[2:]))
     # face normals of the posed mesh ride in resolve's per-face row
     fp = take_rows(mesh.v_pos, faces, 1)                       # (B, F, 3, 3)
     u = fp[:, :, 1] - fp[:, :, 0]
@@ -78,7 +111,8 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
     gb_pos = fused[..., 0:3]
     gb_normal = fused[..., 3:6]
     gb_tex_pos = fused[..., 6:9]
-    gb_geo_normal = gb_geo_normal * mask
+    flow_interp = fused[..., 9:11] if "flow" in render_modes else None
+    gb_geo_normal = gb_geo_normal * mask_base
 
     # ---- shading ----
     if material_fn is not None:
@@ -101,8 +135,14 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
     else:
         shaded_col = kd
     buffers = {"shaded": shaded_col}
+    if flow_interp is not None:
+        buffers["flow"] = flow_interp
     if dino_pred is not None:
         buffers["dino_pred"] = dino_pred
+    if spp > 1:
+        buffers = {k: _upsample(v, spp) for k, v in buffers.items()}
+        if background is not None:
+            background = _upsample(background, spp)
 
     # ---- composite over the background, then antialias in one pass ----
     accums = {}
@@ -119,8 +159,8 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
         accums[key] = bg + (fg - bg) * mask
     aa_keys = [k for k in accums if k in _ANTIALIAS_MODES]
     if aa_keys:
-        packed = antialias(torch.cat([accums[k] for k in aa_keys], -1), rast,
-                           v_clip, faces)
+        packed = antialias(torch.cat([accums[k] for k in aa_keys], -1),
+                           rast_full, v_clip, faces)
         off = 0
         for k in aa_keys:
             c = accums[k].shape[-1]
@@ -133,7 +173,11 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
             out[key] = None
             continue
         accum = accums[key]
-        if key == "dino_pred":
+        if spp > 1:
+            accum = avg_pool_nhwc(accum, spp)
+        if key == "flow":
+            accum = accum[..., :2]
+        elif key == "dino_pred":
             accum = accum[..., :-1]
         out[key] = accum.permute(0, 3, 1, 2)
     return out

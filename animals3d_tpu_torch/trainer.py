@@ -70,7 +70,11 @@ class Optimizer:
     """One Adam (AdamW where `weight_decay` is non-zero) per predictor,
     `base` (netBase) and `instance` (netInstance), each with its config's
     learning rate and, where `use_scheduler` is set, a MultiStepLR stepped
-    once per iteration. Frozen parameters (the DINO ViT) are in no group.
+    once per iteration. Frozen parameters, which the model keeps without
+    gradient (the DINO ViT, and those its `frozen_param` names:
+    Ponymation's stages), are in no group, and a predictor with none left
+    gets no optimizer (Ponymation's stage 1 has no `base` Adam), as the
+    JAX trainer's `set_to_zero` partitions leave them where they are.
     A model with a discriminator (Fauna) also gets `disc`, a plain Adam on
     `netDisc` at `cfg_optim_discriminator.lr` (`optax.adam` in the JAX
     trainer), which `step` and `zero_grad` leave alone: `disc_step` runs
@@ -102,7 +106,17 @@ class Optimizer:
                     gamma=cfg.scheduler_gamma)
 
     def step(self):
+        """A step of every optimizer. A grouped parameter the step did not
+        reach (netDeform before its phase; netArticulation in Ponymation's
+        stage 1 before articulation starts) takes a zero gradient, as in
+        the JAX trainer, whose optax Adam counts every step of a
+        partition: torch's Adam skips a parameter without gradient, and
+        would start its bias correction later."""
         for opt in self.optimizers.values():
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
             opt.step()
         for sched in self.schedulers.values():
             sched.step()
@@ -153,7 +167,8 @@ def train_step(model, optimizer: Optimizer, batch, total_iter, gen=None,
     metrics (detached tensors)."""
     loss, (metrics, _aux) = model.forward(batch, total_iter, gen, phase,
                                           noise=noise)
-    loss.backward()
+    if loss.requires_grad:       # else no trained parameter reaches the loss
+        loss.backward()
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return {k: v.detach() if torch.is_tensor(v) else v

@@ -100,7 +100,29 @@ Phases, in this order, each fatal on failure:
      train_fauna` on a synthetic category tree (2 categories of 9 images),
      2 steps from a checkpoint of the init weights at 100,000, its
      checkpoint holding `netDisc` and the `disc` Adam's state, and a
-     resume one step further with that state restored bit for bit.
+     resume one step further with that state restored bit for bit;
+  7. Ponymation at the widths of `train_ponymation_horse_stage{1,2}`
+     (256², dino_vits8 random, bf16, DINO features of 16, grid 128,
+     iteration 100,000: deformation, articulation, attached legs; netBase
+     frozen, so K6 runs and K7 never), after a small float32 step of each
+     stage against the CPU in phase 2 (grid 8, spp 2, 3 frames):
+     `pony_stage1_train` — 1 + 3 steps on 1 × 10 frames at spp 4 (the
+     cull kernel and K1 at 10 × 1024², K4 at 256² on the subsampled rast,
+     K6; only netArticulation moves), one step's device busy time, the
+     busiest image's silhouette pairs against the antialias cap (a
+     warning where it overflows: both packages drop the pairs beyond it),
+     K1 and the cull kernel against their plain versions bit for bit on
+     frames 0 and 9 of one step's render and timed at 1024² (K1's bound
+     there), K4 on the step's own call; `pony_stage1_fine` — 2 steps at
+     150,000 (grid 256, `f_cap` 786,432), the same checks;
+     `pony_stage2_train` — 1 + 3 steps on 20 × 10 frames with the render
+     off (K6 alone; only netVAE moves); `pony_generate` — stage 2's eval
+     forward (1 of the 200 frames, 10 generated frames from the default
+     camera; the cull kernel and K1 once); `cli_train_pony` — the CLI on
+     a synthetic tree of 2 sequences of 10 frames with flows: stage 1
+     resumed at 100,000 from a MagicPony checkpoint, stage 2 from stage
+     1's, a resume of stage 2 with its Adam state restored bit for bit,
+     and stage 1's test with flows writing the flow files.
 
 Prints a `kernels` JSON line (all nine kernel entries, each with its
 status: ported, redesigned or fused, and in which PR; `unit_boxes` is the
@@ -108,7 +130,8 @@ cull kernel's instantiation that also writes the unit boxes; `launches`
 is the count on the path that drives the kernel — `recon_v4` for K2,
 `train_v6_kernel_rows` for the unit boxes, K3 and K5, the default
 training path for the others — and `launches_by_path` the counts on
-every path, the CLI's included), the card's name
+every path, the CLI's included; K1's and the cull kernel's also carry
+`pony_1024`, their times at 1024² on the Ponymation steps), the card's name
 and power limit, and as the last line `{"ok": true, "device": {...}}`.
 Exits non-zero without a CUDA card.
 """
@@ -1261,6 +1284,18 @@ PATHS = {
     "fauna_train": ({}, ("cull_boxes", "raster_vis", "resolve_bwd")),
     "fauna_recon": ({}, ("cull_boxes", "raster_vis")),
     "cli_train_fauna": ({}, ("cull_boxes", "raster_vis", "resolve_bwd")),
+    # Ponymation: stage 1 renders at spp 4 (the cull kernel and K1 at
+    # 1024², K4 at 256² on the subsampled rast), netBase sweeps through K6
+    # but is frozen, so K7 never runs; stage 2 renders nothing (K6 alone);
+    # `generate` renders the generated frames at spp 1 without a sweep
+    "pony_stage1_train": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                               "resolve_bwd")),
+    "pony_stage1_fine": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                              "resolve_bwd")),
+    "pony_stage2_train": ({}, ("fused_mlp_fwd",)),
+    "pony_generate": ({}, ("cull_boxes", "raster_vis")),
+    "cli_train_pony": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                            "resolve_bwd")),
 }
 
 
@@ -1327,17 +1362,24 @@ def reference_phase():
         raise AssertionError(f"reference: {bad:.4f} of the pixels differ")
 
 
-def draw_noise(model, gen, n_images):
-    """One training forward's draws, on the CPU, so that two devices can
-    be handed the same ones."""
+def draw_noise(model, gen, B):
+    """One training forward's draws for a batch of B sequences, on the
+    CPU, so that two devices can be handed the same ones (Ponymation's
+    VAE ε where the model has the VAE)."""
     import torch
     from animals3d_tpu_torch.noise import Noise
     K = model.netInstance.num_pose_hypos
+    n_images = B * model.num_frames
     u = lambda *shape: torch.rand(shape, generator=gen)
+    vae = None
+    if getattr(model.netInstance, "enable_motion_vae", False):
+        c = model.cfg_motion_vae
+        vae = torch.randn((c.z_token_num, B, c.latent_dim), generator=gen)
     return Noise(jitter_u=u(), rand_idx=torch.floor(u(n_images) * K).long(),
                  best_u=u(n_images), rand_pts_u=u(5000, 3),
                  surf_idx=None, surf_u=u(5000, 3),
-                 rv_deg=torch.floor(u(n_images) * 360).long())
+                 rv_deg=torch.floor(u(n_images) * 360).long(),
+                 vae_normal=vae)
 
 
 def train_reference_phase(path="train", config="train_magicpony_horse",
@@ -1353,7 +1395,10 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
     on netTexture and on the first two layers of netDINO (2e-2; 9.0e-3
     seen on netTexture's in-layer, 2.4e-3 on its later layers, 3e-5 on
     netDINO's), no NaN or inf, a gradient for every trainable parameter
-    the phase uses and none for the ViT.
+    the phase uses and none for the ViT (nor for Ponymation's frozen
+    nets). A leaf whose CPU gradient is under 1e-6 of the largest leaf's
+    norm is zero in exact arithmetic (the VAE's attention key biases) and
+    is held to stay under 1e-5 of it on the card.
 
     The batch is `fake_batch` with its images and feature targets scaled
     by 0.1. Under uniform-noise targets the residuals of the rgb and
@@ -1449,9 +1494,14 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
             rv = float((out["gpu"][2]["_disc_record"]["mask_rv"][:, 0].cpu()
                         - out["cpu"][2]["_disc_record"]["mask_rv"][:, 0])
                        .abs().max())
-        differ = (d("mask_pred") > 1e-3) | (d("image_pred").amax(2) > 1e-3) \
-            | (d("dino_pred").amax(2) > 1e-3) \
-            | ((a_gpu["mask_pred"].cpu() > 0) != (a_cpu["mask_pred"] > 0))
+        if a_cpu["mask_pred"] is None:          # a step that renders nothing
+            differ = torch.zeros(batches["cpu"]["mask_valid"].shape,
+                                 dtype=torch.bool)
+        else:
+            differ = (d("mask_pred") > 1e-3) \
+                | (d("image_pred").amax(2) > 1e-3) \
+                | (d("dino_pred").amax(2) > 1e-3) \
+                | ((a_gpu["mask_pred"].cpu() > 0) != (a_cpu["mask_pred"] > 0))
         share = float(differ.float().mean())
         print(f"train reference [{path}]: seed {seed}: articulation |gpu - cpu| "
               f"{arti:.3g}, share of pixels that differ {share:.4f}"
@@ -1487,6 +1537,8 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
         raise AssertionError(f"train reference [{path}]: loss differs by {rel}")
     worst, bad, gap, by_net = (0.0, ""), [], {}, {}
     cpu_params = dict(cpu.named_parameters())
+    top = max(float(q.grad.norm()) for q in cpu.parameters()
+              if q.grad is not None)
     for name, p in gpu.named_parameters():
         q = cpu_params[name]
         if ".ViT." in name:
@@ -1497,13 +1549,21 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
             raise AssertionError(f"train reference [{path}]: {name}: grad on one "
                                  "device only")
         if p.grad is None:
-            if not name.startswith("netInstance.netDeform."):
+            # unused in the phase (netDeform), or frozen (Ponymation)
+            if not (name.startswith("netInstance.netDeform.")
+                    or not q.requires_grad):
                 raise AssertionError(f"train reference [{path}]: {name} has no grad")
             continue
         if not bool(torch.isfinite(p.grad).all()):
             raise AssertionError(f"train reference [{path}]: {name}: non-finite grad")
-        err = float((p.grad.cpu() - q.grad).norm() / q.grad.norm())
         gap[name] = float((p.grad.cpu() - q.grad).abs().max())
+        if float(q.grad.norm()) <= 1e-6 * top:
+            # zero in exact arithmetic (an attention's key bias), rounding
+            # noise on either device: both must stay at that size
+            if not float(p.grad.norm()) <= 1e-5 * top:
+                bad.append(f"{name}: {float(p.grad.norm()):.3g} (zero leaf)")
+            continue
+        err = float((p.grad.cpu() - q.grad).norm() / q.grad.norm())
         noisy = name.startswith(REF_NOISY_LEAVES)
         if not err <= (REF_NOISY_TOL if noisy else REF_GRAD_TOL):
             bad.append(f"{name}: {err:.3g}")
@@ -2269,18 +2329,7 @@ def cli_phase(card):
         resume = common + [f"checkpoint_dir={coarse}", "num_iters=4"]
         _cfg, m, tr = run.build(resume)
         opt, start = tr.restore()
-        n_equal = 0
-        for name, o in opt.optimizers.items():
-            want = saved["optimizer"][name]["state"]
-            got = o.state_dict()["state"]
-            if set(got) != set(want):
-                raise AssertionError(f"cli_train: Adam {name} state keys")
-            for i, st in want.items():
-                for k, v in st.items():
-                    if not torch.equal(got[i][k].cpu(), v):
-                        raise AssertionError(f"cli_train: Adam {name} "
-                                             f"state {i}/{k} differs")
-                    n_equal += 1
+        n_equal = adam_state_equal(saved, opt, "cli_train")
         if start != 3:
             raise AssertionError(f"cli_train: the resume starts at {start}")
         del m, tr, opt, saved
@@ -2381,6 +2430,482 @@ def cli_phase(card):
     return by_path, summary
 
 
+# ---------------------------------------------------------------------------
+# Ponymation at the widths of train_ponymation_horse_stage{1,2}
+# ---------------------------------------------------------------------------
+
+PONY_STAGE1, PONY_STAGE2 = ("train_ponymation_horse_stage1",
+                            "train_ponymation_horse_stage2")
+PONY_IT = 100000        # coarse grid, deformation, articulation, legs on
+PONY_FINE_IT = 150000   # stage 1's fine grid 256 (coarse until 140,000)
+PONY_TIMED = 3
+# K1 against its plain version at 1024² on two of a step's ten frames (the
+# plain version takes ~16x its 256² time a frame)
+PONY_K1_FRAMES = (0, 9)
+# the small float32 references: `tests/test_ponymation.py`'s widths at grid
+# 8 with the netSDF 256 wide (the fused sweep), 3 frames, spp 2
+PONY_SMALL_OVERRIDES = [
+    "dataset.in_image_size=64", "dataset.out_image_size=64",
+    "dataset.num_frames=3", "dataset.dino_feature_dim=4",
+    "model.cfg_predictor_base.cfg_shape.grid_res=8",
+    "model.cfg_predictor_base.cfg_shape.grid_res_coarse=8",
+    "model.cfg_predictor_base.cfg_shape.num_layers=2",
+    "model.cfg_predictor_base.cfg_shape.hidden_size=256",
+    "model.cfg_predictor_base.cfg_dino.num_layers=2",
+    "model.cfg_predictor_base.cfg_dino.hidden_size=32",
+    "model.cfg_predictor_base.cfg_dino.feature_dim=4",
+    "model.cfg_predictor_instance.cfg_encoder.cout=32",
+    "model.cfg_predictor_instance.cfg_texture.num_layers=2",
+    "model.cfg_predictor_instance.cfg_texture.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_deform.num_layers=2",
+    "model.cfg_predictor_instance.cfg_deform.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_articulation.num_layers=1",
+    "model.cfg_predictor_instance.cfg_articulation.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_light.num_layers=2",
+    "model.cfg_predictor_instance.cfg_light.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_motion_vae.latent_dim=32",
+    "+model.cfg_predictor_instance.cfg_motion_vae.transformer_layer_num=1",
+    "model.cfg_render.renderer_spp=2",
+]
+CLI_PONY_FRAMES = 10     # frames a synthetic sequence
+
+
+def pony_model(config):
+    """A full-width Ponymation model of `config` on the card, bf16 compute,
+    its init state and its batch size."""
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    cfg, model = build([], "cuda", config)
+    set_mixed_precision("bf16")
+    state = {k: v.clone() for k, v in model.init_params(SEED).items()}
+    return model, state, cfg["dataset"]["batch_size"]
+
+
+def moved_nets(before, model):
+    """The second-level nets (`netInstance.netVAE`, ...) whose parameters
+    changed from `before`."""
+    import torch
+    return sorted({".".join(k.split(".")[:2]) for k, v in
+                   model.state_dict().items()
+                   if v.is_floating_point() and not torch.equal(v, before[k])})
+
+
+def silhouette_pair_counts(rast):
+    """The silhouette pairs of each image of a rast, before the antialias
+    pass caps them (`ops.antialias.silhouette_pairs`'s validity rule)."""
+    import torch
+    from animals3d_tpu_torch.ops import antialias as aa
+    fid = rast.face_id
+    z = torch.where(fid > 0, rast.z, torch.full_like(rast.z, float("inf")))
+    h = aa._pair_valid(fid[..., :-1], fid[..., 1:], z[..., :-1], z[..., 1:],
+                       2e-3)
+    v = aa._pair_valid(fid[:, :-1], fid[:, 1:], z[:, :-1], z[:, 1:], 2e-3)
+    return h.flatten(1).sum(1) + v.flatten(1).sum(1)
+
+
+def pair_readings(scenes):
+    """The antialias pass's silhouette pairs over the renders of
+    `scenes` (recorded `rasterize_cuda` inputs): the busiest image's, the
+    cap (`default_pair_cap`), the pairs in all and those the cap drops. The
+    cap is the JAX package's, and the port's pass drops the pairs beyond it
+    as the JAX package's does: the dropped share is a reading, printed
+    beside the step times it comes with."""
+    from animals3d_tpu_torch.ops import antialias as aa
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    busiest = total = dropped = 0
+    for v_clip, v_pos0, faces, f_valid, res, _chunk in scenes:
+        pairs = silhouette_pair_counts(rc.rasterize_cuda(
+            v_clip, faces, f_valid, res, v_pos0=v_pos0))
+        cap = aa.default_pair_cap(*res)
+        busiest = max(busiest, int(pairs.max()))
+        total += int(pairs.sum())
+        dropped += int((pairs - cap).clamp(min=0).sum())
+    return {"pairs_busiest": busiest, "pair_cap": cap, "pairs": total,
+            "pairs_dropped": dropped,
+            "pairs_dropped_share": dropped / total}
+
+
+def dropped_pairs_text(r):
+    share = 100 * r["pairs_dropped_share"]
+    return (f"antialias cap {r['pair_cap']} drops {r['pairs_dropped']} of "
+            f"{r['pairs']} silhouette pairs ({share:.1f}%), busiest image "
+            f"{r['pairs_busiest']}")
+
+
+def pony_render_checks(name, scene, k4_call=None):
+    """On one recorded render of a step: the silhouette pairs against the
+    antialias pass's cap (`pair_readings`, and the same posed meshes at the
+    base resolution, where the cap is 4x smaller); K1 and the cull kernel
+    against their plain versions, bit for bit, on frames `PONY_K1_FRAMES`
+    (the plain version at 1024² takes seconds a frame); K1 and the cull
+    kernel timed on all the frames and on those two, with K1's bound
+    there; K4 on the step's own call. Returns the readings."""
+    import torch
+    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    v_clip, v_pos0, faces, f_valid, res, chunk = scene
+    readings = pair_readings([scene])
+    # whether the overflow comes with supersampling or with the meshes
+    base = (res[0] // 4, res[1] // 4)
+    low = pair_readings([(v_clip, v_pos0, faces, f_valid, base, chunk)])
+    readings["pairs_busiest_base"] = low["pairs_busiest"]
+    print(f"{name}: at {res[0]}x{res[1]} the {dropped_pairs_text(readings)};"
+          f" at {base[0]}x{base[1]} the {dropped_pairs_text(low)}")
+    sub = (v_clip[list(PONY_K1_FRAMES)].contiguous(), v_pos0, faces, f_valid,
+           res, chunk)
+    k1_scene_check(f"{name}_frames_{'_'.join(map(str, PONY_K1_FRAMES))}",
+                   sub)
+    for label, sc in (("all", scene), ("two", sub)):
+        prep = rc.prepare(sc[0], v_pos0, faces, f_valid, res, chunk)
+
+        def k1(p=prep):
+            return rc.visibility(p["table"], p["orig"], p["order"],
+                                 p["counts"], p["masks"], p["zlo"],
+                                 p["fbox"], res, p["nsub"])
+        readings[f"k1_ms_{label}"] = median_ms(k1, 5)
+        readings[f"cull_ms_{label}"] = median_ms(
+            lambda p=prep: rc.cull(p["table"], res), 5)
+        if label == "two":
+            stats = {}
+            out = rc.visibility_reference(
+                prep["table"], prep["orig"], prep["order"], prep["counts"],
+                prep["masks"], prep["zlo"], res, prep["nsub"], stats=stats)
+            bytes_ms, ops_ms, _nb, live_pairs = visibility_bound(
+                sc[0], faces, prep, res, stats["visits"], out)
+            readings["k1_bound_two"] = max(bytes_ms, ops_ms)
+            readings["k1_live_pairs_two"] = live_pairs
+        del prep
+    print(f"{name}: K1 at {res[0]}x{res[1]} {readings['k1_ms_all']:.4f} ms "
+          f"on {v_clip.shape[0]} frames, {readings['k1_ms_two']:.4f} ms on "
+          f"frames {PONY_K1_FRAMES} (bound {readings['k1_bound_two']:.4f} ms"
+          f", {readings['k1_live_pairs_two']} live (face, pixel) pairs); "
+          f"cull kernel {readings['cull_ms_all']:.4f} ms on all, "
+          f"{readings['cull_ms_two']:.4f} ms on two; card {card_line()}")
+    if k4_call is not None:
+        k4_call_check(name, k4_call)
+    torch.cuda.empty_cache()
+    return readings
+
+
+def pony_train_phase(path, model, state, B, it, steps_warm, steps_timed,
+                     kernels_per_step, trained_net):
+    """`train_step`s of a full-width Ponymation model at `it` (`steps_warm`
+    + `steps_timed`), the counters set to 0 just before and read just
+    after; every loss finite; only `trained_net` moved. Then one step's
+    device busy time and, where the step renders, the render checks on
+    one step's own calls (`pony_render_checks`). Restores the init state.
+    Returns (launches, (median ms, peak bytes), readings)."""
+    import torch
+    from animals3d_tpu_torch.data.synth import fake_batch
+    from animals3d_tpu_torch.trainer import make_optimizer, train_step
+    model.load_state_dict(state)
+    batch = fake_batch(model, B, SEED)
+    phase = model.phase_for_iter(it)
+    grid, v_cap, f_cap = model.grid_for_phase(phase)
+    opt = make_optimizer(model)
+    if set(opt.optimizers) != {"instance"}:
+        raise AssertionError(f"{path}: optimizers {set(opt.optimizers)}")
+    n_trained = sum(p.numel() for o in opt.optimizers.values()
+                    for g in o.param_groups for p in g["params"])
+    spp = model.cfg_render.renderer_spp
+    print(f"{path}: iter {it} phase {phase} grid {grid.res} v_cap {v_cap} "
+          f"f_cap {f_cap} batch {B} x {model.num_frames} frames at "
+          f"{model.in_image_size}², spp {spp} (visibility at "
+          f"{model.out_image_size * spp}²), render "
+          f"{model.cfg_model.enable_render}, render_default "
+          f"{model.cfg_render.render_default}; {n_trained} trained "
+          f"parameters ({trained_net})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    steps = steps_warm + steps_timed
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = train_step(model, opt, batch, it, gen, phase)
+        torch.cuda.synchronize()
+        if i >= steps_warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    launches = check_counts(path, {k: n * steps
+                                   for k, n in kernels_per_step.items()})
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{path}: losses {losses}")
+    moved = moved_nets(state, model)
+    if moved != [trained_net]:
+        raise AssertionError(f"{path}: moved {moved}")
+    med = statistics.median(times)
+    print(f"{path}: losses {[round(x, 4) for x in losses]}; train_step "
+          f"median {med:.2f} ms (min {min(times):.2f} max {max(times):.2f}, "
+          f"{len(times)} timed of {steps}), "
+          f"{B * model.num_frames / med * 1e3:.2f} frames/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches in {steps} steps "
+          f"{ {k: v for k, v in launches.items() if v} }; only "
+          f"{trained_net} moved; card {card_line()}")
+
+    def step():
+        train_step(model, opt, batch, it, gen, phase)
+    busy, n_events = device_busy_ms(step)
+    print(f"{path}: one step's device busy time {busy:.3f} ms ({n_events} "
+          f"device events); card {card_line()}")
+    readings = {"busy_ms": busy}
+    if model.cfg_model.enable_render:
+        with recorded_calls() as rec:
+            step()
+        torch.cuda.synchronize()
+        if len(rec["scenes"]) != 1 or len(rec["k4"]) != 1:
+            raise AssertionError(f"{path}: {len(rec['scenes'])} renders, "
+                                 f"{len(rec['k4'])} resolve backwards")
+        scene, k4 = rec["scenes"][0], rec["k4"][0]
+        del rec
+        readings.update(pony_render_checks(path, scene, k4))
+    model.load_state_dict(state)
+    del opt
+    torch.cuda.empty_cache()
+    return launches, (med, peak), readings
+
+
+def pony_generate_path(model, state, B):
+    """Stage 2's eval forward at `PONY_IT` (`generate`: one frame of the
+    batch, its shape and pose, a sampled sequence of 10 articulations,
+    rendered from the default camera at spp 1), 1 warm-up and
+    `PONY_TIMED` timed; the cull kernel and K1 once a forward. Returns
+    (launches, (median ms, peak bytes))."""
+    import torch
+    from animals3d_tpu_torch.data.synth import fake_batch
+    model.load_state_dict(state)
+    batch = fake_batch(model, B, SEED)
+    phase = model.phase_for_iter(PONY_IT, is_training=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    Fr, H = model.num_frames, model.out_image_size
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    runs = WARMUP_RUNS + PONY_TIMED
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _loss, (_met, aux) = model.forward(batch, PONY_IT, gen, phase)
+        torch.cuda.synchronize()
+        if i >= WARMUP_RUNS:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = check_counts("pony_generate", runs)
+    peak = torch.cuda.max_memory_allocated()
+    mask = aux["mask_pred"]
+    shapes = (tuple(mask.shape), tuple(aux["arti_params"].shape),
+              tuple(aux["shape"].v_pos.shape[:1]))
+    if shapes != ((1, Fr, H, H), (1, Fr, model.netInstance.num_bones, 3),
+                  (Fr,)):
+        raise AssertionError(f"pony_generate: shapes {shapes}")
+    cover = (mask > 0.5).flatten(2).sum(2)[0]
+    if not (bool(torch.isfinite(mask).all()) and int(cover.min()) > 0):
+        raise AssertionError(f"pony_generate: mask px {cover.tolist()}")
+    med = statistics.median(times)
+    print(f"pony_generate: 1 of {B * Fr} frames -> {Fr} generated frames "
+          f"at {H}² (default camera, spp {model.cfg_render.renderer_spp}); "
+          f"median {med:.2f} ms, min {min(times):.2f} max {max(times):.2f}; "
+          f"mask px per frame {cover.tolist()}; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches in {runs} forwards "
+          f"{ {k: v for k, v in launches.items() if v} }; card {card_line()}")
+    return launches, (med, peak)
+
+
+def pony_slice(card):
+    """Ponymation at full width: `pony_stage1_train` (1 + 3 steps of
+    `train_ponymation_horse_stage1` at `PONY_IT`: batch 1 x 10 frames at
+    256², spp 4, so K1 at 10 x 1024²), `pony_stage1_fine` (2 steps at
+    `PONY_FINE_IT`, grid 256), `pony_stage2_train` (1 + 3 steps of
+    `train_ponymation_horse_stage2`: 20 x 10 frames, no render) and
+    `pony_generate`. Returns ({path: launches}, {path: (ms, peak)},
+    {path: readings})."""
+    import torch
+    by_path, summary, readings = {}, {}, {}
+    model, state, B = pony_model(PONY_STAGE1)
+    cfg_r = model.cfg_render
+    if (cfg_r.renderer_spp, cfg_r.render_default, cfg_r.render_flow) != \
+            (4, False, False):
+        raise AssertionError(f"pony: stage 1 render config {cfg_r}")
+    per_step = {"cull_boxes": 1, "raster_vis": 1, "fused_mlp_fwd": 1,
+                "resolve_bwd": 1}
+    for path, it, warm, timed in (
+            ("pony_stage1_train", PONY_IT, WARMUP_RUNS, PONY_TIMED),
+            ("pony_stage1_fine", PONY_FINE_IT, 0, 2)):
+        ph = model.phase_for_iter(it)
+        if not (ph.deform_on and ph.articulation_on and ph.attach_legs
+                and ph.use_coarse_grid == (it == PONY_IT)):
+            raise AssertionError(f"{path}: phase {ph}")
+        by_path[path], summary[path], readings[path] = pony_train_phase(
+            path, model, state, B, it, warm, timed, per_step,
+            "netInstance.netArticulation")
+    del model, state
+    torch.cuda.empty_cache()
+    model, state, B = pony_model(PONY_STAGE2)
+    if model.cfg_model.enable_render or not model.enable_motion_vae:
+        raise AssertionError("pony: stage 2 config")
+    by_path["pony_stage2_train"], summary["pony_stage2_train"], \
+        readings["pony_stage2_train"] = pony_train_phase(
+            "pony_stage2_train", model, state, B, PONY_IT, WARMUP_RUNS,
+            PONY_TIMED, {"fused_mlp_fwd": 1}, "netInstance.netVAE")
+    by_path["pony_generate"], summary["pony_generate"] = \
+        pony_generate_path(model, state, B)
+    del model, state
+    torch.cuda.empty_cache()
+    return by_path, summary, readings
+
+
+def adam_state_equal(saved, opt, what):
+    """Every tensor of each saved Adam state equal to `opt`'s, bit for
+    bit; returns how many."""
+    import torch
+    n = 0
+    for name, o in opt.optimizers.items():
+        want = saved["optimizer"][name]["state"]
+        got = o.state_dict()["state"]
+        if set(got) != set(want):
+            raise AssertionError(f"{what}: Adam {name} state keys")
+        for i, st in want.items():
+            for k, v in st.items():
+                if not torch.equal(got[i][k].cpu(), v):
+                    raise AssertionError(f"{what}: Adam {name} state "
+                                         f"{i}/{k} differs")
+                n += 1
+    return n
+
+
+def cli_pony_phase(card):
+    """`python -m animals3d_tpu_torch.run` with the Ponymation configs at
+    full width on a synthetic sequence tree (2 sequences of
+    `CLI_PONY_FRAMES` frames at 256² with 16-bit flows, DINO features of
+    16): stage 1 resumed at `PONY_IT` from a MagicPony checkpoint the port
+    writes (its weights load tolerantly; its Adam states, sized for
+    MagicPony's groups, are reported and kept at init), 2 steps; stage 2
+    from that stage-1 checkpoint (netVAE missing there, kept at init and
+    reported), 2 steps; a resume of stage 2 one step further with its Adam
+    state restored bit for bit; then stage 1's `Trainer.test` over one
+    sequence with flows loaded and rendered, writing `_flow_gt.png` and
+    `_flow_pred.png`. The counters run from 0 over the four; returns
+    (launches, (median step ms, peak bytes), stage 1's `pair_readings`).
+    """
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import checkpoint as ckpt
+    from animals3d_tpu_torch import run
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    from animals3d_tpu_torch.trainer import make_optimizer
+    root = tempfile.mkdtemp(prefix="chip_smoke_pony_")
+    try:
+        tree = write_synth_dataset(os.path.join(root, "seq"), size=CLI_SIZE,
+                                   dino_dim=CLI_DINO, sequences=2,
+                                   frames=CLI_PONY_FRAMES, seed=0)
+        test_tree = write_synth_dataset(
+            os.path.join(root, "seq_test"), size=CLI_SIZE, dino_dim=CLI_DINO,
+            sequences=1, frames=CLI_PONY_FRAMES, seed=1)
+        s1, s2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
+        _cfg, mp = build([], "cuda")            # train_magicpony_horse
+        mp.init_params(SEED)
+        ckpt.save_checkpoint(s1, PONY_IT, {"model": mp.state_dict(),
+                                           **make_optimizer(mp).state_dict()})
+        del mp
+        torch.cuda.empty_cache()
+        common = [f"dataset.train_data_dir={tree}", "dataset.val_data_dir=null",
+                  "use_logger=false", "log_loss_freq=1",
+                  "save_checkpoint_freq=5000", "checkpoint_path=null",
+                  "dataset.num_workers=4"]
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts = [], {}
+
+        def counted(label, fn):
+            before = {k: c.launches for k, c in counters().items()}
+            out = fn()
+            torch.cuda.synchronize()
+            counts[label] = {k: c.launches - before[k]
+                             for k, c in counters().items()
+                             if c.launches != before[k]}
+            return out
+        with timed_steps(times), recorded_calls() as rec:
+            t1 = counted("stage1", lambda: run.main(
+                ["--config-name", PONY_STAGE1, f"checkpoint_dir={s1}",
+                 f"num_iters={PONY_IT + 2}"] + common))
+        scenes = rec["scenes"]
+        del rec
+        if t1.start_iter != PONY_IT or not os.path.isfile(
+                os.path.join(s1, f"checkpoint{PONY_IT + 2:07d}.pth")):
+            raise AssertionError("cli_train_pony: stage 1 did not run "
+                                 f"{PONY_IT} -> {PONY_IT + 2}")
+        s1_losses = [m["loss"] for m in t1.metrics_trace.data["train"]]
+        del t1
+        os.makedirs(s2)
+        shutil.copy(os.path.join(s1, f"checkpoint{PONY_IT + 2:07d}.pth"), s2)
+        with timed_steps(times):
+            t2 = counted("stage2", lambda: run.main(
+                ["--config-name", PONY_STAGE2, f"checkpoint_dir={s2}",
+                 f"num_iters={PONY_IT + 4}"] + common))
+        s2_losses = [m["loss"] for m in t2.metrics_trace.data["train"]]
+        del t2
+        torch.cuda.empty_cache()
+        saved = ckpt.read_checkpoint(os.path.join(
+            s2, f"checkpoint{PONY_IT + 4:07d}.pth"))
+        resume = ["--config-name", PONY_STAGE2, f"checkpoint_dir={s2}",
+                  f"num_iters={PONY_IT + 5}"] + common
+        _cfg, m, tr = run.build(resume)
+        opt, start = tr.restore()
+        n_equal = adam_state_equal(saved, opt, "cli_train_pony")
+        if start != PONY_IT + 4 or set(opt.optimizers) != {"instance"}:
+            raise AssertionError(f"cli_train_pony: the resume starts at "
+                                 f"{start}, optimizers {set(opt.optimizers)}")
+        del m, tr, opt, saved
+        torch.cuda.empty_cache()
+        with timed_steps(times):
+            t3 = counted("stage2_resume", lambda: run.main(resume))
+        if t3.start_iter != PONY_IT + 4:
+            raise AssertionError("cli_train_pony: the resume did not start "
+                                 f"at {PONY_IT + 4}")
+        del t3
+        torch.cuda.empty_cache()
+        tester = counted("stage1_test", lambda: run.main(
+            ["--config-name", PONY_STAGE1, f"checkpoint_dir={s1}",
+             "run_train=false", "run_test=true", "checkpoint_path=null",
+             "dataset.train_data_dir=null", "dataset.val_data_dir=null",
+             f"dataset.test_data_dir={test_tree}",
+             "dataset.load_flow=true", "model.cfg_render.render_flow=true",
+             "use_logger=false"]))
+        del tester
+        launches = check_counts("cli_train_pony", {
+            "cull_boxes": 2 + CLI_PONY_FRAMES, "raster_vis": 2 +
+            CLI_PONY_FRAMES, "fused_mlp_fwd": 5, "resolve_bwd": 2})
+        readings = pair_readings(scenes)          # after the count: it renders
+        del scenes
+        peak = torch.cuda.max_memory_allocated()
+        out_dir = os.path.join(s1, f"test_results_{PONY_IT + 2:07d}")
+        files = os.listdir(out_dir)
+        n_gt = sum(f.endswith("_flow_gt.png") for f in files)
+        n_pred = sum(f.endswith("_flow_pred.png") for f in files)
+        if not (n_gt and n_pred):
+            raise AssertionError(f"cli_train_pony: {n_gt} flow_gt and "
+                                 f"{n_pred} flow_pred files")
+        if not all(np.isfinite(s1_losses + s2_losses)):
+            raise AssertionError(f"cli_train_pony: losses {s1_losses} "
+                                 f"{s2_losses}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    med = statistics.median(times)
+    print(f"cli_train_pony: stage 1 {PONY_IT} -> {PONY_IT + 2} from a "
+          f"MagicPony checkpoint (losses {[round(x, 4) for x in s1_losses]}), "
+          f"stage 2 -> {PONY_IT + 4} from it (losses "
+          f"{[round(x, 4) for x in s2_losses]}), a resume -> {PONY_IT + 5} "
+          f"with all {n_equal} Adam state tensors restored bit for bit, and "
+          f"the stage-1 test over {CLI_PONY_FRAMES} windows of one sequence "
+          f"({n_gt} flow_gt and {n_pred} flow_pred files); step ms "
+          f"{[round(x, 1) for x in times]}; peak memory {peak / 2**30:.2f} "
+          f"GiB; launches by run {counts}; stage 1's renders: the "
+          f"{dropped_pairs_text(readings)}; card {card}")
+    return launches, (med, peak), readings
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2404,6 +2929,10 @@ def main() -> int:
     train_reference_phase("train_v6_kernel_rows")
     train_reference_phase("fauna_train", "train_fauna",
                           FAUNA_SMALL_OVERRIDES, FAUNA_IT)
+    train_reference_phase("pony_stage1_train", PONY_STAGE1,
+                          PONY_SMALL_OVERRIDES, PONY_IT)
+    train_reference_phase("pony_stage2_train", PONY_STAGE2,
+                          PONY_SMALL_OVERRIDES, PONY_IT)
 
     model, images, it, B, H = slice_phase()
     from animals3d_tpu_torch.data.synth import fake_batch
@@ -2467,8 +2996,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["cli_train_fauna"], summary["cli_train_fauna"] = \
         cli_fauna_phase(card)
+
+    # Ponymation: both stages, generation and the CLI
+    pony_by_path, pony_summary, pony_readings = pony_slice(card)
+    by_path.update(pony_by_path)
+    summary.update(pony_summary)
+    by_path["cli_train_pony"], summary["cli_train_pony"], \
+        pony_readings["cli_train_pony"] = cli_pony_phase(card)
+    # a Ponymation stage-1 step renders through the capped antialias pass
+    pairs = {p: f" ({dropped_pairs_text(r)})" for p, r in
+             pony_readings.items() if "pairs" in r}
     print("paths (ms, peak GiB): " + ", ".join(
-        f"{k} {ms:.2f} ms {peak / 2**30:.2f} GiB"
+        f"{k} {ms:.2f} ms {peak / 2**30:.2f} GiB{pairs.get(k, '')}"
         for k, (ms, peak) in summary.items()) + f"; card {card}")
 
     # `launches`: the count on the path that drives the kernel's slice
@@ -2487,6 +3026,14 @@ def main() -> int:
         e["launches_recon"] = by_path["recon"][name]
         e["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         kernels.append(e)
+    # K1 and the cull kernel at 1024² (Ponymation's spp 4): all ten frames
+    # of a step, and the two held to the plain version, with K1's bound
+    for e in kernels:
+        key = {"raster_vis": "k1", "cull_boxes": "cull"}.get(e["name"])
+        if key:
+            e["pony_1024"] = {
+                p: {k: v for k, v in r.items() if k.startswith(key)}
+                for p, r in pony_readings.items() if f"{key}_ms_all" in r}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

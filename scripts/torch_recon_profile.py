@@ -164,7 +164,7 @@ def main() -> int:
     with torch.no_grad():
         for _ in range(2):
             model.reconstruct(model, images, it)
-        (prior, _sdf), base_ms = timed(
+        (prior, *_rest), base_ms = timed(
             lambda: model.forward_base(grid, v_cap, f_cap), args.runs)
         out, inst_ms = timed(
             lambda: model.instance_forward(images, prior, it, phase),

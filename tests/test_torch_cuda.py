@@ -1185,3 +1185,183 @@ def test_fauna_checkpoint_round_trip_with_the_disc_adam_on_card(card,
             for k, v in st.items():
                 assert torch.equal(got_all[name]["state"][i][k]
                                    .to(v.device), v), (name, i, k)
+
+
+# ---------------------------------------------------------------------------
+# Ponymation at a small width
+# ---------------------------------------------------------------------------
+
+PONY_CARD_OVERRIDES = [
+    "dataset.in_image_size=64", "dataset.out_image_size=64",
+    "dataset.batch_size=1", "dataset.num_frames=3",
+    "dataset.num_workers=2", "dataset.dino_feature_dim=4",
+    "model.cfg_predictor_base.cfg_shape.grid_res=16",
+    "model.cfg_predictor_base.cfg_shape.grid_res_coarse=16",
+    "model.cfg_predictor_base.cfg_shape.num_layers=2",
+    "model.cfg_predictor_base.cfg_shape.hidden_size=256",
+    "model.cfg_predictor_base.cfg_dino.feature_dim=4",
+    "model.cfg_predictor_instance.cfg_encoder.cout=32",
+    "model.cfg_predictor_instance.cfg_texture.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_articulation.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_light.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_deform.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_motion_vae.latent_dim=32",
+    "+model.cfg_predictor_instance.cfg_motion_vae.transformer_layer_num=1",
+    "use_logger=false", "log_loss_freq=1", "mixed_precision=false"]
+
+
+def _pony(config):
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch.models import build_model
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    set_mixed_precision(None)
+    cfg = cfglib.load_config(config, overrides=PONY_CARD_OVERRIDES)
+    model = build_model(dict(cfg["model"], dataset=cfg["dataset"]),
+                        device="cuda")
+    model.init_params(0)
+    return model
+
+
+def _pony_kernels():
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    from animals3d_tpu_torch.ops import resolve_cuda as rv
+    return (rc.cull, rc.visibility, rv.resolve_bwd, fm.fused_mlp_fwd,
+            fm.fused_mlp_bwd)
+
+
+def _moved(before, model):
+    return {".".join(k.split(".")[:2]) for k, v in model.state_dict().items()
+            if v.is_floating_point() and not torch.equal(v, before[k])}
+
+
+def test_pony_steps_and_generate_on_card(card):
+    """Ponymation at a small width in float32 on the card. A stage-1 step
+    at spp 4 (64² images, 256² visibility): the cull kernel, K1, K6 and K4
+    once, K7 never (netBase is frozen), only netArticulation moved. A
+    stage-2 step: K6 alone (no render), only netVAE moved. Stage 2's eval
+    forward (`generate`): the cull kernel and K1 once, 3 generated frames
+    of a finite mask."""
+    from animals3d_tpu_torch.data.synth import fake_batch
+    from animals3d_tpu_torch.trainer import make_optimizer, train_step
+    kernels = _pony_kernels()
+    for config, want, net in (
+            ("train_ponymation_horse_stage1", [1, 1, 1, 1, 0],
+             "netInstance.netArticulation"),
+            ("train_ponymation_horse_stage2", [0, 0, 0, 1, 0],
+             "netInstance.netVAE")):
+        model = _pony(config)
+        batch = fake_batch(model, 1 if "stage1" in config else 2)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        opt = make_optimizer(model)
+        assert set(opt.optimizers) == {"instance"}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        counts = [k.launches for k in kernels]
+        met = train_step(model, opt, batch, 100000, gen)
+        torch.cuda.synchronize()
+        assert [k.launches - c for k, c in zip(kernels, counts)] == want
+        assert np.isfinite(float(met["loss"]))
+        assert _moved(before, model) == {net}
+    counts = [k.launches for k in kernels]
+    with torch.no_grad():
+        _l, (_m, aux) = model.forward(batch, 100000, gen,
+                                      model.phase_for_iter(100000, False))
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == \
+        [1, 1, 0, 0, 0]
+    assert aux["mask_pred"].shape == (1, 3, 64, 64)
+    assert bool(torch.isfinite(aux["mask_pred"]).all())
+
+
+def test_pony_cli_warm_start_chain_on_card(card, tmp_path):
+    """The port's CLI on a synthetic sequence tree at a small width: stage
+    1 resumed at 100,000 from a MagicPony checkpoint the port writes (2
+    steps), stage 2 from stage 1's checkpoint (2 steps; netVAE kept at
+    init), a resume of stage 2 with every Adam state tensor restored bit
+    for bit, and stage 1's test with flows loaded and rendered writing
+    `_flow_gt.png` and `_flow_pred.png`."""
+    import os
+    import shutil
+    pytest.importorskip("PIL")
+    from animals3d_tpu_torch import checkpoint as ckpt
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch import run
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    from animals3d_tpu_torch.models import build_model
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.trainer import make_optimizer
+    tree = write_synth_dataset(str(tmp_path / "seq"), size=64, dino_dim=4,
+                               sequences=2, frames=4)
+    s1, s2 = str(tmp_path / "s1"), str(tmp_path / "s2")
+    cfg = cfglib.load_config("train_magicpony_horse",
+                             overrides=CARD_CLI_OVERRIDES)
+    mp = build_model(dict(cfg["model"], dataset=cfg["dataset"]),
+                     device="cuda")
+    mp.init_params(0)
+    ckpt.save_checkpoint(s1, 100000, {"model": mp.state_dict(),
+                                      **make_optimizer(mp).state_dict()})
+    common = PONY_CARD_OVERRIDES + [f"dataset.train_data_dir={tree}",
+                                    "dataset.val_data_dir=null",
+                                    "checkpoint_path=null"]
+    try:
+        t1 = run.main(["--config-name", "train_ponymation_horse_stage1",
+                       f"checkpoint_dir={s1}", "num_iters=100002"] + common)
+        assert t1.start_iter == 100000
+        os.makedirs(s2)
+        shutil.copy(os.path.join(s1, "checkpoint0100002.pth"), s2)
+        stage2 = ["--config-name", "train_ponymation_horse_stage2",
+                  f"checkpoint_dir={s2}", "dataset.batch_size=2"] + common
+        t2 = run.main(stage2 + ["num_iters=100004"])
+        assert t2.start_iter == 100002
+        losses = [m["loss"] for m in t2.metrics_trace.data["train"]]
+        assert len(losses) == 2 and np.isfinite(losses).all()
+        saved = ckpt.read_checkpoint(os.path.join(s2,
+                                                  "checkpoint0100004.pth"))
+        _c, _m, tr = run.build(stage2 + ["num_iters=100005"])
+        opt, start = tr.restore()
+        assert start == 100004 and set(opt.optimizers) == {"instance"}
+        want = saved["optimizer"]["instance"]["state"]
+        got = opt.optimizers["instance"].state_dict()["state"]
+        assert set(got) == set(want) != set()
+        for i, st in want.items():
+            for k, v in st.items():
+                assert torch.equal(got[i][k].cpu(), v), (i, k)
+        run.main(stage2 + ["num_iters=100005"])
+        run.main(["--config-name", "train_ponymation_horse_stage1",
+                  f"checkpoint_dir={s1}", "run_train=false", "run_test=true",
+                  f"dataset.test_data_dir={tree}", "dataset.load_flow=true",
+                  "model.cfg_render.render_flow=true"] + common
+                 + ["dataset.train_data_dir=null"])
+    finally:
+        set_mixed_precision(None)
+    files = os.listdir(os.path.join(s1, "test_results_0100002"))
+    assert any(f.endswith("_flow_gt.png") for f in files)
+    assert any(f.endswith("_flow_pred.png") for f in files)
+
+
+def test_png_codec_round_trip(tmp_path):
+    """The numpy/zlib PNG codec the port reads its 16-bit flows with (the
+    port does not require cv2): `png_write` then `png_read` returns the
+    array, 8- and 16-bit, 1 to 4 channels; PIL decodes the 8-bit files to
+    the same array; the flow loader maps 0 and 65535 to -1 and 1. Needs
+    no card."""
+    from animals3d_tpu_torch.data import util
+    r = np.random.default_rng(0)
+    for dtype in (np.uint8, np.uint16):
+        for ch in (1, 2, 3, 4):
+            a = (r.uniform(0, 1, (13, 21, ch))
+                 * np.iinfo(dtype).max).astype(dtype)
+            path = str(tmp_path / f"{dtype.__name__}_{ch}.png")
+            util.png_write(path, a)
+            np.testing.assert_array_equal(util.png_read(path), a)
+            if dtype == np.uint8 and ch in (1, 3, 4):
+                PIL = pytest.importorskip("PIL.Image")
+                b = np.asarray(PIL.open(path))
+                np.testing.assert_array_equal(b.reshape(a.shape), a)
+    flow = np.zeros((4, 5, 3), np.uint16)
+    flow[..., 1] = 65535
+    path = str(tmp_path / "flow.png")
+    util.png_write(path, flow)
+    got = util.flow_loader(path)
+    assert got.shape == (2, 4, 5)
+    np.testing.assert_array_equal(got[0], -1.0)
+    np.testing.assert_array_equal(got[1], 1.0)

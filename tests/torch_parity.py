@@ -187,12 +187,20 @@ def batch_to(batch, conv):
     return {k: None if v is None else conv(v) for k, v in batch.items()}
 
 
-def jax_noise(rng, n_images, num_hypos, num_verts=None):
+def jax_noise(rng, n_images, num_hypos, num_verts=None, vae=None,
+              generate=None):
     """The draws `AnimalModel.forward` makes from `rng`, reproduced by
     splitting the key as the JAX code does (`models/animal.py:415` →
     `predictors/instance.py:534,293-297`; `predictors/base.py:170,227-237`;
     Fauna's random view `models/fauna.py:178` from `rngs[3]`), as a port
-    `Noise`. `surf_idx` needs the prior mesh's vertex count."""
+    `Noise`. `surf_idx` needs the prior mesh's vertex count. Ponymation's:
+    with `vae` = (flax instance predictor, its params, ε's shape), the
+    VAE's ε, a normal draw from the key `make_rng("vae")` gives in the
+    predictor's root scope on the stream `rngs[4]`
+    (`predictors/motion_vae.py:96`, `models/animal.py:551`); with
+    `generate` = (images in the batch, z's shape), `generate`'s frame pick
+    and unscaled z from `rngs[1]` split in three (`predictors/
+    motion_vae.py:124-125`)."""
     from animals3d_tpu_torch.noise import Noise
     rngs = jax.random.split(rng, 5)
     jitter_u = jax.random.uniform(rngs[0], ())
@@ -206,11 +214,24 @@ def jax_noise(rng, n_images, num_hypos, num_verts=None):
     surf_idx = None
     if num_verts is not None:
         surf_idx = t(jax.random.randint(e2, (n,), 0, max(int(num_verts), 1)))
+    extra = {}
+    if vae is not None:
+        inst, params, shape = vae
+        key = inst.apply({"params": params},
+                         method=lambda m: m.make_rng("vae"),
+                         rngs={"vae": rngs[4]})
+        extra["vae_normal"] = t(jax.random.normal(key, shape))
+    if generate is not None:
+        n_in, z_shape = generate
+        k_pick, k_vae, _k_pose = jax.random.split(rngs[1], 3)
+        extra["gen_pick"] = t(jax.random.randint(k_pick, (), 0, n_in))
+        extra["gen_z_normal"] = t(jax.random.normal(k_vae, z_shape))
     return Noise(jitter_u=t(jitter_u), rand_idx=t(rand_idx), best_u=t(best_u),
                  rand_pts_u=t(jax.random.uniform(e1, (n, 3))),
                  surf_idx=surf_idx,
                  surf_u=t(jax.random.uniform(e3, (n, 3))),
-                 rv_deg=t(jax.random.randint(rngs[3], (n_images,), 0, 360)))
+                 rv_deg=t(jax.random.randint(rngs[3], (n_images,), 0, 360)),
+                 **extra)
 
 
 def flat_tree(tree, prefix=()):
