@@ -45,6 +45,37 @@ def euler_angles_to_matrix(angles, convention: str = "XYZ"):
     return mats[0] @ mats[1] @ mats[2]
 
 
+def matrix_to_axis_angle(R):
+    """(..., 3, 3) rotation → (..., 3) axis-angle, PyTorch3D semantics
+    (the Visualizer interpolates viewpoints with it); near angle 0 the
+    scaled axis goes to 0 smoothly."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    angle = torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+    axis = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                        R[..., 0, 2] - R[..., 2, 0],
+                        R[..., 1, 0] - R[..., 0, 1]], -1)
+    sin = torch.sin(angle)[..., None]
+    big = sin.abs() > 1e-6
+    unit = torch.where(big, axis / torch.where(big, sin * 2.0,
+                                               torch.ones_like(sin)),
+                       axis * 0.5)
+    return unit * torch.where(big[..., 0], angle,
+                              torch.ones_like(angle))[..., None]
+
+
+def axis_angle_to_matrix(v):
+    """(..., 3) axis-angle → (..., 3, 3) by Rodrigues' formula."""
+    angle = torch.linalg.norm(v, dim=-1, keepdim=True)
+    axis = v / torch.clamp(angle, min=1e-12)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    zero = torch.zeros_like(x)
+    K = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], -1) \
+        .reshape(*x.shape, 3, 3)
+    a = angle[..., None]
+    eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(K.shape)
+    return eye + torch.sin(a) * K + (1.0 - torch.cos(a)) * (K @ K)
+
+
 class BoneStructure(NamedTuple):
     ancestors: torch.Tensor   # (K, D) int64, root-first path; -1 pad
     n_body_bones: int

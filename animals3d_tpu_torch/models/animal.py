@@ -246,10 +246,11 @@ class AnimalModel(nn.Module):
     def render(self, render_modes, shape, mvp, w2c, campos, resolution,
                im_features=None, light_params=None, prior_mesh=None,
                use_dino: bool = False, background=None, class_vector=None,
-               num_frames=None):
+               num_frames=None, spp=None):
         """`class_vector` (1 or N, dim) conditions the DINO field; one row
         is broadcast to the N images. `num_frames` groups the images into
-        sequences for the flow mode."""
+        sequences for the flow mode. `spp`, where given, overrides the
+        config's `renderer_spp`."""
         h, w = resolution
         N = mvp.shape[0]
         material_fn = None
@@ -267,7 +268,7 @@ class AnimalModel(nn.Module):
         return render_mesh(shape, mvp, w2c, campos, (h, w),
                            material_fn=material_fn, light_params=light_params,
                            background=background,
-                           spp=self.cfg_render.renderer_spp,
+                           spp=spp or self.cfg_render.renderer_spp,
                            render_modes=render_modes, prior_mesh=prior_mesh,
                            dino_fn=dino_fn, num_frames=num_frames,
                            raster_variant=self.raster_variant,

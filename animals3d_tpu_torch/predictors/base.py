@@ -1,10 +1,11 @@
 """Base predictor: category prior shape (SDF + marching tets) and the DINO
 feature field (port of `animals3d_tpu.predictors.base`).
 
-The eval path sweeps the SDF MLP densely over the lattice; training
-(jittered sweeps) goes through the fused kernels of `ops.fused_mlp`, which
-keep the (N, 256) activations out of device memory. With
-`condition_choice="mod"` (Fauna) the SDF is the weight-modulated
+The eval path sweeps the SDF MLP densely over the lattice, in blocks of
+`EVAL_SWEEP_ROWS` rows (each row's value is the same function of that row
+alone); training (jittered sweeps) goes through the fused kernels of
+`ops.fused_mlp`, which keep the (N, 256) activations out of device memory.
+With `condition_choice="mod"` (Fauna) the SDF is the weight-modulated
 `CoordMLPMod`, conditioned by a (1, 128) feature that the DINO field takes
 too; the fused sweep stays off for it, as in the JAX package. The banded
 sweep of the JAX package (an offline option) is not ported yet.
@@ -22,6 +23,10 @@ from animals3d_tpu_torch.networks.mlp import CoordMLP, CoordMLPMod
 from animals3d_tpu_torch.noise import Noise, uniform
 from animals3d_tpu_torch.ops import dmtet, fused_mlp
 from animals3d_tpu_torch.predictors.config import BasePredictorConfig
+
+# rows of one block of the eval sweep: the plain MLP's (N, 256) float32
+# activations of the 257³ lattice take 17 GB a layer
+EVAL_SWEEP_ROWS = 1 << 21
 
 
 class BasePredictor(nn.Module):
@@ -65,6 +70,15 @@ class BasePredictor(nn.Module):
             else self.netSDF(pts_in)
         init = self._init_sdf(pts)
         return sdf + (init[..., None] if torch.is_tensor(init) else init)
+
+    def _eval_sdf(self, pos, feats=None):
+        """`get_sdf(pos, feats)[..., 0]`, in blocks of `EVAL_SWEEP_ROWS`
+        rows. Each row's value is a function of that row alone, and under
+        autograd the blocks keep the same activations a single call
+        would."""
+        return torch.cat([self.get_sdf(pos[i:i + EVAL_SWEEP_ROWS],
+                                       feats)[..., 0]
+                          for i in range(0, pos.shape[0], EVAL_SWEEP_ROWS)])
 
     def dino_field(self, pts, feats=None):
         return self.netDINO(pts, feats)
@@ -125,7 +139,7 @@ class BasePredictor(nn.Module):
         if self._use_fused_sweep(training=jitter is not None):
             sdf = self._fused_sdf_sweep(pos)
         else:
-            sdf = self.get_sdf(pos, feats)[..., 0]
+            sdf = self._eval_sdf(pos, feats)
         out = dmtet.marching_tets(pos, sdf, grid, v_cap, f_cap)
         mesh = make_mesh(out.verts[None], out.faces, out.v_valid,
                          out.f_valid, out.num_verts, out.num_faces,

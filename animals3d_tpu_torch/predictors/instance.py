@@ -251,14 +251,16 @@ class InstancePredictor(nn.Module):
                "rand_pose_flag": rand_flag}
         return pose_raw, pose, aux
 
-    def get_camera_extrinsics_from_pose(self, pose, znear=0.1, zfar=1000.0):
-        """pose (N, 12) → mvp, w2c, campos."""
+    def get_camera_extrinsics_from_pose(self, pose, znear=0.1, zfar=1000.0,
+                                        offset_extra=None):
+        """pose (N, 12) → mvp, w2c, campos; `offset_extra` moves the
+        camera that much further back (the Visualizer's canonical view)."""
         cfg = self.cfg.cfg_pose
         N = pose.shape[0]
         dev = pose.device
         R = pose[:, :9].reshape(N, 3, 3).transpose(-1, -2)
-        T = pose[:, -3:] + torch.tensor([0.0, 0.0, -cfg.cam_pos_z_offset],
-                                        device=dev)
+        z_off = cfg.cam_pos_z_offset + (offset_extra or 0.0)
+        T = pose[:, -3:] + torch.tensor([0.0, 0.0, -z_off], device=dev)
         w2c = torch.zeros((N, 4, 4), dtype=pose.dtype, device=dev)
         w2c[:, :3, :3] = R
         w2c[:, :3, 3] = T
@@ -434,6 +436,31 @@ class InstancePredictor(nn.Module):
             else None
         return (shape, pose_raw, pose, mvp, w2c, campos, feat_out, feat_key,
                 deformation, arti_params, light_params, aux)
+
+    def articulate_with_angles(self, prior_mesh: Mesh, angles):
+        """Re-skin the prior with explicit articulation angles (B, F, K, 3)
+        (the Visualizer's animation and canonicalization) → a mesh of
+        B·F posed copies."""
+        a = self.cfg.cfg_articulation
+        B, F_ = angles.shape[:2]
+        verts_bf = prior_mesh.v_pos[:1][None]
+        bones, structure = sk.estimate_bones(
+            verts_bf, prior_mesh.v_valid, n_body_bones=a.num_body_bones,
+            n_legs=a.num_legs, n_leg_bones=a.num_leg_bones,
+            body_bones_mode=a.body_bones_mode, attach_legs_to_body=True,
+            bone_y_threshold=a.bone_y_threshold,
+            legs_to_body_joint_indices=a.legs_to_body_joint_indices)
+        verts_rep = verts_bf.expand(B, F_, *verts_bf.shape[2:])
+        posed, _ = sk.skinning(verts_rep, bones, structure, angles,
+                               temperature=a.skinning_temperature,
+                               v_valid=prior_mesh.v_valid)
+        N = B * F_
+        posed = posed.reshape(N, *posed.shape[2:])
+        v_tex = prior_mesh.v_tex[:1].expand(N, *prior_mesh.v_tex.shape[1:])
+        return make_mesh(posed, prior_mesh.t_pos_idx, prior_mesh.v_valid,
+                         prior_mesh.f_valid, prior_mesh.num_verts,
+                         prior_mesh.num_faces, v_tex=v_tex,
+                         face_gidx=prior_mesh.face_gidx)
 
     def frozen_vit_class_token(self, images):
         """images (B, F, 3, H, W) in [0, 1] → the frozen ViT's class

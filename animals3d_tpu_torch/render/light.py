@@ -1,6 +1,8 @@
-"""Directional light (port of `DirectionalLight` / `directional_shade` of
-`animals3d_tpu.render.light`): an MLP predicts a light direction in the
-upper hemisphere plus ambient and diffuse intensities."""
+"""Directional light (port of `DirectionalLight`, `directional_shade` and
+`fixed_direction_light` of `animals3d_tpu.render.light`): an MLP predicts
+a light direction in the upper hemisphere plus ambient and diffuse
+intensities; the Visualizer relights with a fixed one. The environment
+light of the pbr path is not ported yet."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -36,6 +38,11 @@ class DirectionalLight(nn.Module):
             intensity = intensity * (mm[:, 1] - mm[:, 0]) + mm[:, 0]
         return torch.cat([direction, intensity], -1)
 
+    def shade(self, feat, kd, normal):
+        """kd, normal (B, H, W, 3), the normal in camera space →
+        (shaded, shading)."""
+        return directional_shade(self(feat), kd, normal)
+
 
 def directional_shade(light_params, kd, normal):
     """shaded = (amb + diff·max(l·n, 0)) · kd for (B, 5) light params and
@@ -45,3 +52,13 @@ def directional_shade(light_params, kd, normal):
     diff = light_params[..., None, None, 4:5]
     shade = amb + diff * torch.clamp(shading.dot(light_dir, normal), min=0.0)
     return shade * kd, shade
+
+
+def fixed_direction_light(direction, amb: float, diff: float, batch: int):
+    """Constant (batch, 5) light params: the normalized `direction` (3,),
+    ambient and diffuse intensities."""
+    d = shading.safe_normalize(torch.as_tensor(direction).reshape(1, 3))
+    d = d.expand(batch, 3)
+    intens = torch.tensor([[amb, diff]], dtype=d.dtype,
+                          device=d.device).expand(batch, 2)
+    return torch.cat([d, intens], -1)

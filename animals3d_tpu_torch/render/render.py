@@ -1,6 +1,5 @@
 """Deferred-shading mesh renderer (port of `render_mesh` of
-`animals3d_tpu.render.render`, for the modes the training forwards ask
-for: `shaded`, `dino_pred` and `flow`).
+`animals3d_tpu.render.render`).
 
 Rasterize with a tile kernel (`ops.rasterize_cuda`, `raster_variant` 3, 4
 or 6; its plain version on the CPU), resolve barycentrics and interpolated
@@ -8,16 +7,20 @@ attributes with one row per pixel (`resolve_rows` "gather" or "kernel",
 see `ops.rasterize.resolve`), shade with the texture MLP and a directional
 light, composite over the background and antialias silhouettes. Textures
 and DINO features are sampled at canonical (prior-mesh) positions, so
-appearance is pose-invariant. `shaded` keeps RGBA: its alpha is the
-antialiased mask. `flow` is the clip-space xy delta of each vertex to the
-next frame (zero on the last), interpolated by the same resolve.
+appearance is pose-invariant. The modes: `shaded` (RGBA: its alpha is the
+antialiased mask), `kd`, `ks`, `normal` (the shading normal),
+`geo_normal`, `shading` (the light's scalar, where a light is given),
+`depth` (camera z normalized per image), `tangent` (where the mesh has
+`v_tng`), `dino_pred` and `flow` (the clip-space xy delta of each vertex
+to the next frame, zero on the last). All interpolated channels ride in
+the one resolve row.
 
 Supersampling (`spp` > 1) rasterizes at (H·spp, W·spp) and shades at the
 base resolution on the nearest-subsampled rast (the JAX package's
 `msaa=True`, its only form in use); the buffers are nearest-upsampled
 back, and compositing, antialiasing and the final average pooling run at
-full resolution: visibility is supersampled, shading is not. Tangent, depth
-and the environment light are not ported yet.
+full resolution: visibility is supersampled, shading is not. The
+environment light is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,8 +36,10 @@ from animals3d_tpu_torch.ops.rasterize_cuda import rasterize_cuda
 from animals3d_tpu_torch.render.camera import xfm_points
 from animals3d_tpu_torch.render.light import directional_shade
 
-_ANTIALIAS_MODES = ("shaded", "flow", "dino_pred")
-_SUPPORTED_MODES = ("shaded", "dino_pred", "flow")
+_ANTIALIAS_MODES = ("shaded", "flow", "dino_pred", "depth", "shading")
+_BG_IMAGE_MODES = ("shaded", "geo_normal", "shading")
+_SUPPORTED_MODES = ("shaded", "kd", "ks", "normal", "geo_normal", "shading",
+                    "flow", "dino_pred", "depth", "tangent")
 
 
 def avg_pool_nhwc(x, k: int):
@@ -95,6 +100,9 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
         delta = xy[:, 1:] - xy[:, :-1]
         delta = torch.cat([delta, torch.zeros_like(delta[:, :1])], 1)
         chans.append(delta.reshape(-1, *delta.shape[2:]))
+    want_tangent = "tangent" in render_modes and mesh.v_tng is not None
+    if want_tangent:
+        chans.append(mesh.v_tng.expand(B, *mesh.v_tng.shape[1:]))
     # face normals of the posed mesh ride in resolve's per-face row
     fp = take_rows(mesh.v_pos, faces, 1)                       # (B, F, 3, 3)
     u = fp[:, :, 1] - fp[:, :, 0]
@@ -111,7 +119,12 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
     gb_pos = fused[..., 0:3]
     gb_normal = fused[..., 3:6]
     gb_tex_pos = fused[..., 6:9]
-    flow_interp = fused[..., 9:11] if "flow" in render_modes else None
+    off = 9
+    flow_interp = None
+    if "flow" in render_modes:
+        flow_interp = fused[..., off:off + 2]
+        off += 2
+    gb_tangent = fused[..., off:off + 3] if want_tangent else None
     gb_geo_normal = gb_geo_normal * mask_base
 
     # ---- shading ----
@@ -122,7 +135,7 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
                                dtype=gb_pos.dtype,
                                device=gb_pos.device).expand(
                                    *gb_pos.shape[:-1], 9)
-    kd = all_tex[..., :3]
+    kd, ks = all_tex[..., :3], all_tex[..., 3:6]
     dino_pred = dino_fn(gb_tex_pos) if dino_fn is not None else None
     view_pos = campos[:, None, None, :]
     gb_shading_normal = sh.prepare_shading_normal(
@@ -130,15 +143,31 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
         two_sided_shading=two_sided_shading)
     cam_normal = sh.safe_normalize(
         torch.einsum("bij,bhwj->bhwi", w2c[:, :3, :3], gb_shading_normal))
+    shading_buf = None
     if light_params is not None:
-        shaded_col, _ = directional_shade(light_params, kd, cam_normal)
+        shaded_col, shading_buf = directional_shade(light_params, kd,
+                                                    cam_normal)
     else:
         shaded_col = kd
-    buffers = {"shaded": shaded_col}
+    buffers = {"shaded": shaded_col, "kd": kd, "ks": ks,
+               "normal": (gb_shading_normal + 1.0) * 0.5,
+               "geo_normal": (gb_geo_normal + 1.0) * 0.5}
+    if gb_tangent is not None:
+        buffers["tangent"] = (gb_tangent + 1.0) * 0.5
+    if shading_buf is not None:
+        buffers["shading"] = shading_buf
     if flow_interp is not None:
         buffers["flow"] = flow_interp
     if dino_pred is not None:
         buffers["dino_pred"] = dino_pred
+    if "depth" in render_modes:
+        pos_hom = torch.cat([gb_pos, torch.ones_like(gb_pos[..., :1])], -1)
+        z_cam = torch.einsum("bij,bhwj->bhwi", w2c, pos_hom)[..., 2:3]
+        zmin = z_cam.amin((1, 2), keepdim=True)
+        zmax = z_cam.amax((1, 2), keepdim=True)
+        buffers["depth"] = (z_cam - zmin) / torch.clamp(zmax - zmin,
+                                                        min=1e-12)
+    buffers = {k: v for k, v in buffers.items() if k in render_modes}
     if spp > 1:
         buffers = {k: _upsample(v, spp) for k, v in buffers.items()}
         if background is not None:
@@ -150,9 +179,11 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
         if key not in buffers:
             continue
         buf = buffers[key]
-        if background is not None and key == "shaded":
+        if background is not None and key in _BG_IMAGE_MODES:
             bg = torch.cat([background, torch.zeros_like(background[..., :1])],
                            -1)
+            if key == "shading":
+                bg = bg[..., 2:]     # the reference's quirk
         else:
             bg = buf.new_zeros((*buf.shape[:-1], buf.shape[-1] + 1))
         fg = torch.cat([buf, torch.ones_like(buf[..., :1])], -1)
@@ -175,7 +206,11 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
         accum = accums[key]
         if spp > 1:
             accum = avg_pool_nhwc(accum, spp)
-        if key == "flow":
+        if key in ("kd", "ks", "normal", "geo_normal", "tangent"):
+            accum = accum[..., :3]
+        elif key in ("shading", "depth"):
+            accum = accum[..., :1]
+        elif key == "flow":
             accum = accum[..., :2]
         elif key == "dino_pred":
             accum = accum[..., :-1]

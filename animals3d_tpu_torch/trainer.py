@@ -8,10 +8,16 @@ Reference: `reference model/Trainer.py` (config `:15-50`, train loop
 its discriminator window (`disc_step`): its own Adam on `netDisc`, which
 the generator's optimizers never touch. Checkpoints are `torch.save`
 files with the model's, the optimizers' and the schedulers' state
-(`checkpoint.py`); metrics go to stdout, `metrics.json` and tensorboardX
-scalars where it imports. One device: the data-parallel mesh of the JAX
-package (`mesh_shape`) is not ported, and neither are the visual logs,
-the turntable videos and the code archive.
+(`checkpoint.py`); metrics go to stdout, `metrics.json` and the logger:
+tensorboardX where it imports, or wandb (`logger_type: wandb`, a no-op
+without the package). Every `log_image_freq` iterations the logger also
+gets the visuals of the eval forward (images, masks, DINO features,
+histograms, geometry normals with the bones, albedo, shading) and
+turntable videos of the posed and prior shapes, on the training batch and
+on a validation batch; unlike the JAX trainer, a failure there is not
+swallowed. `archive_code` zips the port's own sources next to the
+checkpoints. One device: the data-parallel mesh of the JAX package
+(`mesh_shape`) is not ported.
 """
 from __future__ import annotations
 
@@ -51,6 +57,9 @@ class TrainerConfig:
     logger_type: str = "tensorboard"
     log_loss_freq: int = 50
     log_image_freq: int = 500
+    log_train: bool = True
+    log_val: bool = True
+    fix_log_batch: bool = False
     save_train_result_freq: Optional[int] = None
     mixed_precision: Optional[str] = "bf16"
     # torch.autograd.set_detect_anomaly: the backward raises at the first
@@ -195,10 +204,6 @@ def batch_to_device(batch: dict, device) -> dict:
         device, non_blocking=True) for k, v in batch.items()}
 
 
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A8c)")
-
-
 class Trainer:
     def __init__(self, cfg: dict, model):
         self.cfg_full = cfg
@@ -218,25 +223,130 @@ class Trainer:
         self.cfg_dataset = cfglib.bind(DataLoaderConfig, ds_cfg)
         self.metrics_trace = MetricsTrace()
         self._writer = None
+        self._fixed_val_batch = None
+        self._val_iter = None
         self.optimizer = None
         self.start_iter = None
 
     # ------------------------------------------------------------------
     def _logger(self):
-        """tensorboardX scalars under `<checkpoint_dir>/logs`, or None where
+        """The logger under `<checkpoint_dir>/logs`: a `WandbWriter` where
+        `logger_type` is wandb, else tensorboardX's writer, or None where
         logging is off or tensorboardX does not import."""
         if not self.cfg.use_logger or self._writer is not None:
             return self._writer
-        if self.cfg.logger_type == "wandb":
-            raise _not_ported("the wandb logger")
         logdir = os.path.join(self.cfg.checkpoint_dir, "logs")
         os.makedirs(logdir, exist_ok=True)
-        try:
-            from tensorboardX import SummaryWriter
-            self._writer = SummaryWriter(logdir, flush_secs=10)
-        except ImportError:
-            self._writer = None
+        if self.cfg.logger_type == "wandb":
+            from animals3d_tpu_torch.utils.wandb_writer import WandbWriter
+            self._writer = WandbWriter(config=self.cfg_full)
+        else:
+            try:
+                from tensorboardX import SummaryWriter
+                self._writer = SummaryWriter(logdir, flush_secs=10)
+            except ImportError:
+                self._writer = None
         return self._writer
+
+    def _archive_code(self):
+        """Zip the port's `.py` and `.yaml` sources to
+        `<checkpoint_dir>/code.zip` (`misc.archive_code`, `misc.py:75-85`);
+        returns its path."""
+        import zipfile
+        import animals3d_tpu_torch
+        pkg = os.path.dirname(animals3d_tpu_torch.__file__)
+        os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
+        out = os.path.join(self.cfg.checkpoint_dir, "code.zip")
+        with zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED) as zf:
+            for root, _dirs, files in os.walk(pkg):
+                for fn in files:
+                    if fn.endswith((".py", ".yaml")):
+                        p = os.path.join(root, fn)
+                        zf.write(p, os.path.relpath(p, os.path.dirname(pkg)))
+        return out
+
+    def _log_visuals(self, writer, batch, total_iter, prefix="train_"):
+        """The visuals of the eval forward on the host `batch` at
+        `total_iter` (`Trainer.py:283-303`, `AnimalModel.log_visuals`,
+        `AnimalModel.py:517-636`), with the geo_normal, kd and shading
+        renders, and the turntable videos."""
+        if writer is None:
+            return
+        from animals3d_tpu_torch.utils import visual_log
+        model = self.model
+        aux = self._eval_aux(batch_to_device(batch, model.device),
+                             total_iter,
+                             torch.Generator(device=model.device)
+                             .manual_seed(0))
+        extra = None
+        if aux.get("mvp") is not None and model.cfg_model.enable_render:
+            h = w = model.out_image_size
+            with torch.no_grad():
+                extra = model.render(
+                    ["geo_normal", "kd", "shading"], aux["shape"],
+                    aux["mvp"], aux["w2c"], aux["campos"], (h, w),
+                    im_features=aux["im_features"],
+                    light_params=aux["light_params"],
+                    prior_mesh=aux["prior_mesh"],
+                    num_frames=model.num_frames,
+                    class_vector=aux.get("class_vector"))
+        visual_log.log_visuals(model, writer, batch, aux, extra, total_iter,
+                               prefix=prefix)
+        visual_log.log_videos(writer, self._turntable_videos(aux),
+                              total_iter, prefix=prefix)
+
+    @torch.no_grad()
+    def _turntable_videos(self, aux, num_frames=15):
+        """15-frame azimuth turntables of the first posed shape (its
+        geometry normals) and of the prior (shaded and normals)
+        (`AnimalModel.render_rotation_frames`, `:665-701`)."""
+        from animals3d_tpu_torch.visualization import orbit_cameras
+        model = self.model
+        if aux.get("mvp") is None:
+            return {}
+        h = w = model.out_image_size
+
+        def first(key):
+            return None if aux.get(key) is None else aux[key][:1]
+
+        shape1, prior = aux["shape"].first_n(1), aux["prior_mesh"]
+        mvp, w2c, campos = first("mvp"), first("w2c"), first("campos")
+        feats, light = first("im_features"), first("light_params")
+        cvec = first("class_vector")
+        vids = {"instance_normal_rotation": [],
+                "prior_image_rotation": [], "prior_normal_rotation": []}
+        for a in np.linspace(0, 2 * np.pi, num_frames, endpoint=False):
+            cams = orbit_cameras(mvp[0], w2c[0], campos[0], [float(a)])
+
+            def render(mesh, modes):
+                r = model.render(modes, mesh, *cams, (h, w),
+                                 im_features=feats, light_params=light,
+                                 prior_mesh=prior, num_frames=1,
+                                 class_vector=cvec)
+                return {k: v[0, :3].cpu().numpy() for k, v in r.items()}
+
+            posed = render(shape1, ["geo_normal"])
+            rest = render(prior, ["geo_normal", "shaded"])
+            vids["instance_normal_rotation"].append(posed["geo_normal"])
+            vids["prior_image_rotation"].append(rest["shaded"])
+            vids["prior_normal_rotation"].append(rest["geo_normal"])
+        return vids
+
+    def _log_val_visuals(self, writer, val_loader, total_iter):
+        """One validation batch's visuals (`Trainer.py:291-303`): the next
+        batch of `val_loader`, or the first one again with
+        `fix_log_batch`."""
+        if self._val_iter is None:
+            self._val_iter = iter(val_loader)
+        try:
+            val_batch = self._fixed_val_batch if \
+                self._fixed_val_batch is not None else next(self._val_iter)
+        except StopIteration:
+            self._val_iter = iter(val_loader)
+            val_batch = next(self._val_iter)
+        if self.cfg.fix_log_batch:
+            self._fixed_val_batch = val_batch
+        self._log_visuals(writer, val_batch, total_iter, prefix="val_")
 
     def _eval_aux(self, batch, it, gen):
         """The eval-mode forward's aux at iteration `it` (no gradients)."""
@@ -289,12 +399,12 @@ class Trainer:
         optimizer, total_iter = self.restore()
         self.optimizer, self.start_iter = optimizer, total_iter
 
-        train_loader, _, _ = get_data_loaders(self.cfg_dataset)
+        train_loader, val_loader, _ = get_data_loaders(self.cfg_dataset)
         if train_loader is None:
             raise ValueError("dataset.train_data_dir is not configured")
         writer = self._logger()
         if cfg.archive_code:
-            raise _not_ported("archive_code")
+            self._archive_code()
         metrics = StandardMetrics()
         epoch_len = max(len(train_loader), 1)
         gen = torch.Generator(device=model.device).manual_seed(cfg.seed)
@@ -311,7 +421,8 @@ class Trainer:
                 self.cfg_dataset = dataclasses.replace(
                     self.cfg_dataset,
                     dataset_split_num=cfg.remake_dataloader_num)
-                train_loader, _, _ = get_data_loaders(self.cfg_dataset)
+                train_loader, val_loader, _ = get_data_loaders(
+                    self.cfg_dataset)
                 train_iter = iter(train_loader)
             try:
                 batch = next(train_iter)
@@ -367,7 +478,10 @@ class Trainer:
             if writer is not None and cfg.log_image_freq and \
                     total_iter % cfg.log_image_freq == 0 and \
                     model.cfg_model.enable_render:
-                raise _not_ported("visual logging (log_image_freq)")
+                if cfg.log_train:
+                    self._log_visuals(writer, batch, total_iter)
+                if cfg.log_val and val_loader is not None:
+                    self._log_val_visuals(writer, val_loader, total_iter)
 
             if total_iter % cfg.save_checkpoint_freq == 0:
                 ckpt.save_checkpoint(
@@ -383,6 +497,8 @@ class Trainer:
                              keep_num=cfg.keep_num_checkpoint)
         self.metrics_trace.save(os.path.join(cfg.checkpoint_dir,
                                              "metrics.json"))
+        if writer is not None:
+            writer.flush()
         wall = time.time() - t_start
         print(f"done: {total_iter} iters in {wall:.1f}s "
               f"({metrics.speed.get():.2f} imgs/s)")

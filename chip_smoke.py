@@ -122,7 +122,24 @@ Phases, in this order, each fatal on failure:
      a synthetic tree of 2 sequences of 10 frames with flows: stage 1
      resumed at 100,000 from a MagicPony checkpoint, stage 2 from stage
      1's, a resume of stage 2 with its Adam state restored bit for bit,
-     and stage 1's test with flows writing the flow files.
+     and stage 1's test with flows writing the flow files;
+  8. the offline tools (`vis_slice`), after a small float32 Visualizer
+     run on the card against the CPU in phase 2 (`vis_reference`: grid 16,
+     64², spp 2, every mode, cv2 hidden so that every video frame is
+     compared): the Visualizer (`python -m animals3d_tpu_torch.
+     visualization`, in-process) at resolution 256, spp 4 and the fine
+     grid 256 on one image with the checkpoints the CLI phases of 5–7
+     kept — `vis_magicpony` (every mode, two keyframe files, the texture
+     finetune in MagicPony's loss), `vis_fauna` and `vis_pony` (their
+     configs' modes; Fauna's finetune in its L1) — each with the keypoint
+     artifacts and `animals3d_tpu_torch.evaluation` over them, the wall
+     time by mode, a rotation render's, the peak, the launches (one cull
+     and one K1 a render, K6 once a MagicPony finetune step, K7 and K4
+     never) and the antialias cap's dropped share; `cli_test_fauna` and
+     `cli_test_pony` — the test configs through the CLI on a synthetic
+     sequence; `log_visuals` — 2 steps of `train_magicpony_horse` with
+     the visuals and turntables logged after each (to a tag recorder) and
+     one `_log_visuals` call's time.
 
 Prints a `kernels` JSON line (all nine kernel entries, each with its
 status: ported, redesigned or fused, and in which PR; `unit_boxes` is the
@@ -1296,6 +1313,21 @@ PATHS = {
     "pony_generate": ({}, ("cull_boxes", "raster_vis")),
     "cli_train_pony": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
                             "resolve_bwd")),
+    # the Visualizer (`animals3d_tpu_torch.visualization`) at the fine grid,
+    # spp 4: one cull and one K1 a render; MagicPony's texture finetune
+    # steps at the training phase sweep through K6, and their backward
+    # reaches netTexture alone: no K7, and no K4 (no vertex takes a
+    # gradient). Fauna's finetune is on the eval-phase nets (the plain
+    # modulated sweep), Ponymation's Visualizer does not finetune
+    "vis_magicpony": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd")),
+    "vis_fauna": ({}, ("cull_boxes", "raster_vis")),
+    "vis_pony": ({}, ("cull_boxes", "raster_vis")),
+    # the test configs through the CLI: eval forwards at the fine grid
+    "cli_test_fauna": ({}, ("cull_boxes", "raster_vis")),
+    "cli_test_pony": ({}, ("cull_boxes", "raster_vis")),
+    # two training steps with the visuals and turntables logged after each
+    "log_visuals": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                         "fused_mlp_bwd", "resolve_bwd")),
 }
 
 
@@ -1843,10 +1875,11 @@ def fauna_batch(model, B):
     return batch
 
 
-def recorded_calls():
-    """A context in which every render's `rasterize_cuda` call keeps a copy
-    of its inputs (a visibility scene) and every `resolve_bwd` call its
-    cotangent and winner ids; yields ({"scenes", "k4"} lists)."""
+def recorded_calls(every: int = 1):
+    """A context in which every render's `rasterize_cuda` call (every
+    `every`-th, counting from the first) keeps a copy of its inputs (a
+    visibility scene) and every `resolve_bwd` call its cotangent and
+    winner ids; yields ({"scenes", "k4"} lists)."""
     import contextlib
     import animals3d_tpu_torch.ops.rasterize as ro
     import animals3d_tpu_torch.render.render as rr
@@ -1855,12 +1888,15 @@ def recorded_calls():
     def ctx():
         rec = {"scenes": [], "k4": []}
         real_r, real_b = rr.rasterize_cuda, ro.resolve_bwd
+        seen = [0]
 
         def rast(v_clip, faces, f_valid, res, **kw):
-            rec["scenes"].append((v_clip.detach().clone(),
-                                  kw["v_pos0"].detach().clone(),
-                                  faces.clone(), f_valid.clone(), tuple(res),
-                                  1024))
+            if seen[0] % every == 0:
+                rec["scenes"].append((v_clip.detach().clone(),
+                                      kw["v_pos0"].detach().clone(),
+                                      faces.clone(), f_valid.clone(),
+                                      tuple(res), 1024))
+            seen[0] += 1
             return real_r(v_clip, faces, f_valid, res, **kw)
 
         def bwd(g, face_id, num_faces):
@@ -2103,7 +2139,7 @@ def fauna_recon_path(model, state, B, card):
     return launches, med, peak
 
 
-def cli_fauna_phase(card):
+def cli_fauna_phase(card, keep=None):
     """`python -m animals3d_tpu_torch.run --config-name train_fauna` at full
     width on a synthetic category tree (`large_scale/<category>`, 2
     categories of `CLI_FAUNA_IMAGES` images at 256², DINO features of 16):
@@ -2111,7 +2147,8 @@ def cli_fauna_phase(card):
     `disc` Adam state empty), whose checkpoint must hold `netDisc` and the
     `disc` Adam's state; then a resume one step further, whose restored
     `disc` Adam state must equal the saved one bit for bit. Returns
-    (launches, (median step ms, peak bytes))."""
+    (launches, (median step ms, peak bytes)). With `keep` (a directory),
+    the last checkpoint is moved there as `fauna.pth`."""
     import os
     import shutil
     import tempfile
@@ -2193,6 +2230,10 @@ def cli_fauna_phase(card):
               f"{ {k: v for k, v in launches.items() if v} }; card {card}")
         del resumed
         torch.cuda.empty_cache()
+        if keep is not None:
+            shutil.move(os.path.join(out,
+                                     f"checkpoint{FAUNA_IT + 3:07d}.pth"),
+                        os.path.join(keep, "fauna.pth"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches, (statistics.median(times), peak)
@@ -2278,7 +2319,7 @@ def k1_scene_check(name, scene):
           "identical to `cull_boxes`")
 
 
-def cli_phase(card):
+def cli_phase(card, keep=None):
     """The port's entry point at the full width of `train_magicpony_horse`
     (batch 10, 256², dino_vits8 with random weights, bf16, DINO features
     of 16): the coarse loop from iteration 0 (3 iterations, a checkpoint
@@ -2287,7 +2328,9 @@ def cli_phase(card):
     init weights at iteration 100,000 (the fine grid 256, deformation,
     attached legs, articulation), and the test config's eval forward over
     the test images at that grid. Each run's launches are counted from 0;
-    returns ({path: launches}, {path: (ms, peak bytes)})."""
+    returns ({path: launches}, {path: (ms, peak bytes)}). With `keep` (a
+    directory), the fine checkpoint is moved there as
+    `magicpony.pth` for the Visualizer."""
     import json as _json
     import os
     import shutil
@@ -2425,6 +2468,9 @@ def cli_phase(card):
         torch.cuda.empty_cache()
         # K1 on the fine step's own posed meshes (after the counted runs)
         k1_scene_check("train_fine", rec["scenes"][0])
+        if keep is not None:
+            shutil.move(os.path.join(fine, f"checkpoint{FINE_IT + 2:07d}.pth"),
+                        os.path.join(keep, "magicpony.pth"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return by_path, summary
@@ -2773,7 +2819,7 @@ def adam_state_equal(saved, opt, what):
     return n
 
 
-def cli_pony_phase(card):
+def cli_pony_phase(card, keep=None):
     """`python -m animals3d_tpu_torch.run` with the Ponymation configs at
     full width on a synthetic sequence tree (2 sequences of
     `CLI_PONY_FRAMES` frames at 256² with 16-bit flows, DINO features of
@@ -2786,6 +2832,8 @@ def cli_pony_phase(card):
     sequence with flows loaded and rendered, writing `_flow_gt.png` and
     `_flow_pred.png`. The counters run from 0 over the four; returns
     (launches, (median step ms, peak bytes), stage 1's `pair_readings`).
+    With `keep` (a directory), the resumed stage-2 checkpoint is moved
+    there as `pony.pth`.
     """
     import os
     import shutil
@@ -2890,6 +2938,9 @@ def cli_pony_phase(card):
         if not all(np.isfinite(s1_losses + s2_losses)):
             raise AssertionError(f"cli_train_pony: losses {s1_losses} "
                                  f"{s2_losses}")
+        if keep is not None:
+            shutil.move(os.path.join(s2, f"checkpoint{PONY_IT + 5:07d}.pth"),
+                        os.path.join(keep, "pony.pth"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     med = statistics.median(times)
@@ -2904,6 +2955,522 @@ def cli_pony_phase(card):
           f"GiB; launches by run {counts}; stage 1's renders: the "
           f"{dropped_pairs_text(readings)}; card {card}")
     return launches, (med, peak), readings
+
+
+# ---------------------------------------------------------------------------
+# the Visualizer, keypoint evaluation, the test configs and visual logging
+# ---------------------------------------------------------------------------
+
+VIS_RES, VIS_SPP = 256, 4
+VIS_FINETUNE_ITERS = 2
+VIS_KEYFRAMES = (0.0, 20.0)     # two keyframe files, degrees on every bone
+VIS_SCENE_EVERY = 10            # the renders whose silhouette pairs are read
+VIS_REF_TOL, VIS_REF_SHARE = 2e-3, 0.01
+# the Visualizer reference's model: `SMALL_OVERRIDES` with the netSDF at
+# its full depth and width (5 × 256), which the eval sweep runs plain
+VIS_REF_OVERRIDES = [o for o in SMALL_OVERRIDES if "cfg_shape.num_layers"
+                     not in o and "cfg_shape.hidden_size" not in o]
+VIS_ALL_MODES = ("input_view", "other_views", "rotation", "animation",
+                 "canonicalization")
+VIS_VIDEO_FRAMES = {"rotation": 75, "canonicalization": 25}
+
+
+def five_launches(launches):
+    """The launches of the cull kernel, K1, K4, K6 and K7, as text."""
+    return ", ".join(f"{label} {launches[k]}" for label, k in (
+        ("cull", "cull_boxes"), ("K1", "raster_vis"), ("K4", "resolve_bwd"),
+        ("K6", "fused_mlp_fwd"), ("K7", "fused_mlp_bwd")))
+
+
+def vis_renders(modes, finetune, animation_frames):
+    """The renders of one image's Visualizer run, each one cull and one K1
+    launch: the finetune's forwards, the keypoint rasterization, the input
+    view, 12 other views, 75 rotation frames, the animation's and 25
+    canonicalization frames."""
+    per = {"input_view": 1, "other_views": 12, "animation": animation_frames,
+           **VIS_VIDEO_FRAMES}
+    return (VIS_FINETUNE_ITERS if finetune else 0) + 1 + \
+        sum(per[m] for m in modes)
+
+
+def vis_files_check(path, out, modes, animation_frames):
+    """Every file the modes write for image 0 (a video as an mp4, or as
+    png frames where cv2 is absent) and the keypoint artifacts; returns
+    the file count."""
+    import os
+    files = set(os.listdir(out))
+    want = [f"0000000{s}" for s in ("_2d_projection_uv.txt",
+                                    "_binary_occlusion.txt",
+                                    "_3d_vertices.txt", "_pose.txt")]
+    if "input_view" in modes:
+        want += [f"0000000{s}" for s in ("_input_image.png",
+                                         "_input_view.png",
+                                         "_input_view_geo_normal.png",
+                                         "_input_view_shading.png")]
+    if "other_views" in modes:
+        want += [f"0000000_other_view_{k:02d}.png" for k in range(12)]
+    missing = [f for f in want if f not in files]
+    frames = {**VIS_VIDEO_FRAMES, "animation": animation_frames}
+    for mode in ("rotation", "animation", "canonicalization"):
+        stem = f"0000000_{mode}"
+        if mode in modes and stem + ".mp4" not in files and not all(
+                f"{stem}_{i:03d}.png" in files for i in range(frames[mode])):
+            missing.append(stem)
+    if missing:
+        raise AssertionError(f"{path}: missing {missing}")
+    return len(files)
+
+
+def overrides_for(config, values):
+    """key=value overrides of `config`, with "+" for keys it lacks."""
+    from animals3d_tpu_torch import config as cfglib
+    cfg = cfglib.load_config(config)
+    return [f"{'' if k in cfg else '+'}{k}={v}" for k, v in values.items()]
+
+
+def keypoint_evaluation(path, vis_dir, root):
+    """`animals3d_tpu_torch.evaluation.main` over the Visualizer's
+    artifacts, those of image 0 under two names, with synthetic keypoint
+    files: 12 keypoints within 0.01 of visible vertices, the same in both,
+    so each transfer lands within 0.02 of its target (PCK@0.1 of 1)."""
+    import os
+    import shutil
+    from animals3d_tpu_torch import evaluation
+    eval_dir = os.path.join(root, "eval")
+    os.makedirs(eval_dir)
+    for i in range(2):
+        for suffix in ("_2d_projection_uv.txt", "_binary_occlusion.txt"):
+            shutil.copy(os.path.join(vis_dir, "0000000" + suffix),
+                        os.path.join(eval_dir, f"{i:07d}{suffix}"))
+    uv = np.loadtxt(os.path.join(vis_dir, "0000000_2d_projection_uv.txt"))
+    occ = np.loadtxt(os.path.join(vis_dir, "0000000_binary_occlusion.txt"))
+    visible = np.flatnonzero(occ == 0)
+    if not 0 < len(visible) < len(occ):
+        raise AssertionError(f"{path}: {len(visible)} of {len(occ)} "
+                             "vertices visible")
+    r = np.random.default_rng(SEED)
+    pick = r.choice(visible, 12)
+    kp = np.concatenate([uv[pick] + r.uniform(-0.01, 0.01, (12, 2)),
+                         np.ones((12, 1))], 1)
+    for i in range(2):
+        np.savetxt(os.path.join(eval_dir, f"{i:07d}_keypoints.txt"), kp)
+    scores = evaluation.main(["--result-dir", eval_dir, "--annotation-dir",
+                              eval_dir, "--num-pairs", "100"])
+    if not (scores["num_valid_kp"] > 0 and scores["pck"] == 1.0):
+        raise AssertionError(f"{path}: evaluation {scores}")
+    return scores
+
+
+def vis_phase(path, config, ckpt, image_dir, modes, finetune, card,
+              keyframes=None, animation_frames=30):
+    """`python -m animals3d_tpu_torch.visualization --config-name
+    <config>` (its `main`, in-process) on the one image of `image_dir`
+    with the checkpoint `ckpt` at full width: resolution 256, spp 4, the
+    eval phase of iteration 10^9 (grid 256), float32 as in a fresh
+    process, every file of `modes` and the keypoint artifacts, the texture
+    finetune (2 Adam steps) where `finetune`; then the keypoint evaluation
+    over the artifacts. Checks the launches (one cull and one K1 a render,
+    K6 once a MagicPony finetune step, K7 never), the files and that the
+    input view covers pixels; prints the wall time by mode and a
+    rotation render's, the peak memory and the antialias cap's dropped
+    share over every `VIS_SCENE_EVERY`-th render. Returns (launches,
+    (ms a rotation render, peak bytes), pair readings)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import visualization as tvis
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    set_mixed_precision(None)
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{path}_")
+    vis_dir = os.path.join(root, "vis")
+    alphas = []
+    real_rv = tvis.Visualizer.render_views
+
+    def render_views(self, *args, modes=("shaded", "geo_normal"), **kw):
+        r = real_rv(self, *args, modes=modes, **kw)
+        if "shading" in modes:                     # the input view
+            alphas.append(float(r["shaded"][:, 3].max()))
+        return r
+    try:
+        argv = ["--config-name", config,
+                f"checkpoint_dir={os.path.dirname(ckpt)}",
+                f"checkpoint_name={os.path.basename(ckpt)}",
+                f"dataset.test_data_dir={image_dir}",
+                "render_modes=[" + ",".join(modes) + "]"] + overrides_for(
+            config, {"output_dir": vis_dir, "resolution": VIS_RES,
+                     "spp": VIS_SPP, "evaluate_keypoint": "true",
+                     "finetune_texture": str(bool(finetune)).lower(),
+                     "finetune_iters": VIS_FINETUNE_ITERS,
+                     **({"arti_param_dir": keyframes} if keyframes else {})})
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        tvis.Visualizer.render_views = render_views
+        t0 = time.perf_counter()
+        try:
+            with recorded_calls(every=VIS_SCENE_EVERY) as rec:
+                vis = tvis.main(argv)
+        finally:
+            tvis.Visualizer.render_views = real_rv
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        renders = vis_renders(modes, finetune, animation_frames)
+        runs = {"cull_boxes": renders, "raster_vis": renders}
+        if "fused_mlp_fwd" in PATHS[path][1]:
+            runs["fused_mlp_fwd"] = VIS_FINETUNE_ITERS
+        launches = check_counts(path, runs)
+        if not (alphas and min(alphas) > 0):
+            raise AssertionError(f"{path}: input view alpha max {alphas}")
+        n_files = vis_files_check(path, vis_dir, modes, animation_frames)
+        scenes = rec["scenes"]
+        del rec
+        readings = pair_readings(scenes)          # after the count: it renders
+        n_scenes = len(scenes)
+        del scenes
+        scores = keypoint_evaluation(path, vis_dir, root)
+        model = vis.model
+        grid = model.grid_for_phase(model.phase_for_iter(
+            10 ** 9, is_training=False))[0].res
+        secs = {k: round(v, 2) for k, v in vis.seconds.items()}
+        per_render = 1e3 * vis.seconds["rotation"] / 75
+        del vis, model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"{path}: visualization --config-name {config} on one image at "
+          f"{VIS_RES}² spp {VIS_SPP}, grid {grid}, modes {list(modes)}"
+          f"{', finetune 2 steps' if finetune else ''}: {wall:.1f} s; "
+          f"seconds by mode {secs}; rotation {per_render:.1f} ms a render; "
+          f"peak memory {peak / 2**30:.2f} GiB; launches in {renders} "
+          f"renders: {five_launches(launches)}; the "
+          f"{dropped_pairs_text(readings)} over {n_scenes} of the renders; "
+          f"input view alpha max {alphas[0]:.3f}; {n_files} files; keypoint "
+          f"evaluation {scores}; card {card}")
+    return launches, (per_render, peak), readings
+
+
+def cli_test_phase(path, config, ckpt, seq_dir, renders, images, card):
+    """`python -m animals3d_tpu_torch.run --config-name <config>` (the test
+    path) at full width with the checkpoint `ckpt` over the sequence tree
+    `seq_dir`: `renders` eval forwards (one cull and one K1 each) writing
+    the mesh, image and pose files of `images` frames. Returns (launches,
+    (ms, peak bytes))."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import run
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_{path}_")
+    try:
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tester = run.main(["--config-name", config,
+                           f"checkpoint_dir={os.path.dirname(ckpt)}",
+                           f"checkpoint_name={os.path.basename(ckpt)}",
+                           f"dataset.test_data_dir={seq_dir}",
+                           f"test_result_dir={out}"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        launches = check_counts(path, renders)
+        files = os.listdir(out)
+        for suffix in ("_mesh.obj", "_image_pred.png", "_pose.txt"):
+            n = sum(f.endswith(suffix) for f in files)
+            if n != images:
+                raise AssertionError(f"{path}: {n} {suffix} files")
+        model = tester.model
+        grid = model.grid_for_phase(model.phase_for_iter(
+            10 ** 9, is_training=False))[0].res
+        del tester, model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"{path}: run --config-name {config} (the test path) at grid "
+          f"{grid} over {images} frames: {ms / 1e3:.2f} s (model build, "
+          f"checkpoint load, {renders} eval forwards, files), peak memory "
+          f"{peak / 2**30:.2f} GiB; {len(files)} files; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+    return launches, (ms, peak)
+
+
+class TagRecorder:
+    """A logger with tensorboardX's surface that keeps each call's tag and
+    kind."""
+
+    def __init__(self):
+        self.tags = {}
+
+    def _add(self, kind, tag):
+        self.tags.setdefault(tag, set()).add(kind)
+
+    def add_scalar(self, tag, *_a, **_k):
+        self._add("simple_value", tag)
+
+    def add_image(self, tag, *_a, **_k):
+        self._add("image", tag)
+
+    def add_histogram(self, tag, *_a, **_k):
+        self._add("histo", tag)
+
+    def add_video(self, tag, *_a, **_k):
+        self._add("video", tag)
+
+    def flush(self):
+        pass
+
+
+CLI_TEST_FRAMES = 2      # frames of the test configs' synthetic sequence
+LOG_ITERS = 2
+LOG_IMAGES = 10          # one batch of train_magicpony_horse, and of val
+
+
+def log_visuals_phase(card, train_dir, val_dir):
+    """Two iterations of `train_magicpony_horse` at full width through the
+    port's CLI (`run.build`, `Trainer.train`) from a checkpoint of the init
+    weights at `TRAIN_IT` (articulation on: the bones are drawn over the
+    normals) with `use_logger: true` and `log_image_freq: 1`: after each
+    step the visuals of the training batch and of a validation batch (the
+    eval forward, its geo_normal/kd/shading render, 15 turntable frames of
+    the posed shape and 15 of the prior) go to a `TagRecorder` in the
+    writer's place, which must hold every visual and turntable tag (the
+    CPU tests read the event files of the real writer). Prints one
+    `_log_visuals` call's time. Returns (launches, (ms a `_log_visuals` call, peak bytes))."""
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import checkpoint as ckpt
+    from animals3d_tpu_torch import run
+    from animals3d_tpu_torch import trainer as trainer_mod
+    from animals3d_tpu_torch.trainer import make_optimizer
+    root = tempfile.mkdtemp(prefix="chip_smoke_log_")
+    times = []
+    real_log = trainer_mod.Trainer._log_visuals
+    real_logger = trainer_mod.Trainer._logger
+
+    def log_visuals(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_log(self, *args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    recorder = TagRecorder()
+    try:
+        trainer_mod.Trainer._log_visuals = log_visuals
+        trainer_mod.Trainer._logger = lambda self: recorder
+        _cfg, model, trainer = run.build([
+            "--config-name", "train_magicpony_horse",
+            f"dataset.train_data_dir={train_dir}",
+            f"dataset.val_data_dir={val_dir}", f"checkpoint_dir={root}",
+            f"num_iters={TRAIN_IT + LOG_ITERS}", "use_logger=true",
+            "log_image_freq=1", "log_loss_freq=1",
+            "save_checkpoint_freq=5000"])
+        model.init_params(SEED)
+        ckpt.save_checkpoint(root, TRAIN_IT, {
+            "model": model.state_dict(),
+            **make_optimizer(model).state_dict()})
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        calls = 2 * LOG_ITERS            # the training and a val batch
+        renders = LOG_ITERS + calls * (2 + 2 * 15)
+        launches = check_counts("log_visuals", {
+            "cull_boxes": renders, "raster_vis": renders,
+            "fused_mlp_fwd": LOG_ITERS, "fused_mlp_bwd": LOG_ITERS,
+            "resolve_bwd": LOG_ITERS})
+        tags = recorder.tags
+        want = [p + "image/" + n for p in ("train_", "val_") for n in (
+            "image_gt", "image_pred", "mask_gt", "mask_pred",
+            "dino_feat_im_gt", "dino_feat_im_pred", "instance_geo_normal",
+            "albedo", "shading")] + \
+            [p + "animation/" + n for p in ("train_", "val_") for n in (
+                "instance_normal_rotation", "prior_image_rotation",
+                "prior_normal_rotation")] + ["train_arti_params", "train_sdf"]
+        missing = [t for t in want if t not in tags]
+        if missing or len(times) != calls:
+            raise AssertionError(f"log_visuals: missing tags {missing}, "
+                                 f"{len(times)} calls")
+        if trainer.start_iter != TRAIN_IT:
+            raise AssertionError(f"log_visuals: starts at "
+                                 f"{trainer.start_iter}")
+        del trainer, model
+        torch.cuda.empty_cache()
+    finally:
+        trainer_mod.Trainer._log_visuals = real_log
+        trainer_mod.Trainer._logger = real_logger
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"log_visuals: train_magicpony_horse at full width, "
+          f"{LOG_ITERS} iterations from {TRAIN_IT} with use_logger and "
+          f"log_image_freq 1 (a tag recorder, {len(tags)} tags): "
+          f"`_log_visuals` ms "
+          f"{[round(x, 1) for x in times]} ({calls} calls, {renders} renders "
+          f"with the steps'); peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{five_launches(launches)}; card {card}")
+    return launches, (statistics.median(times), peak)
+
+
+def vis_reference_phase(card):
+    """A small float32 Visualizer (`test_magicpony_horse` at
+    `VIS_REF_OVERRIDES`: grid 16, the netSDF 5 × 256, 64², spp 2) run with every mode, two
+    keyframe files and the keypoint artifacts on the card and on the CPU
+    from the same checkpoint: the same files; each frame's pixels within
+    `VIS_REF_TOL` but at most `VIS_REF_SHARE` of a frame's (the pixels
+    whose winning face flips on rounding between the two devices, and
+    their antialiased neighbours); uv projections within 1e-4; occlusion
+    flags equal but at most 1% of the vertices."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch import visualization as tvis
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.utils import results_io
+    set_mixed_precision(None)
+    root = tempfile.mkdtemp(prefix="chip_smoke_visref_")
+    frames = {"cuda": {}, "cpu": {}}
+    real_save = results_io.save_image
+    # hidden, cv2 leaves every video frame a png, and each is compared
+    cv2 = sys.modules.get("cv2")
+    try:
+        data = os.path.join(root, "data")
+        write_synth_dataset(data, n=1, size=64, dino_dim=16, seed=3)
+        anim = os.path.join(root, "anim")
+        os.makedirs(anim)
+        config = "test_magicpony_horse"
+        ov = VIS_REF_OVERRIDES + [
+            f"dataset.test_data_dir={data}", f"checkpoint_dir={root}",
+            "checkpoint_name=small.pth",
+            "render_modes=[" + ",".join(VIS_ALL_MODES) + "]"] + \
+            overrides_for(config, {"resolution": 64, "spp": 2,
+                                   "evaluate_keypoint": "true",
+                                   "arti_param_dir": anim,
+                                   "canon_frames": 5})
+        cfg = cfglib.load_config(config, overrides=ov)
+        current = []
+
+        def save(path, img):
+            arr = img.detach().cpu().numpy() if hasattr(img, "detach") \
+                else np.asarray(img)
+            frames[current[0]][os.path.basename(path)] = np.array(
+                arr, np.float32)
+            real_save(path, img)
+        results_io.save_image = save
+        sys.modules["cv2"] = None
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            current[:] = [dev]
+            outs[dev] = os.path.join(root, dev)
+            vis = tvis.Visualizer(dict(cfg, output_dir=outs[dev]), device=dev)
+            if dev == "cuda":
+                vis.model.init_params(SEED)
+                torch.save({"model": vis.model.state_dict()},
+                           os.path.join(root, "small.pth"))
+                K = vis.model.netInstance.num_bones
+                for i, deg in enumerate(VIS_KEYFRAMES):
+                    np.savetxt(os.path.join(anim, f"arti_params_{i:02d}.txt"),
+                               np.full((K, 3), deg))
+            vis.run()
+            del vis
+        names = sorted(os.listdir(outs["cuda"]))
+        if names != sorted(os.listdir(outs["cpu"])) or \
+                sorted(frames["cuda"]) != sorted(frames["cpu"]):
+            raise AssertionError("vis_reference: the files differ")
+        worst, off, total = 0.0, 0, 0
+        for name, want in frames["cpu"].items():
+            got = frames["cuda"][name]
+            bad = np.abs(got - want) > VIS_REF_TOL
+            bad = bad.any(0) if bad.ndim == 3 else bad
+            worst = max(worst, float(bad.mean()))
+            off += int(bad.sum())
+            total += bad.size
+        uv = [np.loadtxt(os.path.join(outs[d], "0000000_2d_projection_uv.txt"))
+              for d in ("cuda", "cpu")]
+        occ = [np.loadtxt(os.path.join(outs[d], "0000000_binary_occlusion.txt"))
+               for d in ("cuda", "cpu")]
+        uv_err = float(np.abs(uv[0] - uv[1]).max())
+        occ_share = float((occ[0] != occ[1]).mean())
+    finally:
+        results_io.save_image = real_save
+        if cv2 is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = cv2
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"vis_reference: {config} at grid 16, netSDF 5 × 256, 64², "
+          f"spp 2, tf32 off, every mode on "
+          f"the card and the CPU: {len(names)} files each, {len(frames['cpu'])} "
+          f"frames; pixels beyond {VIS_REF_TOL:g}: {off} of {total}, at most "
+          f"{100 * worst:.3f}% of a frame (bound {100 * VIS_REF_SHARE:g}%); "
+          f"uv max |gpu - cpu| {uv_err:.3g}; occlusion flags differing "
+          f"{100 * occ_share:.3f}%; card {card}")
+    if not (worst <= VIS_REF_SHARE and uv_err <= 1e-4 and occ_share <= 0.01):
+        raise AssertionError("vis_reference: the card and the CPU disagree")
+
+
+def vis_slice(card, keep):
+    """The Visualizer on the three checkpoints the CLI phases kept in
+    `keep`, the test configs of Fauna and Ponymation through the CLI, and
+    the trainer's visual logging; returns ({path: launches},
+    {path: (ms, peak)}, {path: pair readings})."""
+    import os
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    image = write_synth_dataset(os.path.join(keep, "image"), n=1,
+                                size=CLI_SIZE, dino_dim=CLI_DINO, seed=2)
+    seq = write_synth_dataset(os.path.join(keep, "seq"), size=CLI_SIZE,
+                              dino_dim=CLI_DINO, sequences=1,
+                              frames=CLI_TEST_FRAMES, seed=3)
+    anim = os.path.join(keep, "anim")
+    os.makedirs(anim)
+    from animals3d_tpu_torch import config as cfglib
+    mp_cfg = cfglib.load_config("test_magicpony_horse")
+    n_body = mp_cfg["model"]["cfg_predictor_instance"]["cfg_articulation"]
+    K = n_body["num_body_bones"] + n_body["num_legs"] * n_body["num_leg_bones"]
+    for i, deg in enumerate(VIS_KEYFRAMES):
+        np.savetxt(os.path.join(anim, f"arti_params_{i:02d}.txt"),
+                   np.full((K, 3), deg))
+    train_dir = write_synth_dataset(os.path.join(keep, "train"),
+                                    n=LOG_IMAGES, size=CLI_SIZE,
+                                    dino_dim=CLI_DINO, seed=4)
+    val_dir = write_synth_dataset(os.path.join(keep, "val"), n=LOG_IMAGES,
+                                  size=CLI_SIZE, dino_dim=CLI_DINO, seed=5)
+    by_path, summary, readings = {}, {}, {}
+    ck = {m: os.path.join(keep, f"{m}.pth")
+          for m in ("magicpony", "fauna", "pony")}
+    for path, config, ckpt, modes, finetune, kw in (
+            ("vis_magicpony", "test_magicpony_horse", ck["magicpony"],
+             VIS_ALL_MODES, True,
+             dict(keyframes=anim, animation_frames=(len(VIS_KEYFRAMES) - 1)
+                  * 5 + 1)),
+            ("vis_fauna", "test_fauna", ck["fauna"],
+             tuple(cfglib.load_config("test_fauna")["render_modes"]), True,
+             {}),
+            ("vis_pony", "test_ponymation_horse", ck["pony"],
+             tuple(cfglib.load_config("test_ponymation_horse")
+                   ["render_modes"]), False, {})):
+        by_path[path], summary[path], readings[path] = vis_phase(
+            path, config, ckpt, image, modes, finetune, card, **kw)
+    # the test loaders take a window at every start frame: Fauna's of one
+    # frame, Ponymation's of its 10 (padded at the sequence's end)
+    pony_frames = cfglib.load_config("test_ponymation_horse")["dataset"][
+        "num_frames"]
+    by_path["cli_test_fauna"], summary["cli_test_fauna"] = cli_test_phase(
+        "cli_test_fauna", "test_fauna", ck["fauna"], seq, CLI_TEST_FRAMES,
+        CLI_TEST_FRAMES, card)
+    by_path["cli_test_pony"], summary["cli_test_pony"] = cli_test_phase(
+        "cli_test_pony", "test_ponymation_horse", ck["pony"], seq,
+        CLI_TEST_FRAMES, CLI_TEST_FRAMES * pony_frames, card)
+    by_path["log_visuals"], summary["log_visuals"] = log_visuals_phase(
+        card, train_dir, val_dir)
+    return by_path, summary, readings
 
 
 def main() -> int:
@@ -2933,6 +3500,7 @@ def main() -> int:
                           PONY_SMALL_OVERRIDES, PONY_IT)
     train_reference_phase("pony_stage2_train", PONY_STAGE2,
                           PONY_SMALL_OVERRIDES, PONY_IT)
+    vis_reference_phase(card)
 
     model, images, it, B, H = slice_phase()
     from animals3d_tpu_torch.data.synth import fake_batch
@@ -2980,7 +3548,11 @@ def main() -> int:
           f"{IMAGE_TOL:g})")
     if not gap <= IMAGE_TOL:
         raise AssertionError(f"recon_v6_kernel_rows: images differ by {gap}")
-    cli_by_path, cli_summary = cli_phase(card)
+    # the CLI phases keep a checkpoint each for the Visualizer
+    import shutil
+    import tempfile
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    cli_by_path, cli_summary = cli_phase(card, keep)
     by_path.update(cli_by_path)
     summary.update(cli_summary)
 
@@ -2995,15 +3567,25 @@ def main() -> int:
     del fauna, fstate
     torch.cuda.empty_cache()
     by_path["cli_train_fauna"], summary["cli_train_fauna"] = \
-        cli_fauna_phase(card)
+        cli_fauna_phase(card, keep)
 
     # Ponymation: both stages, generation and the CLI
     pony_by_path, pony_summary, pony_readings = pony_slice(card)
     by_path.update(pony_by_path)
     summary.update(pony_summary)
     by_path["cli_train_pony"], summary["cli_train_pony"], \
-        pony_readings["cli_train_pony"] = cli_pony_phase(card)
-    # a Ponymation stage-1 step renders through the capped antialias pass
+        pony_readings["cli_train_pony"] = cli_pony_phase(card, keep)
+
+    # the Visualizer, the test configs and the trainer's visual logging
+    try:
+        vis_by_path, vis_summary, vis_readings = vis_slice(card, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    by_path.update(vis_by_path)
+    summary.update(vis_summary)
+    pony_readings.update(vis_readings)
+    # a Ponymation stage-1 step and a Visualizer render at spp 4 go through
+    # the capped antialias pass
     pairs = {p: f" ({dropped_pairs_text(r)})" for p, r in
              pony_readings.items() if "pairs" in r}
     print("paths (ms, peak GiB): " + ", ".join(

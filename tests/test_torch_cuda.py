@@ -4,6 +4,8 @@ card. Imports no JAX, so it runs where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a card every test here skips."""
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -1336,6 +1338,157 @@ def test_pony_cli_warm_start_chain_on_card(card, tmp_path):
     files = os.listdir(os.path.join(s1, "test_results_0100002"))
     assert any(f.endswith("_flow_gt.png") for f in files)
     assert any(f.endswith("_flow_pred.png") for f in files)
+
+
+# ---------------------------------------------------------------------------
+# the render modes and the Visualizer on the card
+# ---------------------------------------------------------------------------
+
+VIS_MODES = ["input_view", "other_views", "rotation", "animation",
+             "canonicalization"]
+# `chip_smoke.py`'s VIS_REF_OVERRIDES: the netSDF at its full depth and
+# width (5 × 256), the rest narrow
+VIS_CARD_OVERRIDES = [
+    "dataset.in_image_size=64", "dataset.out_image_size=64",
+    "model.cfg_predictor_base.cfg_shape.grid_res=16",
+    "model.cfg_predictor_base.cfg_shape.grid_res_coarse=16",
+    "model.cfg_predictor_instance.cfg_encoder.cout=32",
+    "model.cfg_predictor_instance.cfg_texture.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_articulation.hidden_size=32",
+    "model.cfg_predictor_instance.cfg_light.hidden_size=32"]
+
+
+def _flip_share(got, want, tol):
+    """The largest share of an image's pixels with a channel beyond
+    `tol`: those whose winning face flips on rounding between the card
+    and the CPU, and their antialiased neighbours."""
+    bad = (np.abs(np.asarray(got) - np.asarray(want)) > tol).any(-3)
+    return float(bad.reshape(-1, *bad.shape[-2:]).mean((1, 2)).max())
+
+
+def test_render_modes_on_card_equal_cpu(card):
+    """Every render mode (`kd`, `ks`, `normal`, `geo_normal`, `shading`,
+    `depth` and `tangent` with `shaded`) of a small model's prior from two
+    cameras at spp 1 and 2, on the card against the CPU: within 2e-3 but
+    at most 1% of an image's pixels."""
+    import dataclasses
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch.geometry.mesh import compute_tangents
+    from animals3d_tpu_torch.models import build_model
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    set_mixed_precision(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfglib.load_config("test_magicpony_horse",
+                             overrides=CARD_CLI_OVERRIDES)
+    model_cfg = dict(cfg["model"], dataset=cfg["dataset"])
+    gpu = build_model(model_cfg, device="cuda")
+    gpu.init_params(0)
+    cpu = build_model(model_cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    modes = ["shaded", "kd", "ks", "normal", "geo_normal", "shading",
+             "depth", "tangent"]
+    r = np.random.default_rng(0)
+    ang = np.asarray([0.4, 2.3], np.float32)
+    c, s_ = np.cos(ang), np.sin(ang)
+    z, o = np.zeros_like(ang), np.ones_like(ang)
+    pose = np.concatenate([np.stack([c, z, s_, z, o, z, -s_, z, c], -1),
+                           [[0.1, -0.2, 0.3], [-0.2, 0.1, 0.0]]], -1)
+    feat = r.uniform(-1, 1, (2, 32)).astype(np.float32)
+    light = np.asarray([[0.3, 0.8, 0.5, 0.3, 0.6], [-0.6, 0.6, 0.5, 0.4,
+                                                     0.5]], np.float32)
+    out = {}
+    for name, m in (("cuda", gpu), ("cpu", cpu)):
+        dev = m.device
+        grid, v_cap, f_cap = m.grid_for_phase(m.phase_for_iter(50000))
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        with torch.no_grad():
+            prior, _ = m.netBase(grid, v_cap, f_cap)
+            uvs = torch.from_numpy(np.random.default_rng(3).uniform(
+                0, 1, (prior.t_pos_idx.shape[0], 3, 2)).astype(
+                np.float32)).to(dev)
+            prior = dataclasses.replace(prior, v_tng=compute_tangents(
+                prior.v_pos, prior.t_pos_idx, uvs, prior.v_nrm,
+                prior.v_valid, prior.f_valid))
+            mvp, w2c, campos = m.netInstance.get_camera_extrinsics_from_pose(
+                t(pose))
+            out[name] = {spp: {k: v.cpu().numpy() for k, v in m.render(
+                modes, prior, mvp, w2c, campos, (64, 64),
+                im_features=t(feat), light_params=t(light), prior_mesh=prior,
+                spp=spp).items()} for spp in (1, 2)}
+    for spp in (1, 2):
+        for k in modes:
+            assert np.isfinite(out["cuda"][spp][k]).all(), k
+            assert _flip_share(out["cuda"][spp][k], out["cpu"][spp][k],
+                               2e-3) <= 0.01, (k, spp)
+
+
+def test_visualizer_on_card_equal_cpu(card, tmp_path, monkeypatch):
+    """A small float32 Visualizer run, TF32 off (`VIS_CARD_OVERRIDES`:
+    grid 16, netSDF 5 × 256, 64², spp 2; every mode, two keyframe files,
+    the keypoint artifacts) on the card and on the CPU from one checkpoint, as
+    `chip_smoke.py`'s `vis_reference_phase` runs it: the same files, each
+    frame within 2e-3 but at most 1% of its pixels (the pixels whose
+    winning face flips on rounding between the two devices, and their
+    antialiased neighbours), uv projections within 1e-4."""
+    import os
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch import visualization as tvis
+    from animals3d_tpu_torch.data.synth import write_synth_dataset
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.utils import results_io
+    pytest.importorskip("PIL")
+    set_mixed_precision(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = str(tmp_path / "data")
+    write_synth_dataset(data, n=1, size=64, dino_dim=4, seed=3)
+    anim = tmp_path / "anim"
+    anim.mkdir()
+    cfg = cfglib.load_config("test_magicpony_horse", overrides=[
+        *VIS_CARD_OVERRIDES,
+        f"dataset.test_data_dir={data}", f"checkpoint_dir={tmp_path}",
+        "checkpoint_name=small.pth", "resolution=64", "+spp=2",
+        "evaluate_keypoint=true", f"+arti_param_dir={anim}",
+        "+canon_frames=5", "render_modes=[" + ",".join(VIS_MODES) + "]"])
+    frames = {}
+    real = results_io.save_image
+    monkeypatch.setitem(sys.modules, "cv2", None)   # every frame a png
+    try:
+        for dev in ("cuda", "cpu"):
+            frames[dev] = {}
+
+            def save(path, img, _d=frames[dev]):
+                _d[os.path.basename(path)] = np.array(
+                    img.detach().cpu().numpy() if hasattr(img, "detach")
+                    else img, np.float32)
+                real(path, img)
+            results_io.save_image = save
+            vis = tvis.Visualizer(dict(cfg, output_dir=str(tmp_path / dev)),
+                                  device=dev)
+            if dev == "cuda":
+                vis.model.init_params(0)
+                torch.save({"model": vis.model.state_dict()},
+                           str(tmp_path / "small.pth"))
+                K = vis.model.netInstance.num_bones
+                for i, deg in enumerate((0.0, 20.0)):
+                    np.savetxt(str(anim / f"arti_params_{i:02d}.txt"),
+                               np.full((K, 3), deg))
+            vis.run()
+    finally:
+        results_io.save_image = real
+    assert sorted(os.listdir(tmp_path / "cuda")) == \
+        sorted(os.listdir(tmp_path / "cpu"))
+    assert sorted(frames["cuda"]) == sorted(frames["cpu"])
+    shares = {name: _flip_share(frames["cuda"][name][None], want[None],
+                                2e-3) for name, want in frames["cpu"].items()}
+    print(f"visualizer card against CPU: {len(shares)} frames, at most "
+          f"{100 * max(shares.values()):.3f}% of a frame's pixels off")
+    assert max(shares.values()) <= 0.01, {k: v for k, v in shares.items()
+                                          if v > 0.01}
+    uv = [np.loadtxt(str(tmp_path / d / "0000000_2d_projection_uv.txt"))
+          for d in ("cuda", "cpu")]
+    np.testing.assert_allclose(uv[0], uv[1], atol=1e-4, rtol=0)
 
 
 def test_png_codec_round_trip(tmp_path):
