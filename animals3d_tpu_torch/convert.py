@@ -18,8 +18,10 @@ Fauna's parts are here too: the mod-demod SDF (`convert_coord_mlp_mod`),
 the memory bank and its keys, and the mask discriminator
 (`convert_discriminator`); and Ponymation's motion VAE
 (`convert_motion_vae`: torch `nn.MultiheadAttention`'s packed
-`in_proj_weight` splits into q, k and v). The VGG and ResNet encoders
-are not ported, and neither are their remaps.
+`in_proj_weight` splits into q, k and v); and the torchvision-architecture
+encoders (`convert_vgg_encoder`, `convert_resnet_encoder`,
+`convert_resnet_depth_encoder`: BatchNorm running statistics become the
+frozen norm's `mean` and `var`).
 """
 from __future__ import annotations
 
@@ -100,6 +102,61 @@ def convert_encoder32(sd):
             "conv_1": conv(sd, "network.3"), "norm_1": norm(sd, "network.4"),
             "conv_2": conv(sd, "network.6"), "norm_2": norm(sd, "network.7"),
             "conv_out": conv(sd, "network.9")}
+
+
+def batchnorm(sd, prefix):
+    """torch BatchNorm2d (weight, bias, running stats) → FrozenBatchNorm."""
+    return {"scale": _t(sd[f"{prefix}.weight"]),
+            "bias": _t(sd[f"{prefix}.bias"]),
+            "mean": _t(sd[f"{prefix}.running_mean"]),
+            "var": _t(sd[f"{prefix}.running_var"])}
+
+
+def convert_vgg16_features(sd, prefix="features"):
+    """torchvision vgg16 `features` Sequential → VGG16Features (the convs
+    at Sequential indices 0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26,
+    28)."""
+    idxs = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    return {f"conv_{i}": conv(sd, f"{prefix}.{j}", bias=True)
+            for i, j in enumerate(idxs)}
+
+
+def convert_vgg_encoder(sd):
+    """reference VGGEncoder (`encoders.py:91-106`): `vgg_encoder.0` holds
+    vgg16's features; linear1 and linear2 replace its classifier."""
+    return {"features": convert_vgg16_features(sd, "vgg_encoder.0"),
+            "linear1": linear(sd, "linear1"),
+            "linear2": linear(sd, "linear2")}
+
+
+def convert_resnet18_trunk(sd, prefix=""):
+    """torchvision resnet18 (without fc) → ResNet18Trunk."""
+    p = (prefix + ".") if prefix else ""
+    out = {"conv1": conv(sd, f"{p}conv1"), "bn1": batchnorm(sd, f"{p}bn1")}
+    for li in range(1, 5):
+        for bi in range(2):
+            bp = f"{p}layer{li}.{bi}"
+            blk = {"conv1": conv(sd, f"{bp}.conv1"),
+                   "bn1": batchnorm(sd, f"{bp}.bn1"),
+                   "conv2": conv(sd, f"{bp}.conv2"),
+                   "bn2": batchnorm(sd, f"{bp}.bn2")}
+            if f"{bp}.downsample.0.weight" in sd:
+                blk["downsample"] = conv(sd, f"{bp}.downsample.0")
+                blk["downsample_bn"] = batchnorm(sd, f"{bp}.downsample.1")
+            out[f"layer{li}_{bi}"] = blk
+    return out
+
+
+def convert_resnet_encoder(sd):
+    """reference ResnetEncoder (`encoders.py:108-115`)."""
+    return {"resnet": convert_resnet18_trunk(sd, "resnet"),
+            "final_linear": linear(sd, "final_linear")}
+
+
+def convert_resnet_depth_encoder(sd):
+    """reference ResnetDepthEncoder (`encoders.py:117-146`): the trunk
+    under `resnet.`."""
+    return {"resnet": convert_resnet18_trunk(sd, "resnet")}
 
 
 def convert_vit_block(sd):

@@ -7,9 +7,10 @@ a Linear weight (out, in), a Conv kernel HWIO becomes OIHW, a norm's
 `scale` becomes `weight`, `_SplitFirstDense` keeps its (pixel ⊕
 feature) split, and a `LinearMod`'s (in, out) `weight` leaf becomes its
 (out, in) weight (`FLAX_WEIGHT_IN_OUT`); Fauna's memory bank, its keys
-and `netDisc`, and Ponymation's `netVAE` (its query tokens are plain
-leaves, its attention's q, k, v and proj Dense layers) need nothing
-more. Every leaf is consumed exactly once and
+and `netDisc`, Ponymation's `netVAE` (its query tokens are plain
+leaves, its attention's q, k, v and proj Dense layers), and the CNN
+encoders (a `FrozenBatchNorm`'s `mean` and `var` are plain leaves) need
+nothing more. Every leaf is consumed exactly once and
 every parameter of the module is set, or this raises. `export_jax_params`
 is the inverse (the module's parameters as a flax-layout numpy tree) and
 `export_jax_grads` lays the parameters' gradients out the same way.

@@ -160,6 +160,15 @@ class AnimalModel(nn.Module):
                                               cfg.get("cfg_optim_instance"))
         self.cfg_predictor_base = cfglib.bind(BasePredictorConfig,
                                               cfg.get("cfg_predictor_base"))
+        # the banded sweep is exact only for near-eikonal fields, which the
+        # BCE and eikonal regularizers keep: with both off it stays off
+        shape_cfg = self.cfg_predictor_base.cfg_shape
+        if shape_cfg.sparse_band_eval and \
+                self.cfg_loss.sdf_bce_reg_loss_weight == 0 and \
+                self.cfg_loss.sdf_gradient_reg_loss_weight == 0:
+            self.cfg_predictor_base = dataclasses.replace(
+                self.cfg_predictor_base, cfg_shape=dataclasses.replace(
+                    shape_cfg, sparse_band_eval=False))
         self.cfg_predictor_instance = cfglib.bind(
             InstancePredictorConfig, cfg.get("cfg_predictor_instance"))
         ds = cfg.get("dataset") or {}

@@ -3,7 +3,10 @@
 `compute_barycentrics` and two paths of `resolve`: the hybrid path, a row
 gather forward with the scatter-add kernel of `ops.resolve_cuda` as its
 backward, and the kernel path of `A3D_MXU_FWD=1`, whose forward is the
-resolve-rows kernel of `ops.resolve_cuda`, in tile order).
+resolve-rows kernel of `ops.resolve_cuda`, in tile order; and
+`interpolate`, with `interpolate_sorted_bwd` and `gather_rows`, whose
+backward is a sort and a segmented sum instead of autograd's scatter-add:
+the same gradient summed in another order, which no path calls).
 
 Conventions (the reference's GL pipeline): `v_clip` is (B, V, 4) clip
 space; NDC = xyz / w; smaller NDC z is nearer; pixel (i, j) has centre
@@ -292,3 +295,101 @@ def resolve(attr, rast: Rast, v_clip, faces, face_attr=None,
     if face_attr is None:
         return uv, out
     return uv, out, assemble(rT[:, 3 * C:], face_attr.shape[-1])
+
+
+def interpolate(attr, rast: Rast, faces):
+    """Per-vertex attributes at the rasterized pixels: attr (B, V, A), or
+    (V, A) shared → (B, H, W, A), 0 on the background. Differentiable in
+    `attr` and, through `rast.uv`, in the vertex positions (autograd's
+    backward)."""
+    fid = rast.face_id.detach()
+    B = fid.shape[0]
+    if attr.dim() == 2:
+        attr = attr[None].expand(B, *attr.shape)
+    tri = faces[(fid.long() - 1).clamp(min=0)]                 # (B,H,W,3)
+    av = attr[torch.arange(B, device=attr.device)[:, None, None, None], tri]
+    u, v = rast.uv[..., 0:1], rast.uv[..., 1:2]
+    out = av[..., 0, :] * (1.0 - u - v) + av[..., 1, :] * u \
+        + av[..., 2, :] * v
+    return torch.where((fid > 0)[..., None], out, torch.zeros_like(out))
+
+
+def _segment_sum_sorted(keys, vals, num_segments: int):
+    """Σ vals (M, A) over rows with equal keys (M,) → (num_segments, A):
+    a stable sort, then a segmented Hillis–Steele inclusive scan (adds at
+    distance 2^s only where the key there matches, so segments never
+    mix), and each segment's total written from its last row."""
+    M, A = vals.shape
+    perm = torch.argsort(keys, stable=True)
+    keys_s = keys[perm]
+    acc = vals[perm]
+    step = 1
+    while step < M:
+        same = keys_s[step:] == keys_s[:-step]
+        add = torch.where(same[:, None], acc[:-step], torch.zeros_like(
+            acc[:-step]))
+        acc = torch.cat([acc[:step], acc[step:] + add], 0)
+        step *= 2
+    is_end = torch.cat([keys_s[:-1] != keys_s[1:],
+                        torch.ones(1, dtype=torch.bool, device=keys.device)])
+    out = vals.new_zeros((num_segments, A))
+    out[keys_s[is_end]] = acc[is_end]
+    return out
+
+
+class _InterpolateSorted(torch.autograd.Function):
+    """`interpolate`'s function; the attributes' gradient is a sorted
+    segment sum over (pixel, corner) rows."""
+
+    @staticmethod
+    def forward(ctx, attr, uv, face_id, faces):
+        ctx.save_for_backward(attr, uv, face_id, faces)
+        return interpolate(attr, Rast(uv=uv, z=None, face_id=face_id), faces)
+
+    @staticmethod
+    def backward(ctx, g):
+        attr, uv, face_id, faces = ctx.saved_tensors
+        B, V, A = attr.shape
+        tri = faces[(face_id.long() - 1).clamp(min=0)]          # (B,H,W,3)
+        g = torch.where((face_id > 0)[..., None], g, torch.zeros_like(g))
+        d_attr, d_uv = [], []
+        for b in range(B):
+            av = attr[b][tri[b]]                                # (H,W,3,A)
+            u, v = uv[b, ..., 0:1], uv[b, ..., 1:2]
+            du = (g[b] * (av[..., 1, :] - av[..., 0, :])).sum(-1)
+            dv = (g[b] * (av[..., 2, :] - av[..., 0, :])).sum(-1)
+            d_uv.append(torch.stack([du, dv], -1))
+            w = torch.cat([1.0 - u - v, u, v], -1)              # (H,W,3)
+            vals = (w[..., None] * g[b][..., None, :]).reshape(-1, A)
+            d_attr.append(_segment_sum_sorted(tri[b].reshape(-1), vals, V))
+        return torch.stack(d_attr), torch.stack(d_uv), None, None
+
+
+def interpolate_sorted_bwd(attr, rast: Rast, faces):
+    """`interpolate` with the sorted-segment-sum backward."""
+    if attr.dim() == 2:
+        attr = attr[None].expand(rast.face_id.shape[0], *attr.shape)
+    return _InterpolateSorted.apply(attr, rast.uv, rast.face_id.detach(),
+                                    faces)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[1]
+        return torch.stack([t[i] for t, i in zip(table, idx)])
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        C = g.shape[-1]
+        return torch.stack([_segment_sum_sorted(i.reshape(-1),
+                                                gb.reshape(-1, C), ctx.n)
+                            for i, gb in zip(idx, g)]), None
+
+
+def gather_rows(table, idx):
+    """Batched row gather (B, N, C) × (B, ...) → (B, ..., C) whose backward
+    is the sorted segment sum instead of a colliding scatter-add."""
+    return _GatherRows.apply(table, idx)

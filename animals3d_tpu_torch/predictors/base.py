@@ -7,8 +7,11 @@ alone); training (jittered sweeps) goes through the fused kernels of
 `ops.fused_mlp`, which keep the (N, 256) activations out of device memory.
 With `condition_choice="mod"` (Fauna) the SDF is the weight-modulated
 `CoordMLPMod`, conditioned by a (1, 128) feature that the DINO field takes
-too; the fused sweep stays off for it, as in the JAX package. The banded
-sweep of the JAX package (an offline option) is not ported yet.
+too; the fused sweep stays off for it, as in the JAX package. With
+`cfg_shape.sparse_band_eval` on an even lattice of res 64 or more, the
+banded sweep (`ops.dmtet.sdf_lattice_banded`) comes first: it evaluates
+the coarse sublattice and a band of segments around the surface, both
+recomputed in the backward, and neither fused kernel runs.
 """
 from __future__ import annotations
 
@@ -41,8 +44,6 @@ class BasePredictor(nn.Module):
         self.cfg = cfg
         self.condition_choice = condition_choice
         shape = cfg.cfg_shape
-        if shape.sparse_band_eval:
-            raise NotImplementedError("the banded SDF sweep is not ported")
         scalar = 2 * np.pi / shape.spatial_scale * 0.9
         sdf_cls, extra = (CoordMLPMod, dict(condition_dim=128)) \
             if condition_choice == "mod" else (CoordMLP, {})
@@ -122,21 +123,31 @@ class BasePredictor(nn.Module):
                                   num_layers=shape.num_layers)
         return sdf + self._init_sdf(pos)
 
+    def _use_band(self, grid) -> bool:
+        """Gate of the banded sweep: the option, on an even lattice of res
+        64 or more."""
+        return (self.cfg.cfg_shape.sparse_band_eval and grid.is_lattice
+                and grid.res % 2 == 0 and grid.res >= 64)
+
     # ---- prior mesh -------------------------------------------------------
     def get_prior_mesh(self, grid, v_cap: int, f_cap: int, jitter=None,
                        feats=None):
-        """Optional global grid jitter → SDF over the lattice → marching
+        """Optional global grid jitter → SDF over the grid → marching
         tets → batch-1 Mesh. `jitter` is a uniform [0, 1) scalar (None at
-        eval): the lattice shifts by (2·jitter − 1)·jitter_grid·scale, and
-        the sweep goes through the fused kernels where the gate lets it.
-        `feats` (1, 128) conditions the modulated SDF. Returns (mesh,
-        sdf)."""
+        eval): the grid shifts by (2·jitter − 1)·jitter_grid·scale; the
+        sweep is banded where `_use_band` lets it, else goes through the
+        fused kernels where their gate lets it. `feats` (1, 128)
+        conditions the modulated SDF. Returns (mesh, sdf)."""
         shape = self.cfg.cfg_shape
         pos = grid.verts * shape.spatial_scale
         if jitter is not None and shape.jitter_grid > 0:
             pos = pos + (jitter * 2 - 1) * shape.jitter_grid \
                 * shape.spatial_scale
-        if self._use_fused_sweep(training=jitter is not None):
+        if self._use_band(grid):
+            sdf = dmtet.sdf_lattice_banded(
+                lambda p: self.get_sdf(p, feats)[..., 0], pos, grid.res,
+                band_tau=shape.band_tau, seg_cap=shape.band_seg_cap)[0]
+        elif self._use_fused_sweep(training=jitter is not None):
             sdf = self._fused_sdf_sweep(pos)
         else:
             sdf = self._eval_sdf(pos, feats)

@@ -27,9 +27,9 @@ class ShapeConfig:
     symmetrize: bool = False
     grid_res_coarse_iter_range: Optional[Tuple[float, float]] = None
     grid_res_coarse: int = 128
-    # band-sparse lattice SDF evaluation of the JAX package
-    # (`animals3d_tpu.ops.dmtet.sdf_lattice_banded`), an eval/offline
-    # option that is off by default; not ported yet, the port's sweep is
+    # band-sparse lattice SDF evaluation (`ops.dmtet.sdf_lattice_banded`):
+    # the MLP is evaluated exactly only within ±band_tau fine cells of the
+    # coarse-interpolated surface; off by default, where the sweep is
     # dense (`3DAnimals/model/geometry/dmtet.py:294-310`).
     sparse_band_eval: bool = False
     band_tau: float = 4.0

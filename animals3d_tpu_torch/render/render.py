@@ -19,8 +19,12 @@ Supersampling (`spp` > 1) rasterizes at (H·spp, W·spp) and shades at the
 base resolution on the nearest-subsampled rast (the JAX package's
 `msaa=True`, its only form in use); the buffers are nearest-upsampled
 back, and compositing, antialiasing and the final average pooling run at
-full resolution: visibility is supersampled, shading is not. The
-environment light is not ported yet.
+full resolution: visibility is supersampled, shading is not.
+
+Lighting: `env_light`, a (6, R, R, 3) cubemap, shades split-sum on the
+world-space shading normals (`render.light.environment_shade`, the pbr
+path) and takes precedence over `light_params`, the (B, 5) directional
+light on the camera-space normals; with neither, `shaded` is kd.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ from animals3d_tpu_torch.ops.antialias import antialias
 from animals3d_tpu_torch.ops.rasterize import Rast, resolve
 from animals3d_tpu_torch.ops.rasterize_cuda import rasterize_cuda
 from animals3d_tpu_torch.render.camera import xfm_points
-from animals3d_tpu_torch.render.light import directional_shade
+from animals3d_tpu_torch.render.light import (directional_shade,
+                                               environment_shade)
 
 _ANTIALIAS_MODES = ("shaded", "flow", "dino_pred", "depth", "shading")
 _BG_IMAGE_MODES = ("shaded", "geo_normal", "shading")
@@ -54,7 +59,8 @@ def _upsample(x, k: int):
 
 def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
                 material_fn: Optional[Callable] = None,
-                light_params=None, background=None, spp: int = 1,
+                light_params=None, env_light=None, background=None,
+                spp: int = 1,
                 render_modes: Sequence[str] = ("shaded",),
                 prior_mesh: Optional[Mesh] = None,
                 dino_fn: Optional[Callable] = None,
@@ -144,7 +150,10 @@ def render_mesh(mesh: Mesh, mtx_in, w2c, campos, resolution,
     cam_normal = sh.safe_normalize(
         torch.einsum("bij,bhwj->bhwi", w2c[:, :3, :3], gb_shading_normal))
     shading_buf = None
-    if light_params is not None:
+    if env_light is not None:
+        shaded_col = environment_shade(env_light, gb_pos, gb_shading_normal,
+                                       kd, ks, view_pos)
+    elif light_params is not None:
         shaded_col, shading_buf = directional_shade(light_params, kd,
                                                     cam_normal)
     else:

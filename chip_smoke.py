@@ -140,6 +140,29 @@ Phases, in this order, each fatal on failure:
      sequence; `log_visuals` — 2 steps of `train_magicpony_horse` with
      the visuals and turntables logged after each (to a tag recorder) and
      one `_log_visuals` call's time.
+  9. the rest of the single-card modules (`a12b_slice`): the general
+     (npz) marching tets on the card against the CPU on a jittered grid of
+     32, and against the lattice path on the plain lattice of 128 written
+     as an npz (the same mesh, columns reversed); `train_npz_grid` —
+     `train_magicpony_horse` at 50,000 on a jittered grid of 128 written
+     as `data/tets/128_tets.npz` in a working directory of its own (the
+     npz read and the device edge tables timed, their bytes; 1 + 3 steps,
+     the cull kernel, K1, K6, K7 and K4 once a step);
+     `fauna_train_fine_band` — `train_fauna` at 500,000 (grid 256, `f_cap`
+     786,432) with `sparse_band_eval`: 1 + 2 steps (and the discriminator's
+     where the phase has it; the cull kernel and K1 once a rendered view,
+     K4 once, K6 and K7 never), the band's count against its cap, the
+     banded field against a dense sweep of the same weights on the
+     re-evaluated rows, the faces that differ between the two meshes (a
+     reading), and the banded sweep of an analytic field at grid 64 on the
+     card against the CPU; `render_env` — the recon's posed meshes (batch
+     10 at 256²) rendered with a 256² cubemap (`shaded`, `kd`, `ks`;
+     the cull kernel and K1 once a render), `build_env_mips` timed, the
+     cubemap's gradient finite and nonzero, and a small render (64², a
+     cubemap of 16) against the CPU; `export` — `save_obj_with_mtl` of the
+     prior mesh with a 1,024² atlas and with the reference's per-tet
+     layout at 256², read back with `load_obj` and `load_mtl` (no
+     kernel).
 
 Prints a `kernels` JSON line (all nine kernel entries, each with its
 status: ported, redesigned or fused, and in which PR; `unit_boxes` is the
@@ -1328,6 +1351,18 @@ PATHS = {
     # two training steps with the visuals and turntables logged after each
     "log_visuals": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
                          "fused_mlp_bwd", "resolve_bwd")),
+    # the training step on an npz grid (`data/tets/128_tets.npz`): the
+    # general marching tets; the sweep does not depend on the grid
+    "train_npz_grid": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                            "fused_mlp_bwd", "resolve_bwd")),
+    # Fauna at grid 256 with the banded sweep: no fused sweep (the SDF is
+    # modulated, and the band comes first)
+    "fauna_train_fine_band": ({}, ("cull_boxes", "raster_vis",
+                                   "resolve_bwd")),
+    # the recon's posed meshes rendered with the environment light
+    "render_env": ({}, ("cull_boxes", "raster_vis")),
+    # OBJ/MTL export with the texture field baked on the card: no kernel
+    "export": ({}, ()),
 }
 
 
@@ -3473,6 +3508,529 @@ def vis_slice(card, keep):
     return by_path, summary, readings
 
 
+# ---------------------------------------------------------------------------
+# npz grids, the banded sweep, the environment light and export
+# ---------------------------------------------------------------------------
+
+NPZ_JITTER = 0.1        # interior vertex offsets, in units of the spacing
+NPZ_TIMED = 3
+BAND_IT = 500000        # train_fauna's grid-256 phase
+BAND_TIMED = 2
+BAND_OVERRIDES = ["+model.cfg_predictor_base.cfg_shape.sparse_band_eval=true"]
+# the banded field against a dense sweep of the same weights on the
+# re-evaluated segments, relative to the largest |sdf| there: each row
+# passes through the same layers with the same weights in both sweeps,
+# and a GEMM's row count (the band's 2.12 M rows, the dense sweep's
+# 2^21-row blocks) leaves the order of each row's sums as it is, so the
+# two agree to float32 rounding (0 on the H100); a merge off by one
+# segment or a wrong recompute is far outside this
+BAND_REL_TOL = 1e-6
+ENV_RES = 256           # the cubemap's face size on the full-width render
+ENV_TIMED = 3
+EXPORT_ATLAS = 1024
+EXPORT_REF_ATLAS = 256
+
+
+def jittered_grid(res, jitter=NPZ_JITTER, seed=SEED):
+    """(vertices, indices) of the Kuhn lattice of `res` with its interior
+    vertices moved by seeded uniform offsets of at most `jitter` of the
+    spacing on each axis (0: the plain lattice)."""
+    from animals3d_tpu_torch.geometry.tets import kuhn_lattice
+    verts, tets = kuhn_lattice(res)
+    if jitter:
+        rng = np.random.default_rng(seed)
+        off = rng.uniform(-jitter, jitter, verts.shape) / res
+        interior = (np.abs(verts) < 0.5 - 0.5 / res).all(-1)
+        verts = verts + np.where(interior[:, None], off, 0.0)
+    return verts.astype(np.float32), tets
+
+
+def write_grid(root, res, jitter=NPZ_JITTER):
+    """`root/data/tets/{res}_tets.npz` of `jittered_grid`; returns the
+    directory."""
+    import os
+    d = os.path.join(root, "data", "tets")
+    os.makedirs(d, exist_ok=True)
+    verts, tets = jittered_grid(res, jitter)
+    np.savez(os.path.join(d, f"{res}_tets.npz"), vertices=verts,
+             indices=tets)
+    return d
+
+
+def bumpy_field(verts, seed=SEED, scale=5.0):
+    """(positions, SDF) of a bumpy ellipsoid over `verts` · scale."""
+    rng = np.random.default_rng(seed)
+    r = np.linalg.norm(verts * np.asarray([1.0, 1.4, 0.8]), axis=-1)
+    sdf = 0.22 - r + 0.02 * rng.standard_normal(verts.shape[0])
+    return (verts * scale).astype(np.float32), sdf.astype(np.float32)
+
+
+def same_mesh(name, got, want, flip=False):
+    """Two `ExtractedMesh`es: counts, valid masks, global face ids and
+    faces (`want`'s columns reversed with `flip`) equal, vertices within
+    1e-6."""
+    import torch
+    for k in ("num_verts", "num_faces", "v_valid", "f_valid", "face_gidx"):
+        if not torch.equal(getattr(got, k).cpu(), getattr(want, k).cpu()):
+            raise AssertionError(f"{name}: {k} differs")
+    faces = want.faces.flip(-1) if flip else want.faces
+    if not torch.equal(got.faces.cpu(), faces.cpu()):
+        raise AssertionError(f"{name}: faces differ")
+    err = float((got.verts.cpu() - want.verts.cpu()).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"{name}: vertices differ by {err}")
+    return err
+
+
+def npz_checks(tmp):
+    """The general (npz) marching tets on the card: against the CPU on the
+    jittered grid of 32, and, on the plain lattice written as an npz of
+    128, against the lattice path's mesh (its faces' columns reversed)."""
+    import torch
+    from animals3d_tpu_torch.geometry import tets as tetlib
+    from animals3d_tpu_torch.ops import dmtet
+    d = write_grid(tmp, 32)
+    grid = tetlib.load_tet_grid(32, data_dir=d)
+    if grid.is_lattice:
+        raise AssertionError("npz: the grid of 32 loaded as the lattice")
+    pos, sdf = bumpy_field(grid.verts)
+    v_cap, f_cap = tetlib.default_capacity(32)
+    outs, bces = [], []
+    for dev in ("cuda", "cpu"):
+        g = tetlib.DeviceTetGrid(grid, dev)
+        p, s = torch.from_numpy(pos).to(dev), torch.from_numpy(sdf).to(dev)
+        outs.append(dmtet.marching_tets(p, s, g, v_cap, f_cap))
+        bces.append(float(dmtet.sdf_bce_for_grid(s, g)))
+    err = same_mesh("npz_32_card_vs_cpu", *outs)
+    if not abs(bces[0] - bces[1]) <= 1e-6 * abs(bces[1]):
+        raise AssertionError(f"npz: BCE {bces}")
+    print(f"npz: the jittered grid of 32 on the card against the CPU: "
+          f"{int(outs[0].num_verts)} vertices, {int(outs[0].num_faces)} "
+          f"faces identical, vertices within {err:.3g}, BCE {bces[0]:.6g} "
+          f"vs {bces[1]:.6g}")
+    verts, tets = jittered_grid(128, jitter=0)
+    grid = tetlib.TetGrid(verts=verts, res=128, is_lattice=False, tets=tets)
+    g = tetlib.DeviceTetGrid(grid, "cuda")
+    pos, sdf = bumpy_field(verts)
+    p, s = torch.from_numpy(pos).cuda(), torch.from_numpy(sdf).cuda()
+    v_cap, f_cap = tetlib.default_capacity(128)
+    gen = dmtet.marching_tets(p, s, g, v_cap, f_cap)
+    lat = dmtet.marching_tets_lattice(p, s, 128, v_cap, f_cap)
+    err = same_mesh("npz_128_lattice", lat, gen, flip=True)
+    print(f"npz: the plain lattice of 128 as an npz, general path against "
+          f"the lattice path on the card: {int(gen.num_verts)} vertices, "
+          f"{int(gen.num_faces)} faces, the same mesh with the face columns "
+          f"reversed, vertices within {err:.3g}")
+
+
+def train_npz_phase(card):
+    """`train_magicpony_horse` at `TRAIN_IT` (grid 128) on the jittered
+    grid of 128 written as `data/tets/128_tets.npz` in a working directory
+    of its own: the host load and the device edge tables timed, then
+    `train_slice_phase` on `train_npz_grid` (1 + `NPZ_TIMED` steps; the
+    cull kernel, K1, K6, K7 and K4 once a step). Returns (launches,
+    summary)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch.geometry import tets as tetlib
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_npz_")
+    cwd = os.getcwd()
+    try:
+        npz_checks(tmp)
+        write_grid(tmp, 128)
+        os.chdir(tmp)
+        tetlib._load_tet_grid.cache_clear()
+        cfg, model = build([], "cuda")
+        set_mixed_precision(cfg.get("mixed_precision"))
+        model.init_params(SEED)
+        B = cfg["dataset"]["batch_size"]
+        phase = model.phase_for_iter(TRAIN_IT)
+        t0 = time.perf_counter()
+        host = tetlib.load_tet_grid(128)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        grid, _v, _f = model.grid_for_phase(phase)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if grid.is_lattice or host.is_lattice or grid.res != 128:
+            raise AssertionError("train_npz_grid: the npz grid was not read")
+        table_bytes = sum(t.numel() * t.element_size() for t in
+                          (grid.tets, grid.edges, grid.tet_edge_ids))
+        print(f"train_npz_grid: {host.verts.shape[0]} vertices, "
+              f"{host.tets.shape[0]} tets, {grid.edges.shape[0]} unique "
+              f"edges; npz read {t1 - t0:.3f} s, device edge tables "
+              f"(torch.unique on the card) {(t2 - t1) * 1e3:.1f} ms, "
+              f"{table_bytes / 2**30:.3f} GiB of tables on the "
+              f"device; card {card}")
+        launches, med, peak = train_slice_phase(model, B, "train_npz_grid",
+                                                timed=NPZ_TIMED)
+    finally:
+        os.chdir(cwd)
+        tetlib._load_tet_grid.cache_clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"train_npz_grid": (med, peak)}
+
+
+def band_small_check():
+    """`sdf_lattice_banded` of an analytic field at grid 64 on the card
+    against the CPU: values within 1e-5, the same count."""
+    import torch
+    from animals3d_tpu_torch.geometry.tets import lattice_verts
+    from animals3d_tpu_torch.ops import dmtet
+
+    def field(p):
+        r = torch.linalg.norm(p * torch.tensor([1.0, 1.0, 0.6],
+                                               device=p.device), dim=-1)
+        return (1.4 - r) + 0.12 * torch.sin(p[..., 0] * 2.1) \
+            * torch.cos(p[..., 1] * 1.7)
+    pos = torch.from_numpy(lattice_verts(64) * 7.0)
+    got, n_got = dmtet.sdf_lattice_banded(field, pos.cuda(), 64)
+    want, n_want = dmtet.sdf_lattice_banded(field, pos, 64)
+    err = float((got.cpu() - want).abs().max())
+    print(f"band: an analytic field at grid 64, the card against the CPU: "
+          f"count {int(n_got)} vs {int(n_want)}, max |err| {err:.3g}")
+    if int(n_got) != int(n_want) or not err <= 1e-5:
+        raise AssertionError(f"band: card {int(n_got)} vs {int(n_want)}, "
+                             f"{err}")
+
+
+def band_against_dense(model, pos, feats, res):
+    """The banded field of `model`'s netBase (no gradient) against its
+    dense blocked sweep: the re-evaluated segments found by running the
+    band with its second evaluation marked (NaN); returns (max |err| on
+    them, the largest |sdf| there, their rows, the band's count, the faces
+    that differ between the two meshes, the two face counts)."""
+    import torch
+    from animals3d_tpu_torch.geometry.tets import default_capacity
+    from animals3d_tpu_torch.ops import dmtet
+    nb = model.netBase
+    shape = nb.cfg.cfg_shape
+    calls = []
+
+    def marked(p):
+        calls.append(p.shape[0])
+        out = nb.get_sdf(p, feats)[..., 0]
+        return out if len(calls) == 1 else torch.full_like(out, float("nan"))
+    with torch.no_grad():
+        taken = torch.isnan(dmtet.sdf_lattice_banded(
+            marked, pos, res, band_tau=shape.band_tau,
+            seg_cap=shape.band_seg_cap)[0])
+        band, count = dmtet.sdf_lattice_banded(
+            lambda p: nb.get_sdf(p, feats)[..., 0], pos, res,
+            band_tau=shape.band_tau, seg_cap=shape.band_seg_cap)
+        dense = nb._eval_sdf(pos, feats)
+        err = float((band - dense)[taken].abs().max())
+        scale = float(dense[taken].abs().max())
+        v_cap, f_cap = default_capacity(res)
+        mb = dmtet.marching_tets_lattice(pos, band, res, v_cap, f_cap)
+        md = dmtet.marching_tets_lattice(pos, dense, res, v_cap, f_cap)
+        n = min(int(mb.num_faces), int(md.num_faces), f_cap)
+        differ = int((mb.faces[:n] != md.faces[:n]).any(-1).sum()) \
+            + abs(int(mb.num_faces) - int(md.num_faces))
+    return err, scale, int(taken.sum()), int(count), differ, \
+        (int(mb.num_faces), int(md.num_faces))
+
+
+def fauna_band_phase(card):
+    """`train_fauna` at `BAND_IT` (grid 256: 16.97 M lattice rows, `f_cap`
+    786,432) with `sparse_band_eval`: 1 + `BAND_TIMED` steps of
+    `train_step` (and the discriminator's step where the phase has it),
+    the launch counters set to 0 just before and read just after (K1 and
+    the cull kernel once per rendered view, K4 once, K6 and K7 never),
+    every loss and value finite; then the trained weights' banded field
+    against a dense sweep of the same weights, and the band's count
+    against its cap (`band_against_dense`). Returns (launches,
+    summary)."""
+    import torch
+    from animals3d_tpu_torch.ops import dmtet
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.trainer import (disc_step, make_optimizer,
+                                             train_step)
+    cfg, model = build(BAND_OVERRIDES, "cuda", "train_fauna")
+    set_mixed_precision(cfg.get("mixed_precision"))
+    model.init_params(SEED)
+    B = cfg["dataset"]["batch_size"]
+    phase = model.phase_for_iter(BAND_IT)
+    grid, v_cap, f_cap = model.grid_for_phase(phase)
+    n = grid.res + 1
+    nseg = -(-n ** 3 // dmtet.BAND_SEG)
+    seg_cap = model.cfg_predictor_base.cfg_shape.band_seg_cap \
+        or dmtet.default_seg_cap(grid.res)
+    print(f"fauna_train_fine_band: iter {BAND_IT} phase {phase} grid "
+          f"{grid.res} ({n ** 3} lattice rows) v_cap {v_cap} f_cap {f_cap} "
+          f"batch {B}; band: {nseg} segments of {dmtet.BAND_SEG}, seg_cap "
+          f"{seg_cap}, coarse rows {(grid.res // 2 + 1) ** 3}")
+    if grid.res != 256 or f_cap != 786432 \
+            or not model.netBase._use_band(grid):
+        raise AssertionError(f"fauna_train_fine_band: grid {grid.res} f_cap "
+                             f"{f_cap} band {model.netBase._use_band(grid)}")
+    batch = fauna_batch(model, B)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    views = 2 if phase.disc_on else 1
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    steps = WARMUP_RUNS + BAND_TIMED
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = train_step(model, opt, batch, BAND_IT, gen, phase)
+        if phase.disc_on:
+            disc_step(model, opt, met.pop("_disc_record"))
+        torch.cuda.synchronize()
+        if i >= WARMUP_RUNS:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    launches = check_counts("fauna_train_fine_band", {
+        "cull_boxes": views * steps, "raster_vis": views * steps,
+        "resolve_bwd": steps})
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in model.state_dict().values()
+                 if v.is_floating_point())
+    if not (all(np.isfinite(losses)) and finite):
+        raise AssertionError(f"fauna_train_fine_band: losses {losses}, "
+                             f"parameters finite {finite}")
+    med = statistics.median(times)
+    print(f"fauna_train_fine_band: losses per step "
+          f"{[round(x, 4) for x in losses]}; step median {med:.2f} ms per "
+          f"batch of {B} ({times}), peak memory {peak / 2**30:.2f} GiB; "
+          f"launches in {steps} steps "
+          f"{({k: v for k, v in launches.items() if v})}; card {card}")
+    shape = model.cfg_predictor_base.cfg_shape
+    pos = grid.verts * shape.spatial_scale
+    with torch.no_grad():
+        cls_tok = model.netInstance.frozen_vit_class_token(batch["images"])
+        feats = model.netBase.retrieve_memory_bank(cls_tok)[0][None]
+    err, scale, rows, count, differ, nf = band_against_dense(
+        model, pos, feats, grid.res)
+    print(f"fauna_train_fine_band: the trained weights' band count {count} "
+          f"against seg_cap {seg_cap} (flagged segments past the cap, kept "
+          f"interpolated: {max(0, count - seg_cap)}); their banded field "
+          f"against the dense blocked sweep on the {rows} re-evaluated rows: "
+          f"max |err| {err:.3g}, largest |sdf| there {scale:.4g} (tolerance "
+          f"{BAND_REL_TOL:g} of it); faces that differ between the banded "
+          f"and the dense mesh {differ} (faces {nf[0]} vs {nf[1]}; a "
+          f"reading: a random-weight field need not be near-eikonal); card "
+          f"{card}")
+    if not (rows > 0 and err <= BAND_REL_TOL * scale):
+        raise AssertionError(f"fauna_train_fine_band: band vs dense {err} "
+                             f"on {rows} rows (largest |sdf| {scale})")
+    band_small_check()
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches, {"fauna_train_fine_band": (med, peak)}
+
+
+def mesh_to(mesh, device):
+    import dataclasses
+    return dataclasses.replace(mesh, **{
+        f.name: getattr(mesh, f.name).to(device)
+        for f in dataclasses.fields(mesh)
+        if getattr(mesh, f.name) is not None})
+
+
+def posed_scene(model, images, it):
+    """(prior mesh, posed shape, mvp, w2c, campos, im_features) of the
+    eval forward of `reconstruct` on `images`, without a render."""
+    import torch
+    phase = model.phase_for_iter(it, is_training=False)
+    grid, v_cap, f_cap = model.grid_for_phase(phase)
+    with torch.no_grad():
+        prior, _sdf, _cv, _aux = model.forward_base(
+            grid, v_cap, f_cap, batch={"images": images})
+        out = model.instance_forward(images, prior, it, phase)
+    return prior, out[0], out[3], out[4], out[5], out[6]
+
+
+def seeded_cubemap(res, device, seed=SEED):
+    """A (6, res, res, 3) cubemap by `latlong_to_cubemap` of a seeded
+    uniform (res / 2, res, 3) latlong in [0, 2)."""
+    import torch
+    from animals3d_tpu_torch.render.texture import latlong_to_cubemap
+    rng = np.random.default_rng(seed)
+    latlong = torch.as_tensor(rng.uniform(0, 2, (max(res // 2, 4), 2 * max(
+        res // 2, 4), 3)).astype(np.float32), device=device)
+    return latlong_to_cubemap(latlong, res)
+
+
+def env_small_check():
+    """A small render (batch 1, 64², cubemap 16) with the environment
+    light on the card against the CPU, the same posed mesh of the small
+    reference model and an analytic material: at most 0.2% of the pixels
+    above 1e-3 (faces that flip on rounding, as `reference_phase`)."""
+    import torch
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.render.render import render_mesh
+    set_mixed_precision(False)
+    _cfg, m = build(SMALL_OVERRIDES, "cuda")
+    m.init_params(SEED)
+    rng = np.random.default_rng(SEED)
+    img = torch.as_tensor(rng.uniform(0, 1, (1, 1, 3, 64, 64))
+                          .astype(np.float32), device="cuda")
+    prior, shape, mvp, w2c, campos, _f = posed_scene(m, img, TRAIN_IT)
+    cube = seeded_cubemap(16, "cuda")
+
+    def material(p):
+        s = torch.sin(p * 3.0)
+        kd = 0.5 + 0.4 * s
+        ks = torch.stack([0.1 + 0.05 * s[..., 0], 0.3 + 0.2 * s[..., 1],
+                          0.4 + 0.3 * s[..., 2]], -1)
+        return torch.cat([kd, ks, kd], -1)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        t = lambda x: x.to(dev)
+        outs.append(render_mesh(
+            mesh_to(shape, dev), t(mvp), t(w2c), t(campos), (64, 64),
+            material_fn=material, env_light=t(cube),
+            render_modes=["shaded"], prior_mesh=mesh_to(prior, dev))
+            ["shaded"])
+    d = (outs[0].cpu() - outs[1]).abs().amax(1)
+    bad = float((d > 1e-3).float().mean())
+    print(f"render_env: 64² with a cubemap of 16, the card against the CPU: "
+          f"max |err| {float(d.max()):.3g}, share of pixels above 1e-3 "
+          f"{bad:.4f}, mask px {int((outs[1][:, 3] > 0).sum())}")
+    if not (bad <= 0.002 and int((outs[1][:, 3] > 0).sum()) > 100):
+        raise AssertionError(f"render_env: {bad:.4f} of the pixels differ")
+
+
+def render_env_phase(card):
+    """The recon model at 50,000 (batch 10 at 256²) rendered with the
+    environment light: a (6, `ENV_RES`, `ENV_RES`, 3) cubemap from a
+    seeded latlong, modes `shaded`, `kd` and `ks`; `build_env_mips` timed
+    alone, 1 + `ENV_TIMED` renders counted (the cull kernel and K1 once
+    a render), outputs finite, the gradient to the cubemap finite and
+    nonzero; then the small render against the CPU (`env_small_check`)
+    and `export_phase` on the same model. Returns ({path: launches},
+    summary)."""
+    import torch
+    from animals3d_tpu_torch.render.light import build_env_mips
+    from animals3d_tpu_torch.render.render import render_mesh
+    model, images, it, B, H = slice_phase()
+    prior, shape, mvp, w2c, campos, feat = posed_scene(model, images, it)
+    cube = seeded_cubemap(ENV_RES, "cuda")
+    bg = model.background_image(B, H, H)
+    modes = ["shaded", "kd", "ks"]
+
+    def render(c):
+        return render_mesh(
+            shape, mvp, w2c, campos, (H, H),
+            material_fn=lambda p: model.netInstance.sample_texture(p, feat),
+            env_light=c, background=bg, render_modes=modes,
+            prior_mesh=prior)
+    with torch.no_grad():
+        mips_ms = statistics.median(cuda_ms(lambda: build_env_mips(cube), 3))
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(WARMUP_RUNS + ENV_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(cube)
+            torch.cuda.synchronize()
+            if i >= WARMUP_RUNS:
+                times.append((time.perf_counter() - t0) * 1e3)
+        launches = check_counts("render_env", WARMUP_RUNS + ENV_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    for k in modes:
+        want = (B, 4 if k == "shaded" else 3, H, H)
+        if tuple(out[k].shape) != want or not torch.isfinite(out[k]).all():
+            raise AssertionError(f"render_env: {k} {tuple(out[k].shape)}")
+    c = cube.clone().requires_grad_(True)
+    render(c)["shaded"].sum().backward()
+    g = c.grad
+    if not (torch.isfinite(g).all() and float(g.abs().max()) > 0):
+        raise AssertionError("render_env: the cubemap's gradient")
+    med = statistics.median(times)
+    print(f"render_env: build_env_mips ({ENV_RES}² faces, "
+          f"{len(build_env_mips(cube)[0])} mips) {mips_ms:.2f} ms; render "
+          f"(shaded, kd, ks) median {med:.2f} ms per batch of {B} "
+          f"({times}), peak memory {peak / 2**30:.2f} GiB, mask px per "
+          f"image {(out['shaded'][:, 3] > 0).sum((1, 2)).tolist()}; the "
+          f"cubemap's gradient finite, max |g| {float(g.abs().max()):.3g}; "
+          f"launches in {WARMUP_RUNS + ENV_TIMED} renders "
+          f"{({k: v for k, v in launches.items() if v})}; card {card}")
+    from animals3d_tpu_torch.precision import (compute_dtype,
+                                               set_mixed_precision)
+    policy = "bf16" if compute_dtype() == torch.bfloat16 else False
+    env_small_check()
+    set_mixed_precision(policy)
+    ex_launches, ex_summary = export_phase(model, prior, feat, card)
+    del model
+    torch.cuda.empty_cache()
+    return {"render_env": launches, "export": ex_launches}, \
+        {"render_env": (med, peak), **ex_summary}
+
+
+def export_phase(model, prior, feat, card):
+    """`save_obj_with_mtl` of the prior mesh with an `EXPORT_ATLAS`² baked
+    atlas, and with the reference's per-tet layout
+    (`bake_texture_atlas_reference`) at `EXPORT_REF_ATLAS`², the texture
+    field on the card; both read back with `load_obj` and `load_mtl`, the
+    vertex, face and uv counts unchanged. No kernel runs. Returns
+    (launches, summary)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch.render import export
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    nv, nf = int(prior.num_verts), int(prior.num_faces)
+    res = model.cfg_predictor_base.cfg_shape.grid_res
+    tex = lambda p: model.netInstance.sample_texture(p, feat[:1])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    try:
+        for name, kw in (("dense", dict(atlas_res=EXPORT_ATLAS)),
+                         ("reference", dict(atlas_res=EXPORT_REF_ATLAS,
+                                            uv_layout="reference",
+                                            max_gidx=2 * 6 * res ** 3))):
+            t0 = time.perf_counter()
+            path = export.save_obj_with_mtl(os.path.join(tmp, name), prior,
+                                            tex, **kw)
+            secs[name] = time.perf_counter() - t0
+            v, f, uv, uv_idx = export.load_obj(path)
+            (mat,) = export.load_mtl(path[:-4] + ".mtl")
+            a = kw["atlas_res"]
+            if not (v.shape == (nv, 3) and f.shape == (nf, 3)
+                    and uv.shape == (3 * nf, 2) and uv_idx.shape == (nf, 3)
+                    and tuple(mat["kd"].shape) == (a, a, 3)):
+                raise AssertionError(f"export[{name}]: {v.shape} {f.shape} "
+                                     f"{uv.shape} {tuple(mat['kd'].shape)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = check_counts("export", 0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"export: {nv} vertices, {nf} faces read back unchanged; "
+          f"save_obj_with_mtl with a {EXPORT_ATLAS}² atlas "
+          f"{secs['dense']:.2f} s, with the reference's per-tet layout at "
+          f"{EXPORT_REF_ATLAS}² {secs['reference']:.2f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB; card {card}")
+    return launches, {"export": (secs["dense"] * 1e3, peak)}
+
+
+def a12b_slice(card):
+    """The npz grid's training step, the banded Fauna step at grid 256, the
+    environment-lit render and the export. Returns (launches by path,
+    summary)."""
+    by_path, summary = {}, {}
+    by_path["train_npz_grid"], s = train_npz_phase(card)
+    summary.update(s)
+    by_path["fauna_train_fine_band"], s = fauna_band_phase(card)
+    summary.update(s)
+    launches, s = render_env_phase(card)
+    by_path.update(launches)
+    summary.update(s)
+    return by_path, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3584,6 +4142,11 @@ def main() -> int:
     by_path.update(vis_by_path)
     summary.update(vis_summary)
     pony_readings.update(vis_readings)
+
+    # npz grids, the banded sweep, the environment light and export
+    a_by_path, a_summary = a12b_slice(card)
+    by_path.update(a_by_path)
+    summary.update(a_summary)
     # a Ponymation stage-1 step and a Visualizer render at spp 4 go through
     # the capped antialias pass
     pairs = {p: f" ({dropped_pairs_text(r)})" for p, r in

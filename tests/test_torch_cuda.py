@@ -1518,3 +1518,120 @@ def test_png_codec_round_trip(tmp_path):
     assert got.shape == (2, 4, 5)
     np.testing.assert_array_equal(got[0], -1.0)
     np.testing.assert_array_equal(got[1], 1.0)
+
+
+def _kuhn_npz_grid(res, jitter=0.1, seed=0):
+    """A general `TetGrid`: the Kuhn lattice of `res` with its interior
+    vertices moved by seeded uniform offsets of at most `jitter` of the
+    spacing."""
+    from animals3d_tpu_torch.geometry import tets as tetlib
+    verts, tets = tetlib.kuhn_lattice(res)
+    off = np.random.default_rng(seed).uniform(-jitter, jitter,
+                                              verts.shape) / res
+    interior = (np.abs(verts) < 0.5 - 0.5 / res).all(-1)
+    verts = (verts + np.where(interior[:, None], off, 0.0)) \
+        .astype(np.float32)
+    return tetlib.TetGrid(verts=verts, res=res, is_lattice=False, tets=tets)
+
+
+def test_general_marching_tets_on_card_equals_cpu(card):
+    """The npz path's edge tables (built on the card) and its mesh and
+    BCE: identical to the CPU's, vertices within 1e-6."""
+    from animals3d_tpu_torch.geometry import tets as tetlib
+    grid = _kuhn_npz_grid(16)
+    r = np.linalg.norm(grid.verts * np.asarray([1.0, 1.4, 0.8]), axis=-1)
+    sdf = torch.from_numpy((0.25 - r).astype(np.float32))
+    pos = torch.from_numpy(grid.verts * 5.0)
+    outs, bces = [], []
+    for dev in (card, torch.device("cpu")):
+        g = tetlib.DeviceTetGrid(grid, dev)
+        outs.append(dmtet.marching_tets(pos.to(dev), sdf.to(dev), g, 4096,
+                                        8192))
+        bces.append(float(dmtet.sdf_bce_for_grid(sdf.to(dev), g)))
+        if dev == card:
+            card_edges = g.edges.cpu()
+        else:
+            assert torch.equal(card_edges, g.edges)
+    got, want = outs
+    assert int(want.num_faces) > 0
+    for k in ("faces", "v_valid", "f_valid", "face_gidx", "num_verts",
+              "num_faces"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    assert float((got.verts.cpu() - want.verts).abs().max()) <= 1e-6
+    np.testing.assert_allclose(bces[0], bces[1], rtol=1e-6)
+
+
+def test_banded_sweep_on_card_equals_cpu(card):
+    """`sdf_lattice_banded` of an analytic field at grid 64 and its
+    gradient through the recompute: values within 1e-5, the same count,
+    the gradient to a field parameter within 1e-4 relative."""
+    from animals3d_tpu_torch.geometry.tets import lattice_verts
+    pos = torch.from_numpy(lattice_verts(64) * 7.0)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        a = torch.tensor(1.4, device=dev, requires_grad=True)
+
+        def field(p):
+            r = torch.linalg.norm(p * torch.tensor([1.0, 1.0, 0.6],
+                                                   device=p.device), dim=-1)
+            return (a - r) + 0.12 * torch.sin(p[..., 0] * 2.1) \
+                * torch.cos(p[..., 1] * 1.7)
+        sdf, count = dmtet.sdf_lattice_banded(field, pos.to(dev), 64)
+        (sdf.clamp(-1, 1) ** 2).sum().backward()
+        outs.append((sdf.detach().cpu(), int(count), float(a.grad)))
+    (s_g, n_g, g_g), (s_c, n_c, g_c) = outs
+    assert n_g == n_c > 0
+    assert float((s_g - s_c).abs().max()) <= 1e-5
+    np.testing.assert_allclose(g_g, g_c, rtol=1e-4)
+
+
+def test_environment_shade_on_card_equals_cpu(card):
+    """Split-sum environment shading of a cubemap of 16 and its gradient
+    to the cubemap: within 1e-5 of the CPU's."""
+    from animals3d_tpu_torch.render.light import environment_shade
+    r = np.random.default_rng(0)
+    cube = r.uniform(0, 2, (6, 16, 16, 3)).astype(np.float32)
+    n = r.normal(size=(4, 8, 8, 3))
+    n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+    pos = r.normal(size=(4, 8, 8, 3)).astype(np.float32)
+    kd = r.uniform(0, 1, (4, 8, 8, 3)).astype(np.float32)
+    ks = r.uniform(0, 1, (4, 8, 8, 3)).astype(np.float32) * 0.5
+    view = (r.normal(size=(4, 1, 1, 3)) * 4).astype(np.float32)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(a).to(dev)
+        c = t(cube).requires_grad_(True)
+        out = environment_shade(c, t(pos), t(n), t(kd), t(ks), t(view))
+        out.sum().backward()
+        outs.append((out.detach().cpu(), c.grad.cpu()))
+    (o_g, g_g), (o_c, g_c) = outs
+    assert float((o_g - o_c).abs().max()) <= 1e-5
+    assert float((g_g - g_c).abs().max()) <= 1e-5 * float(g_c.abs().max())
+
+
+def test_resnet_encoder_on_card_equals_cpu(card):
+    """ResnetEncoder in float32 (TF32 off) on the card against the CPU,
+    the same weights: within 1e-4 of the largest output."""
+    from animals3d_tpu_torch.networks.encoders import ResnetEncoder
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.precision import compute_dtype
+    saved = (compute_dtype(), torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    set_mixed_precision(False)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        cpu = ResnetEncoder(6).eval()
+        gpu = ResnetEncoder(6).to(card).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(np.random.default_rng(1).uniform(
+            0, 1, (2, 3, 64, 64)).astype(np.float32))
+        with torch.no_grad():
+            want = cpu(x)
+            got = gpu(x.to(card)).cpu()
+    finally:
+        set_mixed_precision("bf16" if saved[0] == torch.bfloat16 else None)
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.backends.cuda.matmul.allow_tf32 = saved[2]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -142,7 +142,8 @@ def test_port_imports_no_jax():
     card-only tests, imports jax, flax, optax, orbax or the JAX package.
     The training slice's modules, the loop's, the loaders', the
     checkpoints', the CLI's, Fauna's and Ponymation's, the Visualizer's,
-    the evaluation's and the logging's are among the files scanned."""
+    the evaluation's and the logging's, and the textures, export,
+    regularizers and CNN encoders are among the files scanned."""
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_recon_profile.py"),
              os.path.join(REPO, "tests", "test_torch_cuda.py")]
@@ -160,7 +161,9 @@ def test_port_imports_no_jax():
                 "models/ponymation.py", "predictors/motion_vae.py",
                 "networks/motion_vae.py", "data/sequence_dataset.py",
                 "utils/smooth_loss.py", "visualization.py", "evaluation.py",
-                "utils/visual_log.py", "utils/wandb_writer.py"):
+                "utils/visual_log.py", "utils/wandb_writer.py",
+                "render/texture.py", "render/export.py",
+                "render/regularizer.py", "networks/encoders.py"):
         assert os.path.join("animals3d_tpu_torch", new) in scanned, new
     banned = ("jax", "flax", "optax", "orbax", "animals3d_tpu")
     for path in files:
