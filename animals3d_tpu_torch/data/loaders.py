@@ -9,8 +9,10 @@ is the JAX package's: each epoch shuffles with numpy
 and never ends, so one folder gives the same batches in the same order in
 both packages. A dataset with `set_epoch` (Fauna's) is told each epoch
 before its indices are drawn, as the JAX loader does. Batches are numpy;
-the `Trainer` moves them to the model's device. One host; sharding the
-stream over hosts is not ported.
+the `Trainer` moves them to the model's device. Under data parallelism
+each rank (`host_id` of `num_hosts`) takes every `num_hosts`-th index of
+the epoch's order, padded first to a multiple of `num_hosts` as
+`DistributedSampler` pads, in batches of `batch_size // num_hosts`.
 """
 from __future__ import annotations
 
@@ -65,7 +67,8 @@ class Loader:
     """Iterable over collated batches with background decode + prefetch."""
 
     def __init__(self, dataset, batch_size, shuffle=False, num_workers=4,
-                 drop_last=True, prefetch=3, seed=0, infinite=False):
+                 drop_last=True, prefetch=3, seed=0, host_id=0, num_hosts=1,
+                 infinite=False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -73,6 +76,8 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.infinite = infinite
         self._epoch = 0
         if len(dataset) == 0:
@@ -80,7 +85,8 @@ class Loader:
                 f"empty dataset {type(dataset).__name__}: check data_dir")
 
     def __len__(self):
-        n = len(self.dataset)
+        # this host's count after the pad of `_index_stream`
+        n = -(-len(self.dataset) // self.num_hosts)
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
@@ -95,6 +101,12 @@ class Loader:
             if self.shuffle:
                 rng = np.random.default_rng(self.seed + self._epoch)
                 rng.shuffle(order)
+            if self.num_hosts > 1 and n % self.num_hosts:
+                # pad to a multiple of num_hosts so that every host takes
+                # as many samples an epoch and the epochs stay in step
+                pad = self.num_hosts - n % self.num_hosts
+                order = np.concatenate([order, order[:pad]])
+            order = order[self.host_id::self.num_hosts]
             yield from order.tolist()
             self._epoch += 1
             if not self.infinite:
@@ -180,8 +192,14 @@ def _build_dataset(cfg: DataLoaderConfig, data_dir: str, is_train: bool):
     raise NotImplementedError(f"data_type {cfg.data_type!r}")
 
 
-def get_data_loaders(cfg: DataLoaderConfig):
-    """→ (train, val, test) Loaders (None where no dir is configured)."""
+def get_data_loaders(cfg: DataLoaderConfig, host_id=0, num_hosts=1):
+    """→ (train, val, test) Loaders (None where no dir is configured).
+    `cfg.batch_size` is the global batch; host `host_id` of `num_hosts`
+    gets its `batch_size // num_hosts` slice of each (the stride of
+    `Loader`)."""
+    if cfg.batch_size % num_hosts:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide over "
+                         f"{num_hosts} hosts")
     loaders = []
     for data_dir, is_train in ((cfg.train_data_dir, True),
                                (cfg.val_data_dir, False),
@@ -197,8 +215,8 @@ def get_data_loaders(cfg: DataLoaderConfig):
             loaders.append(None)
             continue
         loaders.append(Loader(
-            ds, cfg.batch_size,
+            ds, cfg.batch_size // num_hosts,
             shuffle=is_train and cfg.random_shuffle_samples_train,
             num_workers=cfg.num_workers, drop_last=is_train,
-            infinite=is_train))
+            host_id=host_id, num_hosts=num_hosts, infinite=is_train))
     return tuple(loaders)

@@ -28,6 +28,32 @@ def line_segment_distance(a, b, points):
     return torch.sqrt(d2 + 1e-6)
 
 
+def sample_farthest_points(pts, k: int, valid=None, start=None):
+    """Farthest-point subsample: (B, N, 3) → ((B, k, 3), (B, k) int64
+    indices). An invalid point (`valid` False) is never picked; the first
+    pick is `start` (B,) or each row's first valid point, each next one
+    the point farthest from those picked (the lowest index among equal
+    distances)."""
+    B, N, _ = pts.shape
+    if valid is None:
+        valid = torch.ones((B, N), dtype=torch.bool, device=pts.device)
+    neg = torch.full((B, N), -1e30, dtype=pts.dtype, device=pts.device)
+    if start is None:
+        start = torch.argmax(valid.to(torch.int32), dim=1)
+    sel = [start.long()]
+
+    def dist_to(idx):
+        p = torch.gather(pts, 1, idx[:, None, None].expand(B, 1, 3))
+        return torch.where(valid, torch.linalg.norm(pts - p, dim=-1), neg)
+
+    dist = dist_to(sel[0])
+    for _ in range(1, k):
+        sel.append(torch.argmax(dist, dim=1))
+        dist = torch.minimum(dist, dist_to(sel[-1]))
+    sel = torch.stack(sel, 1)
+    return torch.gather(pts, 1, sel[..., None].expand(B, k, 3)), sel
+
+
 def euler_angles_to_matrix(angles, convention: str = "XYZ"):
     """(..., 3) Euler angles → (..., 3, 3), PyTorch3D semantics."""
     def axis_rot(axis, t):
@@ -161,12 +187,21 @@ def estimate_bones(verts, v_valid, n_body_bones: int, n_legs: int = 4,
                    n_leg_bones: int = 0, body_bones_mode: str = "z_minmax_y+",
                    attach_legs_to_body: bool = True,
                    bone_y_threshold: Optional[float] = None,
-                   legs_to_body_joint_indices=None):
+                   legs_to_body_joint_indices=None, resample: bool = False):
     """Bones (B, F, K, 2, 3) and the BoneStructure from (B, F, V, 3)
-    vertices; no gradient flows through them."""
+    vertices; no gradient flows through them. With `resample` the
+    vertices are first subsampled to V // 4 by `sample_farthest_points`
+    (off at every call site, as in the reference)."""
     verts = verts.detach()
     B, F, V, _ = verts.shape
     valid = v_valid[None, None, :].expand(B, F, V)
+    if resample:
+        fval = valid.reshape(B * F, V)
+        sub, sel = sample_farthest_points(verts.reshape(B * F, V, 3),
+                                          max(V // 4, 1), valid=fval)
+        verts = sub.reshape(B, F, -1, 3)
+        valid = torch.gather(fval, 1, sel).reshape(B, F, -1)
+        V = verts.shape[2]
     big = 1e6
     xs, ys, zs = verts[..., 0], verts[..., 1], verts[..., 2]
     denom = torch.clamp(valid.sum(-1), min=1)

@@ -463,6 +463,7 @@ class AnimalModel(nn.Module):
         final_losses = {}
         metrics = {}
         mask_pred = image_pred = dino_pred = flow_pred = None
+        bg_mode = self.cfg_render.background_mode
         do_render = self.cfg_model.enable_render or not phase.is_training
         if do_render:
             # the batch shrinks at generation time (1 sequence × F frames)
@@ -472,15 +473,28 @@ class AnimalModel(nn.Module):
             render_flow = self.cfg_render.render_flow and Fr > 1
             render_modes = ["shaded", "dino_pred"] + \
                 (["flow"] if render_flow else [])
-            bg_mode = self.cfg_render.background_mode
-            if bg_mode in ("background", "input"):
-                raise NotImplementedError(
-                    f"background_mode {bg_mode!r} in the training forward")
             r_mvp, r_w2c, r_campos = self.render_cameras(mvp, w2c, campos)
+            # the real-background modes composite the shaded buffer over
+            # the input image or the dataset's background frame (their rgb
+            # loss is unmasked, `compute_reconstruction_losses`)
+            background = None
+            if bg_mode in ("background", "input") and B * Fr == N_out:
+                if bg_mode == "input":
+                    bg_src = image_gt
+                else:
+                    bg_src = batch.get("bg_images")
+                    if bg_src is None:
+                        raise ValueError(
+                            "background_mode=background needs bg_images "
+                            "(dataset background_frame.jpg)")
+                    if bg_src.shape[-1] != w:
+                        bg_src = expand_bf(resize_nchw(
+                            collapse_bf(bg_src), (h, w)), B, Fr)
+                background = collapse_bf(bg_src).permute(0, 2, 3, 1)
             renders = self.render(
                 render_modes, shape, r_mvp, r_w2c, r_campos, (h, w),
                 im_features=im_features, light_params=light_params,
-                prior_mesh=prior_mesh, use_dino=True,
+                prior_mesh=prior_mesh, use_dino=True, background=background,
                 class_vector=class_vector, num_frames=Fr)
             shaded = expand_bf(renders["shaded"], B, Fr)
             dino_pred = expand_bf(renders["dino_pred"], B, Fr)

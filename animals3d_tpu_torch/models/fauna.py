@@ -27,7 +27,7 @@ import torch
 from animals3d_tpu_torch import config as cfglib
 from animals3d_tpu_torch.models.animal import AnimalModel, OptimizerConfig
 from animals3d_tpu_torch.networks import discriminator as disc_lib
-from animals3d_tpu_torch.noise import Noise, uniform
+from animals3d_tpu_torch.noise import Noise, uniform_rows
 from animals3d_tpu_torch.phase import Phase
 from animals3d_tpu_torch.predictors.bank import BankPredictor
 from animals3d_tpu_torch.predictors.config import BankConfig
@@ -166,7 +166,7 @@ class Fauna(AnimalModel):
         if noise.rv_deg is not None:
             deg = noise.rv_deg.to(dev)
         else:
-            deg = torch.floor(uniform(None, (b,), gen, dev) * 360)
+            deg = torch.floor(uniform_rows(None, (b,), gen, dev) * 360)
         angle = deg.float() * (2 * np.pi / 360)
         c, s = torch.cos(angle), torch.sin(angle)
         zero, one = torch.zeros_like(c), torch.ones_like(c)

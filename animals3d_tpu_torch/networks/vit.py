@@ -170,3 +170,16 @@ class DinoViT(nn.Module):
                 x = blk(x)
         return self.norm(x), key11
 
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def normalize_imagenet(images: torch.Tensor) -> torch.Tensor:
+    """(B, 3, H, W) in [0, 1] → ImageNet-normalized."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype,
+                        device=images.device).reshape(1, 3, 1, 1)
+    std = torch.tensor(IMAGENET_STD, dtype=images.dtype,
+                       device=images.device).reshape(1, 3, 1, 1)
+    return (images - mean) / std

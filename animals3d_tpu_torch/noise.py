@@ -8,6 +8,11 @@ the index fields (the random pose hypothesis, the surface vertices,
 `generate`'s frame), the random view's whole degrees and the standard
 normal draws whose names end in `_normal` (Ponymation's VAE ε and
 `generate`'s z before its 1.5 scale).
+
+Under data parallelism the generator is seeded alike on every rank; a
+per-sample site draws for the global batch and keeps this rank's rows
+(`uniform_rows`, `normal_rows`), so N ranks draw what one rank would on
+the global batch and the generators stay in step.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from animals3d_tpu_torch import parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,3 +56,30 @@ def normal(value, shape, gen: Optional[torch.Generator], device):
     if gen is None:
         raise ValueError("a random site needs its value or a generator")
     return torch.randn(shape, generator=gen, device=gen.device).to(device)
+
+
+def _global_shape(shape, dim):
+    full = list(shape)
+    full[dim] *= parallel.world_size()
+    return tuple(full)
+
+
+def uniform_rows(value, shape, gen: Optional[torch.Generator], device,
+                 dim: int = 0):
+    """`uniform` for a per-sample site whose batch axis is `dim`: without
+    `value`, the draw is made for the global batch and this rank's rows
+    are kept (`parallel.local_rows`)."""
+    if value is not None:
+        return uniform(value, shape, gen, device)
+    return parallel.local_rows(
+        uniform(None, _global_shape(shape, dim), gen, device), dim)
+
+
+def normal_rows(value, shape, gen: Optional[torch.Generator], device,
+                dim: int = 0):
+    """`normal` for a per-sample site whose batch axis is `dim` (see
+    `uniform_rows`)."""
+    if value is not None:
+        return normal(value, shape, gen, device)
+    return parallel.local_rows(
+        normal(None, _global_shape(shape, dim), gen, device), dim)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from animals3d_tpu_torch import parallel
 from animals3d_tpu_torch.predictors.base import BasePredictor
 from animals3d_tpu_torch.predictors.config import (BankConfig,
                                                    BasePredictorConfig)
@@ -59,4 +60,6 @@ class BankPredictor(BasePredictor):
         picked = self.memory_bank.index_select(0, idx.reshape(-1)) \
             .reshape(*idx.shape, -1)                           # (N, k, dim)
         out = (weights[..., None] * picked).sum(1)             # (N, dim)
-        return out.mean(0), out, {"weights": weights, "pick_idx": idx}
+        # the mean over the global batch under data parallelism
+        return parallel.all_reduce_mean(out.mean(0)), out, \
+            {"weights": weights, "pick_idx": idx}

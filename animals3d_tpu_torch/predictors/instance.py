@@ -3,8 +3,12 @@ light) (port of `animals3d_tpu.predictors.instance`).
 
 Outside training the pose hypothesis is the most probable one; in training
 it is sampled (`sample_pose_hypothesis(random_sample=True)`) from the
-draws of a `Noise` or a generator. The articulation refinement pass is not
-ported yet and raises. Ponymation's `MotionVAEPredictor` subclasses it.
+draws of a `Noise` or a generator. The single-pose representations
+(`rot_rep` euler_angle, quaternion, lookat) are decoded by `forward_pose`
+but, as in the JAX package, have no hypothesis sampling. With
+`enable_refine` a second articulation pass (`netArticulationRefine`) reads
+the bones posed by the first. Ponymation's `MotionVAEPredictor`
+subclasses it.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from animals3d_tpu_torch.networks.articulation import ArticulationNetwork
 from animals3d_tpu_torch.networks.encoders import Encoder32
 from animals3d_tpu_torch.networks.mlp import CoordMLP
 from animals3d_tpu_torch.networks.vit import DinoViT
-from animals3d_tpu_torch.noise import Noise, uniform
+from animals3d_tpu_torch.noise import Noise, uniform_rows
 from animals3d_tpu_torch.ops.image import grid_sample_bilinear
 from animals3d_tpu_torch.phase import Phase
 from animals3d_tpu_torch.predictors.config import InstancePredictorConfig
@@ -55,7 +59,8 @@ def softplus_with_init(x, init=0.5):
 
 class ViTEncoder(nn.Module):
     """Frozen DINO ViT + two `Encoder32` heads on its patch tokens and
-    block-11 keys."""
+    block-11 keys (`final_layer_type` "conv"), or, with "none", no heads:
+    the global features are then the class token and its block-11 key."""
 
     def __init__(self, cout: int = 256, which_vit: str = "dino_vits8",
                  frozen: bool = True, final_layer_type: str = "conv",
@@ -70,11 +75,14 @@ class ViTEncoder(nn.Module):
                            num_heads=heads)
         if frozen:
             self.ViT.requires_grad_(False)
-        if final_layer_type != "conv":
+        if final_layer_type not in ("conv", "none"):
             raise NotImplementedError(final_layer_type)
-        grid = image_size // self.patch_size
-        self.final_layer_patch_out = Encoder32(self.vit_feat_dim, cout, grid)
-        self.final_layer_patch_key = Encoder32(self.vit_feat_dim, cout, grid)
+        if final_layer_type == "conv":
+            grid = image_size // self.patch_size
+            self.final_layer_patch_out = Encoder32(self.vit_feat_dim, cout,
+                                                   grid)
+            self.final_layer_patch_key = Encoder32(self.vit_feat_dim, cout,
+                                                   grid)
 
     def forward(self, images):
         # images: (N, 3, H, W) already rescaled to (-1, 1) by the caller
@@ -86,8 +94,12 @@ class ViTEncoder(nn.Module):
         patch_out = tokens[:, 1:].reshape(N, ph, pw, -1).permute(0, 3, 1, 2)
         # (N, heads, T, hd) → (N, heads*hd, ph, pw)
         pk = key11[:, :, 1:].transpose(2, 3).reshape(N, -1, ph, pw)
-        g_out = self.final_layer_patch_out(patch_out)
-        g_key = self.final_layer_patch_key(pk)
+        if self.final_layer_type == "conv":
+            g_out = self.final_layer_patch_out(patch_out)
+            g_key = self.final_layer_patch_key(pk)
+        else:
+            g_out = tokens[:, 0]
+            g_key = key11[:, :, 0].reshape(N, -1)
         return g_out, g_key, patch_out, pk
 
     @torch.no_grad()
@@ -127,11 +139,22 @@ class InstancePredictor(nn.Module):
         self.max_trans_xyz_range = np.array([
             pose.max_trans_xy_range_ratio, pose.max_trans_xy_range_ratio,
             pose.max_trans_z_range_ratio], np.float32) * np.float32(half_range)
-        if pose.rot_rep not in ("quadlookat", "octlookat"):
-            raise NotImplementedError(
-                f"rot_rep {pose.rot_rep!r}: only quad/octlookat are ported")
-        self.netPose = Encoder32(vit_feat_dim, 4 * self.num_pose_hypos + 3,
-                                 image_size // 8, nf=256)
+        # the pose head's width per rotation representation
+        if pose.rot_rep == "euler_angle":
+            pose_cout = 6                 # 3 angles + 3 translation
+            self.max_rot_xyz_range = np.array(
+                [pose.max_rot_x_range, pose.max_rot_y_range,
+                 pose.max_rot_z_range], np.float32) / 180.0 * np.pi
+        elif pose.rot_rep == "quaternion":
+            pose_cout = 7                 # 4 quaternion + 3 translation
+        elif pose.rot_rep == "lookat":
+            pose_cout = 6                 # 3 forward vector + 3 translation
+        elif pose.rot_rep in ("quadlookat", "octlookat"):
+            pose_cout = 4 * self.num_pose_hypos + 3
+        else:
+            raise NotImplementedError(pose.rot_rep)
+        self.netPose = Encoder32(vit_feat_dim, pose_cout, image_size // 8,
+                                 nf=256)
 
         if cfg.enable_deform:
             d = cfg.cfg_deform
@@ -143,8 +166,6 @@ class InstancePredictor(nn.Module):
 
         if cfg.enable_articulation:
             a = cfg.cfg_articulation
-            if a.enable_refine:
-                raise NotImplementedError("articulation refinement")
             feat_dim = {"global": enc_dim, "sample": vit_feat_dim,
                         "sample+global": vit_feat_dim + enc_dim}[
                             a.bone_feature_mode]
@@ -154,6 +175,19 @@ class InstancePredictor(nn.Module):
                 n_harmonic_functions=a.embedder_freq,
                 embedder_scalar=np.pi * 0.9,
                 enable_articulation_idadd=a.enable_articulation_idadd)
+            if a.enable_refine:
+                # the second pass reads the bones posed by the first
+                refine_dim = 0
+                if "dino_global" in a.refine_feature_mode:
+                    refine_dim += enc_dim
+                if "dino_sample" in a.refine_feature_mode:
+                    refine_dim += vit_feat_dim
+                self.netArticulationRefine = ArticulationNetwork(
+                    a.architecture, refine_dim, posenc_dim=1 + 2 + 3 * 2,
+                    num_layers=a.num_layers, nf=a.hidden_size,
+                    n_harmonic_functions=a.embedder_freq,
+                    embedder_scalar=np.pi * 0.9,
+                    enable_articulation_idadd=a.enable_articulation_idadd)
 
         if cfg.enable_lighting:
             li = cfg.cfg_light
@@ -184,6 +218,27 @@ class InstancePredictor(nn.Module):
         dev = pose.device
         trans = torch.tanh(pose[..., -3:]) * torch.as_tensor(
             self.max_trans_xyz_range, device=dev)
+        if cfg.rot_rep == "euler_angle":
+            # tanh-bounded xyz angles
+            rot_pred = torch.tanh(pose[..., :3]) * torch.as_tensor(
+                self.max_rot_xyz_range, device=dev)
+            return torch.cat([rot_pred, trans], -1)            # (N, 6)
+        if cfg.rot_rep == "quaternion":
+            # shifted at init, normalized, real part >= 0
+            quat = pose[..., :4] + torch.tensor([0.01, 0.0, 0.0, 0.0],
+                                                device=dev)
+            quat = quat / torch.clamp(torch.linalg.norm(
+                quat, dim=-1, keepdim=True), min=1e-12)
+            return torch.cat([quat * torch.sign(quat[..., :1]), trans],
+                             -1)                               # (N, 7)
+        if cfg.rot_rep == "lookat":
+            # one normalized forward vector
+            fwd = pose[..., :3]
+            if zeroy:
+                fwd = fwd * torch.tensor([1.0, 0.0, 1.0], device=dev)
+            fwd = fwd / torch.clamp(torch.linalg.norm(
+                fwd, dim=-1, keepdim=True), min=1e-12)
+            return torch.cat([fwd, trans], -1)                 # (N, 6)
         K = self.num_pose_hypos
         rots = pose[..., :K * 4].reshape(-1, K, 4)
         logits = rots[..., :1]
@@ -210,6 +265,11 @@ class InstancePredictor(nn.Module):
         uniformly random one replaces it unless `best_u < p_best` (p_best
         ramps to 0.8), the draws coming from `noise` or `gen`."""
         cfg = self.cfg.cfg_pose
+        if cfg.rot_rep not in ("quadlookat", "octlookat"):
+            # as the reference's multi-hypothesis forward asserts
+            raise NotImplementedError(
+                f"hypothesis sampling requires quad/octlookat, "
+                f"got {cfg.rot_rep}")
         K = self.num_pose_hypos
         rots = poses_raw[..., :K * 4].reshape(-1, K, 4)
         N = rots.shape[0]
@@ -230,11 +290,11 @@ class InstancePredictor(nn.Module):
             if noise.rand_idx is not None:
                 rand_idx = noise.rand_idx.to(dev).long()
             else:
-                rand_idx = torch.floor(uniform(None, (N,), gen, dev) * K) \
-                    .long().clamp(max=K - 1)
+                rand_idx = torch.floor(uniform_rows(None, (N,), gen, dev)
+                                       * K).long().clamp(max=K - 1)
             p_best = float(np.clip((total_iter - cfg.best_pose_start_iter)
                                    / 2000.0, 0.0, 0.8))
-            best_flag = uniform(noise.best_u, (N,), gen, dev) < p_best
+            best_flag = uniform_rows(noise.best_u, (N,), gen, dev) < p_best
             rot_idx = torch.where(best_flag, rot_idx, rand_idx)
             rand_flag = 1 - best_flag.to(torch.int32)
 
@@ -330,6 +390,28 @@ class InstancePredictor(nn.Module):
             angles = angles * scale
         return angles * (a.max_arti_angle / 180.0 * np.pi)
 
+    def bone_codes(self, bp, mvp, w2c):
+        """Bones (N, K, 2, 3) → their midpoints projected through `mvp`
+        (N, K, 2) and the per-bone network input (N, K, 9): those
+        midpoints, both ends in camera space and the bone's index code.
+        The callers stop their gradients."""
+        N, K = bp.shape[:2]
+        dev = bp.device
+        mid = bp.mean(2)
+        mid4 = torch.cat([mid, torch.ones_like(mid[..., :1])], -1)
+        mid_clip = torch.einsum("nij,nkj->nki", mvp, mid4)
+        mid_2d = mid_clip[..., :2] / mid_clip[..., 3:4]
+
+        bp4 = torch.cat([bp, torch.ones_like(bp[..., :1])], -1)
+        cam = torch.einsum("nij,nkej->nkei", w2c, bp4)
+        cam3 = cam[..., :3] / cam[..., 3:4] + torch.tensor(
+            [0.0, 0.0, self.cfg.cfg_pose.cam_pos_z_offset], device=dev)
+        pos3d = cam3.reshape(N, K, 6) / self.cfg.spatial_scale * 2
+
+        idx_in = (torch.arange(K, device=dev) + 0.5) / K * 2 - 1
+        idx_in = idx_in[None, :, None].expand(N, K, 1)
+        return mid_2d, torch.cat([mid_2d, pos3d, idx_in], -1)
+
     def get_bones(self, verts, v_valid, feat, patch_feat, mvp, w2c,
                   batch_size, num_frames, attach_legs: bool):
         """Rest bones + per-bone network inputs (detached 2D/3D codes and
@@ -344,24 +426,8 @@ class InstancePredictor(nn.Module):
         bp = bones.expand(batch_size, num_frames, *bones.shape[2:])
         K = bp.shape[2]
         N = batch_size * num_frames
-        bp = bp.reshape(N, K, 2, 3)
-        dev = bp.device
-
-        mid = bp.mean(2)
-        mid4 = torch.cat([mid, torch.ones_like(mid[..., :1])], -1)
-        mid_clip = torch.einsum("nij,nkj->nki", mvp, mid4)
-        mid_2d = (mid_clip[..., :2] / mid_clip[..., 3:4]).detach()
-
-        bp4 = torch.cat([bp, torch.ones_like(bp[..., :1])], -1)
-        cam = torch.einsum("nij,nkej->nkei", w2c, bp4)
-        cam3 = cam[..., :3] / cam[..., 3:4] + torch.tensor(
-            [0.0, 0.0, self.cfg.cfg_pose.cam_pos_z_offset], device=dev)
-        pos3d = cam3.reshape(N, K, 6) / self.cfg.spatial_scale * 2
-
-        idx_in = (torch.arange(K, device=dev) + 0.5) / K * 2 - 1
-        idx_in = idx_in[None, :, None].expand(N, K, 1)
-        pos_in = torch.cat([mid_2d, pos3d, idx_in], -1).detach()
-
+        mid_2d, pos_in = self.bone_codes(bp.reshape(N, K, 2, 3), mvp, w2c)
+        mid_2d, pos_in = mid_2d.detach(), pos_in.detach()
         if feat is None or patch_feat is None:
             return bones, structure, None, pos_in
         g = feat[:, None].expand(N, K, feat.shape[-1])
@@ -394,6 +460,10 @@ class InstancePredictor(nn.Module):
         angles = self.netArticulation(bones_feat, pos_in) \
             .reshape(batch_size, num_frames, K, 3)
         angles = self.apply_articulation_constraints(angles, phase)
+        if a.enable_refine:
+            angles = self.refine_articulation(
+                verts_bf, mesh.v_valid, bones, structure, angles, feat,
+                patch_feat, mvp, w2c, phase)
         posed, aux = sk.skinning(verts_bf, bones, structure, angles,
                                  output_posed_bones=True,
                                  temperature=a.skinning_temperature,
@@ -404,6 +474,40 @@ class InstancePredictor(nn.Module):
                              mesh.f_valid, mesh.num_verts, mesh.num_faces,
                              v_tex=v_tex, face_gidx=mesh.face_gidx)
         return out_mesh, angles, aux
+
+    def refine_articulation(self, verts_bf, v_valid, bones, structure,
+                            angles, feat, patch_feat, mvp, w2c,
+                            phase: Phase):
+        """The second articulation pass: skin once with `angles`, rebuild
+        the per-bone codes from the posed bones and the features that
+        `refine_feature_mode` names (the global feature and/or the patch
+        features sampled at the posed midpoints), then add the predicted
+        delta (`predict_delta`) or take the prediction, constrained, as
+        the new angles."""
+        a = self.cfg.cfg_articulation
+        B, Fr, K = angles.shape[:3]
+        N = B * Fr
+        _, aux0 = sk.skinning(verts_bf, bones, structure, angles,
+                              output_posed_bones=True,
+                              temperature=a.skinning_temperature,
+                              v_valid=v_valid)
+        mid_2d, pos_in = self.bone_codes(
+            aux0["posed_bones"].reshape(N, K, 2, 3), mvp, w2c)
+        mid_2d, pos_in = mid_2d.detach(), pos_in.detach()
+        feats = []
+        if "dino_global" in a.refine_feature_mode:
+            feats.append(feat[:, None].expand(N, K, feat.shape[-1]))
+        if "dino_sample" in a.refine_feature_mode:
+            feats.append(grid_sample_bilinear(patch_feat,
+                                              mid_2d[:, None])[:, 0])
+        dtype = torch.promote_types(*[f.dtype for f in feats]) \
+            if len(feats) > 1 else feats[0].dtype
+        out = self.netArticulationRefine(
+            torch.cat([f.to(dtype) for f in feats], -1), pos_in) \
+            .reshape(B, Fr, K, 3)
+        if a.predict_delta:
+            return angles + out
+        return self.apply_articulation_constraints(out, phase)
 
     # ------------------------------------------------------------------
     def forward(self, images, prior_mesh: Mesh, total_iter,

@@ -25,7 +25,7 @@ import torch
 from animals3d_tpu_torch.geometry import skinning as sk
 from animals3d_tpu_torch.geometry.mesh import Mesh, make_mesh
 from animals3d_tpu_torch.networks.motion_vae import ArticulationVAE
-from animals3d_tpu_torch.noise import Noise, normal
+from animals3d_tpu_torch.noise import Noise, normal, normal_rows
 from animals3d_tpu_torch.phase import Phase
 from animals3d_tpu_torch.predictors.config import InstancePredictorConfig
 from animals3d_tpu_torch.predictors.instance import InstancePredictor
@@ -117,9 +117,9 @@ class MotionVAEPredictor(InstancePredictor):
         # the student: the VAE
         noise = noise or Noise()
         vae = self.cfg_motion_vae
-        eps = normal(noise.vae_normal,
-                     (vae.z_token_num, batch_size, vae.latent_dim), gen,
-                     verts.device)
+        eps = normal_rows(noise.vae_normal,
+                          (vae.z_token_num, batch_size, vae.latent_dim), gen,
+                          verts.device, dim=1)
         angles_pred, mu, logvar = self.netVAE(bones_feat, pos_in, num_frames,
                                               batch_size, eps)
         angles_pred = self.apply_articulation_constraints(angles_pred, phase)

@@ -1,5 +1,5 @@
 """Camera math: GL-style projection (with the reference's baked-in y flip)
-and point transforms (port of `animals3d_tpu.render.camera`)."""
+and point and vector transforms (port of `animals3d_tpu.render.camera`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,3 +21,9 @@ def xfm_points(points: torch.Tensor, mtx: torch.Tensor) -> torch.Tensor:
     """Transform (B, V, 3) points by (B, 4, 4) matrices → (B, V, 4)."""
     hom = torch.cat([points, torch.ones_like(points[..., :1])], -1)
     return torch.einsum("bij,bvj->bvi", mtx, hom)
+
+
+def xfm_vectors(vectors: torch.Tensor, mtx: torch.Tensor) -> torch.Tensor:
+    """Transform (B, V, 3) direction vectors (w = 0) by (B, 4, 4)
+    matrices → (B, V, 3)."""
+    return torch.einsum("bij,bvj->bvi", mtx[:, :3, :3], vectors)

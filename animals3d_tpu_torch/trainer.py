@@ -16,8 +16,12 @@ histograms, geometry normals with the bones, albedo, shading) and
 turntable videos of the posed and prior shapes, on the training batch and
 on a validation batch; unlike the JAX trainer, a failure there is not
 swallowed. `archive_code` zips the port's own sources next to the
-checkpoints. One device: the data-parallel mesh of the JAX package
-(`mesh_shape`) is not ported.
+checkpoints. Data parallelism (`mesh_shape` {"dp": N}, or every rank of
+the process group where it is None) runs one process a device
+(`animals3d_tpu_torch.parallel`): each rank takes its stride of the
+loaders, the gradients are averaged over the ranks before each Adam step
+(the discriminator's too), metrics are averaged for logging, and rank 0
+alone writes checkpoints, logs, archives and the training results.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 
 from animals3d_tpu_torch import checkpoint as ckpt
 from animals3d_tpu_torch import config as cfglib
+from animals3d_tpu_torch import parallel
 from animals3d_tpu_torch.data.loaders import (DataLoaderConfig,
                                               get_data_loaders)
 from animals3d_tpu_torch.precision import set_mixed_precision
@@ -87,7 +92,9 @@ class Optimizer:
     A model with a discriminator (Fauna) also gets `disc`, a plain Adam on
     `netDisc` at `cfg_optim_discriminator.lr` (`optax.adam` in the JAX
     trainer), which `step` and `zero_grad` leave alone: `disc_step` runs
-    it. Its state is saved and restored with the others."""
+    it. Its state is saved with the others but never restored: the JAX
+    trainer keeps no such state and starts the discriminator's Adam afresh
+    at the first discriminator step of every run, a resumed one too."""
 
     def __init__(self, model):
         self.optimizers, self.schedulers = {}, {}
@@ -130,6 +137,11 @@ class Optimizer:
         for sched in self.schedulers.values():
             sched.step()
 
+    def trained(self) -> list:
+        """The parameters of every optimizer but `disc`."""
+        return [p for opt in self.optimizers.values()
+                for g in opt.param_groups for p in g["params"]]
+
     def zero_grad(self, set_to_none: bool = True):
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=set_to_none)
@@ -149,11 +161,14 @@ class Optimizer:
         """Load each optimizer's and scheduler's saved state where it is
         present and, for an optimizer, its parameter groups have the sizes
         of this one's (strict=False); the rest keep their init, and both
-        lists are printed."""
+        lists are printed. A saved `disc` state is passed over: the
+        discriminator's Adam starts afresh (see the class)."""
         missing, unexpected = [], []
-        for section, objs in (("optimizer", self._all()),
+        for section, objs in (("optimizer", self.optimizers),
                               ("scheduler", self.schedulers)):
-            saved = state.get(section) or {}
+            saved = dict(state.get(section) or {})
+            if section == "optimizer":
+                saved.pop("disc", None)
             unexpected += [f"{section}/{k}" for k in saved if k not in objs]
             for name, obj in objs.items():
                 sd = saved.get(name)
@@ -172,12 +187,14 @@ def make_optimizer(model) -> Optimizer:
 
 def train_step(model, optimizer: Optimizer, batch, total_iter, gen=None,
                phase=None, noise=None):
-    """One training step: forward, backward, optimizer step. Returns the
-    metrics (detached tensors)."""
+    """One training step: forward, backward, the gradients averaged over
+    the data-parallel ranks (where a group is up), optimizer step. Returns
+    the metrics (detached tensors)."""
     loss, (metrics, _aux) = model.forward(batch, total_iter, gen, phase,
                                           noise=noise)
     if loss.requires_grad:       # else no trained parameter reaches the loss
         loss.backward()
+    parallel.all_reduce_grads(optimizer.trained())
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return {k: v.detach() if torch.is_tensor(v) else v
@@ -187,12 +204,13 @@ def train_step(model, optimizer: Optimizer, batch, total_iter, gen=None,
 def disc_step(model, optimizer: Optimizer, record):
     """The discriminator's step on the masks the generator step recorded:
     `discriminator_loss` (its R1 penalty included), backward into
-    `netDisc` alone, a step of the `disc` Adam. The generator's backward
-    leaves gradients on `netDisc`; they are dropped first. Returns the
-    detached loss."""
+    `netDisc` alone, its gradients averaged over the data-parallel ranks,
+    a step of the `disc` Adam. The generator's backward leaves gradients
+    on `netDisc`; they are dropped first. Returns the detached loss."""
     model.netDisc.zero_grad(set_to_none=True)
     loss = model.discriminator_loss(record)
     loss.backward()
+    parallel.all_reduce_grads(list(model.netDisc.parameters()))
     optimizer.disc.step()
     model.netDisc.zero_grad(set_to_none=True)
     return loss.detach()
@@ -212,15 +230,14 @@ class Trainer:
         set_mixed_precision(self.cfg.mixed_precision)
         if self.cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
-        mesh = self.cfg.mesh_shape
-        if mesh is not None and math.prod(
-                int(v) for v in dict(mesh).values()) != 1:
-            raise NotImplementedError(
-                f"mesh_shape {mesh}: one device only; data parallelism is "
-                "not ported (ROADMAP A13)")
         ds_cfg = dict(cfg.get("dataset") or {})
         ds_cfg.pop("path", None)
         self.cfg_dataset = cfglib.bind(DataLoaderConfig, ds_cfg)
+        # the data-parallel width; ranks beyond it sit the run out
+        self.dp = parallel.dp_size(self.cfg.mesh_shape,
+                                   self.cfg_dataset.batch_size,
+                                   parallel.ranks())
+        parallel.set_width(self.dp)
         self.metrics_trace = MetricsTrace()
         self._writer = None
         self._fixed_val_batch = None
@@ -393,25 +410,36 @@ class Trainer:
                         strict=False)
 
     # ------------------------------------------------------------------
+    def _loaders(self):
+        """This rank's (train, val, test) loaders."""
+        return get_data_loaders(self.cfg_dataset, host_id=parallel.rank(),
+                                num_hosts=self.dp)
+
     def train(self):
         cfg = self.cfg
         model = self.model
+        if not parallel.in_group():
+            print(f"rank outside the dp group of {self.dp}: not training")
+            return model
         optimizer, total_iter = self.restore()
+        parallel.broadcast_params(model)
         self.optimizer, self.start_iter = optimizer, total_iter
+        main = parallel.is_main()
 
-        train_loader, val_loader, _ = get_data_loaders(self.cfg_dataset)
+        train_loader, val_loader, _ = self._loaders()
         if train_loader is None:
             raise ValueError("dataset.train_data_dir is not configured")
-        writer = self._logger()
-        if cfg.archive_code:
+        writer = self._logger() if main else None
+        if cfg.archive_code and main:
             self._archive_code()
         metrics = StandardMetrics()
         epoch_len = max(len(train_loader), 1)
         gen = torch.Generator(device=model.device).manual_seed(cfg.seed)
 
-        print(f"training {model.name}: {cfg.num_iters} iters from "
-              f"{total_iter}, batch {self.cfg_dataset.batch_size}, "
-              f"device {model.device}")
+        if main:
+            print(f"training {model.name}: {cfg.num_iters} iters from "
+                  f"{total_iter}, batch {self.cfg_dataset.batch_size}, "
+                  f"device {model.device}, dp {self.dp}")
         t_start = time.time()
         train_iter = iter(train_loader)
         while total_iter < cfg.num_iters:
@@ -421,8 +449,7 @@ class Trainer:
                 self.cfg_dataset = dataclasses.replace(
                     self.cfg_dataset,
                     dataset_split_num=cfg.remake_dataloader_num)
-                train_loader, val_loader, _ = get_data_loaders(
-                    self.cfg_dataset)
+                train_loader, val_loader, _ = self._loaders()
                 train_iter = iter(train_loader)
             try:
                 batch = next(train_iter)
@@ -444,6 +471,8 @@ class Trainer:
             total_iter += 1
 
             if total_iter % cfg.log_loss_freq == 0 or total_iter == 1:
+                # the global batch's means, as the JAX trainer logs them
+                step_metrics = parallel.all_reduce_metrics(step_metrics)
                 host_metrics = {k: float(v) for k, v in step_metrics.items()
                                 if torch.is_tensor(v) and v.ndim == 0}
                 if not math.isfinite(host_metrics.get("loss", 0.0)):
@@ -455,7 +484,8 @@ class Trainer:
                 bsz = batch["images"].shape[0]
                 metrics.update(host_metrics, bsz)
                 epoch = total_iter // epoch_len
-                print(f"T{total_iter:07d}/{epoch:04d}/{metrics}")
+                if main:
+                    print(f"T{total_iter:07d}/{epoch:04d}/{metrics}")
                 if writer is not None:
                     for k, v in host_metrics.items():
                         writer.add_scalar(f"train_loss/{k}", v, total_iter)
@@ -466,24 +496,29 @@ class Trainer:
             if cfg.save_train_result_freq and \
                     total_iter % cfg.save_train_result_freq == 0:
                 # eval-mode forward on the current batch, artifacts to
-                # train_results/ (`Trainer.py:281-284`)
+                # train_results/ (`Trainer.py:281-284`); every rank runs
+                # the forward, rank 0 writes its own rows
                 from animals3d_tpu_torch.utils import results_io
                 aux = self._eval_aux(device_batch, total_iter - 1, gen)
-                train_result_dir = os.path.join(cfg.checkpoint_dir,
-                                                "train_results")
-                os.makedirs(train_result_dir, exist_ok=True)
-                results_io.save_results(model, batch, aux, train_result_dir,
-                                        start_index=total_iter)
+                if main:
+                    train_result_dir = os.path.join(cfg.checkpoint_dir,
+                                                    "train_results")
+                    os.makedirs(train_result_dir, exist_ok=True)
+                    results_io.save_results(model, batch, aux,
+                                            train_result_dir,
+                                            start_index=total_iter)
 
             if writer is not None and cfg.log_image_freq and \
                     total_iter % cfg.log_image_freq == 0 and \
                     model.cfg_model.enable_render:
-                if cfg.log_train:
-                    self._log_visuals(writer, batch, total_iter)
-                if cfg.log_val and val_loader is not None:
-                    self._log_val_visuals(writer, val_loader, total_iter)
+                # rank 0's own batches, as one process
+                with parallel.local_only():
+                    if cfg.log_train:
+                        self._log_visuals(writer, batch, total_iter)
+                    if cfg.log_val and val_loader is not None:
+                        self._log_val_visuals(writer, val_loader, total_iter)
 
-            if total_iter % cfg.save_checkpoint_freq == 0:
+            if total_iter % cfg.save_checkpoint_freq == 0 and main:
                 ckpt.save_checkpoint(
                     cfg.checkpoint_dir, total_iter,
                     {"model": model.state_dict(), **optimizer.state_dict()},
@@ -491,31 +526,38 @@ class Trainer:
                 self.metrics_trace.save(
                     os.path.join(cfg.checkpoint_dir, "metrics.json"))
 
-        ckpt.save_checkpoint(cfg.checkpoint_dir, total_iter,
-                             {"model": model.state_dict(),
-                              **optimizer.state_dict()},
-                             keep_num=cfg.keep_num_checkpoint)
-        self.metrics_trace.save(os.path.join(cfg.checkpoint_dir,
-                                             "metrics.json"))
+        if main:
+            ckpt.save_checkpoint(cfg.checkpoint_dir, total_iter,
+                                 {"model": model.state_dict(),
+                                  **optimizer.state_dict()},
+                                 keep_num=cfg.keep_num_checkpoint)
+            self.metrics_trace.save(os.path.join(cfg.checkpoint_dir,
+                                                 "metrics.json"))
         if writer is not None:
             writer.flush()
         wall = time.time() - t_start
-        print(f"done: {total_iter} iters in {wall:.1f}s "
-              f"({metrics.speed.get():.2f} imgs/s)")
+        if main:
+            print(f"done: {total_iter} iters in {wall:.1f}s "
+                  f"({metrics.speed.get():.2f} imgs/s)")
         return model
 
     # ------------------------------------------------------------------
     def test(self):
         """Load the named (or latest) checkpoint, run the eval forward at
         iteration max(total_iter, 1) - 1 over the test loader and write
-        `results_io.save_results` files. Returns the result directory."""
+        `results_io.save_results` files. Returns the result directory.
+        Under data parallelism each rank takes its stride of the test set
+        (the last batch as long on every rank, by the loader's pad) and
+        writes its rows under their index in the global batch."""
         from animals3d_tpu_torch.utils import results_io
         cfg = self.cfg
         model = self.model
+        if not parallel.in_group():
+            return None
         model.init_params(cfg.seed)
         total_iter = ckpt.load_checkpoint(cfg.checkpoint_dir, model,
                                           checkpoint_name=cfg.checkpoint_name)
-        _, _, test_loader = get_data_loaders(self.cfg_dataset)
+        _, _, test_loader = self._loaders()
         if test_loader is None:
             raise ValueError("dataset.test_data_dir is not configured")
         result_dir = cfg.test_result_dir or os.path.join(
@@ -524,12 +566,14 @@ class Trainer:
         it = max(total_iter, 1) - 1
         count = 0
         for batch in test_loader:
+            n = batch["images"].shape[0]
+            first = count * self.dp + parallel.rank() * n   # global row
             gen = torch.Generator(device=model.device).manual_seed(
-                cfg.seed + count)
+                cfg.seed + count * self.dp)
             aux = self._eval_aux(batch_to_device(batch, model.device), it,
                                  gen)
             results_io.save_results(model, batch, aux, result_dir,
-                                    start_index=count)
-            count += batch["images"].shape[0]
+                                    start_index=first)
+            count += n
         print(f"saved {count} test results to {result_dir}")
         return result_dir

@@ -17,7 +17,17 @@ Phases, in this order, each fatal on failure:
      small float32 3D-Fauna model (`train_fauna` at the parity tests'
      widths, grid 8, iteration 100,000: the memory bank, the modulated
      SDF, the random view and the mask discriminator) the same way, on a
-     seed where the random view's mask agrees within 1e-3;
+     seed where the random view's mask agrees within 1e-3; then the
+     reference's options (`options_phase`): each single-pose head
+     (`rot_rep` euler_angle, quaternion, lookat) through `forward_pose`
+     and the ViT encoder without its final conv on the card against the
+     CPU within 1e-4, the small training step with articulation
+     refinement against the CPU as above, the same step with the input
+     image as the background (its loss held, and the prediction equal to
+     the background where nothing covers a pixel; its gradients, which
+     the unmasked rgb loss ties to the pixels whose face flips, as a
+     reading), and with `predict_delta` the refinement's articulation on
+     the card against the CPU's from the same features within 1e-4;
   3. kernels: run each kernel against its plain PyTorch version on the
      card — the tile visibility kernels K1, K2 (variant 4) and K3 (variant
      6) on a random scene, the exact-z depth-stack scene, the prior mesh of
@@ -73,7 +83,14 @@ Phases, in this order, each fatal on failure:
      cull kernel, K2; every render's z and face_id equal to K1's on the
      same posed meshes) and with `raster_variant=6, resolve_rows="kernel"`
      (1 + 3: the cull kernel with the unit boxes, K3, K5; the images equal
-     to the default path's within 1e-6);
+     to the default path's within 1e-6); `train_ddp` — the default step
+     inside a one-rank NCCL process group (`parallel.init_distributed`
+     from a `FileStore`): its loss and gradients against the plain
+     step's on the same weights, batch and draws, then 1 + 3 steps timed
+     in the group and 1 + 3 out of it, and the gradient reduction alone;
+     `train_refine_bg` — 1 + 5 steps with articulation refinement
+     (`dino_global+dino_sample`) and `background_mode` input (the cull
+     kernel, K1, K6, K7, K4 once a step);
   5. the port's CLI (`animals3d_tpu_torch.run.main`) at the same widths on
      synthetic folders of 20 train and 10 test images (`cli_phase`):
      `cli_train` — 3 iterations from 0 (a checkpoint every 2, the eval
@@ -100,7 +117,8 @@ Phases, in this order, each fatal on failure:
      train_fauna` on a synthetic category tree (2 categories of 9 images),
      2 steps from a checkpoint of the init weights at 100,000, its
      checkpoint holding `netDisc` and the `disc` Adam's state, and a
-     resume one step further with that state restored bit for bit;
+     resume one step further that restores `netDisc` and starts the
+     `disc` Adam afresh, as the JAX trainer does;
   7. Ponymation at the widths of `train_ponymation_horse_stage{1,2}`
      (256², dino_vits8 random, bf16, DINO features of 16, grid 128,
      iteration 100,000: deformation, articulation, attached legs; netBase
@@ -926,7 +944,7 @@ def sweep_phase(model):
             torch.cuda.synchronize()
             want = fm.fused_mlp_fwd_reference(*ops_)
             wgrads = fm.fused_mlp_bwd_reference(ops_[0], g, *ops_[1:])
-            scale = float(want.abs().max())
+            scale = float(want.detach().abs().max())
             err = float((out - want).abs().max())
             tol = (2e-5 if f32 else 2 * 2.0 ** -8) * scale
             gerr = max(float((a - w).norm() / w.norm())
@@ -1363,6 +1381,15 @@ PATHS = {
     "render_env": ({}, ("cull_boxes", "raster_vis")),
     # OBJ/MTL export with the texture field baked on the card: no kernel
     "export": ({}, ()),
+    # the reference's options that no shipped config turns on: the second
+    # articulation pass (plain PyTorch) and the input image as the
+    # background (the composite and the unmasked rgb loss); the kernels
+    # of `train`, once a step
+    "train_refine_bg": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                             "fused_mlp_bwd", "resolve_bwd")),
+    # the `train` step inside a one-rank NCCL process group
+    "train_ddp": ({}, ("cull_boxes", "raster_vis", "fused_mlp_fwd",
+                       "fused_mlp_bwd", "resolve_bwd")),
 }
 
 
@@ -1450,7 +1477,8 @@ def draw_noise(model, gen, B):
 
 
 def train_reference_phase(path="train", config="train_magicpony_horse",
-                          overrides=None, it=TRAIN_IT):
+                          overrides=None, it=TRAIN_IT, label=None,
+                          no_grad=(), hold_grads=True):
     """One training step of a small float32 model of `config` (with
     `overrides`, by default `TRAIN_SMALL_OVERRIDES`) at iteration `it` on
     the card against the same step on the CPU, from the same weights,
@@ -1480,7 +1508,19 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
     The wide bound sits on leaves that are no stop-gradient's only
     witness: each stop-gradient of the training forward, when removed,
     moves an articulation, encoder or netSDF leaf by at least 5.6e-3
-    (`tests/test_torch_train.py`).
+    (`tests/test_torch_train.py`). The parameters that `no_grad` names
+    (prefixes) may have no gradient: with refinement that re-predicts,
+    the first articulation network reaches the loss only through the
+    posed bones' detached codes.
+
+    With `background_mode` input or background the rgb loss is unmasked,
+    and the batch cannot take the pixels whose face flips out of it: there
+    (`hold_grads` False) the gradient gaps are printed as a reading and
+    the optimizer step is not compared; the loss is held as above, and
+    where the render leaves a pixel and its 8 neighbours uncovered on
+    both devices the prediction must equal the background (the input
+    image) within 1e-6. (The antialias pass can give an uncovered pixel
+    a colour while its two pairs' alpha changes cancel.)
 
     The two devices round differently, and two discrete decisions hang on
     the last bit. Which vertex is a leg's foot (the lowest of a quadrant,
@@ -1505,6 +1545,7 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
     from animals3d_tpu_torch.precision import set_mixed_precision
     from animals3d_tpu_torch.trainer import make_optimizer
     set_mixed_precision(False)
+    label = label or path
     render, kernels = PATHS[path]
     overrides = TRAIN_SMALL_OVERRIDES if overrides is None else overrides
     _cfg, gpu = build(overrides, "cuda", config, **render)
@@ -1516,7 +1557,7 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
     # the fused sweep: on for MagicPony's netSDF, off for the modulated one
     if gpu.netBase._use_fused_sweep(training=True) != \
             (gpu.netBase.condition_choice != "mod"):
-        raise AssertionError(f"train reference [{path}]: the fused sweep's "
+        raise AssertionError(f"train reference [{label}]: the fused sweep's "
                              "gate is wrong")
     B = 2
     batches = {"gpu": fake_batch(gpu, B, SEED),
@@ -1570,18 +1611,18 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
                 | (d("dino_pred").amax(2) > 1e-3) \
                 | ((a_gpu["mask_pred"].cpu() > 0) != (a_cpu["mask_pred"] > 0))
         share = float(differ.float().mean())
-        print(f"train reference [{path}]: seed {seed}: articulation |gpu - cpu| "
+        print(f"train reference [{label}]: seed {seed}: articulation |gpu - cpu| "
               f"{arti:.3g}, share of pixels that differ {share:.4f}"
               + (f", random view's mask max |gpu - cpu| {rv:.3g}"
                  if "_disc_record" in out["cpu"][2] else ""))
         if arti <= 1e-4 and rv <= 1e-3:
             break
     else:
-        raise AssertionError(f"train reference [{path}]: no seed of 16 on which "
+        raise AssertionError(f"train reference [{label}]: no seed of 16 on which "
                              "the card and the CPU pick the same feet (and "
                              "the same random view's mask)")
     if not share <= 0.005:
-        raise AssertionError(f"train reference [{path}]: {share:.4f} of the pixels "
+        raise AssertionError(f"train reference [{label}]: {share:.4f} of the pixels "
                              "differ between the card and the CPU")
     near = F.max_pool2d(differ.float().flatten(0, 1)[:, None], 5, stride=1,
                         padding=2)[:, 0].reshape(differ.shape)
@@ -1595,13 +1636,13 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
     now = {k: c.launches for k, c in counters().items()}
     if any(now[k] == 0 for k in kernels) or any(
             now[k] for k in now if k not in kernels):
-        raise AssertionError(f"train reference [{path}]: kernel launches "
+        raise AssertionError(f"train reference [{label}]: kernel launches "
                              f"{now}: the card did not go through its path")
     rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
-    print(f"train reference [{path}]: loss gpu {float(l_gpu):.6f} cpu "
+    print(f"train reference [{label}]: loss gpu {float(l_gpu):.6f} cpu "
           f"{float(l_cpu):.6f} (rel {rel:.3g})")
     if not rel <= 1e-4:
-        raise AssertionError(f"train reference [{path}]: loss differs by {rel}")
+        raise AssertionError(f"train reference [{label}]: loss differs by {rel}")
     worst, bad, gap, by_net = (0.0, ""), [], {}, {}
     cpu_params = dict(cpu.named_parameters())
     top = max(float(q.grad.norm()) for q in cpu.parameters()
@@ -1610,19 +1651,19 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
         q = cpu_params[name]
         if ".ViT." in name:
             if p.grad is not None or q.grad is not None:
-                raise AssertionError(f"train reference [{path}]: {name} has a grad")
+                raise AssertionError(f"train reference [{label}]: {name} has a grad")
             continue
         if (p.grad is None) != (q.grad is None):
-            raise AssertionError(f"train reference [{path}]: {name}: grad on one "
+            raise AssertionError(f"train reference [{label}]: {name}: grad on one "
                                  "device only")
         if p.grad is None:
             # unused in the phase (netDeform), or frozen (Ponymation)
-            if not (name.startswith("netInstance.netDeform.")
+            if not (name.startswith(("netInstance.netDeform.", *no_grad))
                     or not q.requires_grad):
-                raise AssertionError(f"train reference [{path}]: {name} has no grad")
+                raise AssertionError(f"train reference [{label}]: {name} has no grad")
             continue
         if not bool(torch.isfinite(p.grad).all()):
-            raise AssertionError(f"train reference [{path}]: {name}: non-finite grad")
+            raise AssertionError(f"train reference [{label}]: {name}: non-finite grad")
         gap[name] = float((p.grad.cpu() - q.grad).abs().max())
         if float(q.grad.norm()) <= 1e-6 * top:
             # zero in exact arithmetic (an attention's key bias), rounding
@@ -1638,11 +1679,32 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
         net = ".".join(name.split(".")[:2]) + (" (wide bound)" if noisy
                                                else "")
         by_net[net] = max(by_net.get(net, 0.0), err)
-    print(f"train reference [{path}]: worst grad |gpu - cpu| / norm = {worst[0]:.3g} "
+    print(f"train reference [{label}]: worst grad |gpu - cpu| / norm = {worst[0]:.3g} "
           f"({worst[1]}); by network "
           + ", ".join(f"{k} {v:.3g}" for k, v in by_net.items()))
+    if not hold_grads:
+        aux_g, aux_c = out["gpu"][1], out["cpu"][1]
+        bg = batches["cpu"]["images"]
+        covered = ((aux_g["mask_pred"].detach().cpu() > 0)
+                   | (aux_c["mask_pred"].detach() > 0)).float()
+        # the antialias pass blends across neighbours: away from them
+        near = F.max_pool2d(covered.flatten(0, 1)[:, None], 3, stride=1,
+                            padding=1)[:, 0].reshape(covered.shape) > 0
+        off = (~near)[:, :, None].expand(bg.shape)
+        composite = max(float((a["image_pred"].detach().cpu()[off]
+                               - bg[off]).abs().max()) for a in (aux_g, aux_c))
+        print(f"train reference [{label}]: the gradient gaps above are a "
+              f"reading ({len(bad)} leaves beyond the bound: the unmasked "
+              f"rgb loss reads the pixels whose face flips); prediction "
+              f"against the background on the {int(off[:, :, 0].sum())} "
+              f"pixels uncovered with their neighbours on both devices: "
+              f"max {composite:.3g}")
+        if not composite <= 1e-6:
+            raise AssertionError(f"train reference [{label}]: the uncovered "
+                                 "pixels are not the background")
+        return
     if bad:
-        raise AssertionError(f"train reference [{path}]: grads differ by more than "
+        raise AssertionError(f"train reference [{label}]: grads differ by more than "
                              "the bound: " + "; ".join(bad))
     # the optimizer step on both devices. Adam's first update is
     # lr·g/(|g| + 1e-8): ±lr wherever |g| is well above eps and above the
@@ -1660,17 +1722,17 @@ def train_reference_phase(path="train", config="train_magicpony_horse",
         diff = (p.detach().cpu() - q.detach()).abs()
         if name not in clear:
             if float(diff.max()) != 0.0:
-                raise AssertionError(f"train reference [{path}]: {name} moved "
+                raise AssertionError(f"train reference [{label}]: {name} moved "
                                      "without a gradient")
             continue
         if float(diff.max()) > 2.1 * lr or \
                 float((diff * clear[name]).max()) > 0.02 * lr:
-            raise AssertionError(f"train reference [{path}]: {name} differs after the "
+            raise AssertionError(f"train reference [{label}]: {name} differs after the "
                                  f"step by {float(diff.max())}")
         moved = max(moved, float((q.detach() - state[name]).abs().max()))
     if not moved > 0:
-        raise AssertionError(f"train reference [{path}]: the step moved no parameter")
-    print(f"train reference [{path}]: parameters agree after one Adam step (largest "
+        raise AssertionError(f"train reference [{label}]: the step moved no parameter")
+    print(f"train reference [{label}]: parameters agree after one Adam step (largest "
           f"move {moved:.3g})")
 
 
@@ -2180,8 +2242,9 @@ def cli_fauna_phase(card, keep=None):
     categories of `CLI_FAUNA_IMAGES` images at 256², DINO features of 16):
     2 steps from a checkpoint of the init weights at `FAUNA_IT` (its
     `disc` Adam state empty), whose checkpoint must hold `netDisc` and the
-    `disc` Adam's state; then a resume one step further, whose restored
-    `disc` Adam state must equal the saved one bit for bit. Returns
+    `disc` Adam's state; then a resume one step further, which restores
+    `netDisc` but starts the `disc` Adam afresh (as the JAX trainer does):
+    no state after the restore, one step in the next checkpoint. Returns
     (launches, (median step ms, peak bytes)). With `keep` (a directory),
     the last checkpoint is moved there as `fauna.pth`."""
     import os
@@ -2235,29 +2298,35 @@ def cli_fauna_phase(card, keep=None):
         torch.cuda.empty_cache()
         _cfg, m2, tr2 = run.build(common + [f"num_iters={FAUNA_IT + 3}"])
         opt, start = tr2.restore()
-        n_equal = 0
-        for i, st in disc_state.items():
-            for k, v in st.items():
-                if not torch.equal(opt.disc.state_dict()["state"][i][k]
-                                   .cpu(), v):
-                    raise AssertionError(f"cli_train_fauna: disc Adam "
-                                         f"state {i}/{k} differs")
-                n_equal += 1
+        n_netdisc = 0
+        for k, v in saved["model"].items():
+            if k.startswith("netDisc."):
+                if not torch.equal(m2.state_dict()[k].cpu(), v.cpu()):
+                    raise AssertionError(f"cli_train_fauna: {k} differs")
+                n_netdisc += 1
+        if opt.disc.state_dict()["state"]:
+            raise AssertionError("cli_train_fauna: the resume restored the "
+                                 "disc Adam's state")
         if start != FAUNA_IT + 2:
             raise AssertionError(f"cli_train_fauna: resume at {start}")
         del m2, tr2, opt
         with timed_steps(times):
             resumed = run.main(common + [f"num_iters={FAUNA_IT + 3}"])
-        if resumed.start_iter != FAUNA_IT + 2 or not os.path.isfile(
-                os.path.join(out, f"checkpoint{FAUNA_IT + 3:07d}.pth")):
+        last = os.path.join(out, f"checkpoint{FAUNA_IT + 3:07d}.pth")
+        if resumed.start_iter != FAUNA_IT + 2 or not os.path.isfile(last):
             raise AssertionError("cli_train_fauna: the resume did not run")
+        steps = {int(st["step"]) for st in ckpt.read_checkpoint(last)[
+            "optimizer"]["disc"]["state"].values()}
+        if steps != {1}:
+            raise AssertionError(f"cli_train_fauna: disc Adam steps {steps} "
+                                 "after the resumed step")
         losses = [m["loss"] for m in metrics] + \
             [m["loss"] for m in resumed.metrics_trace.data["train"]]
         print(f"cli_train_fauna: train_fauna on {len(CLI_FAUNA_CATEGORIES)} "
               f"categories of {CLI_FAUNA_IMAGES} images at {CLI_SIZE}²: 2 "
               f"steps from {FAUNA_IT} and a resume {FAUNA_IT + 2} -> "
-              f"{FAUNA_IT + 3} (restored disc Adam state equal to the saved "
-              f"one in all {n_equal} tensors); losses "
+              f"{FAUNA_IT + 3} ({n_netdisc} netDisc tensors restored, the "
+              f"disc Adam started afresh: 1 step after the resume); losses "
               f"{[round(x, 4) for x in losses]}; discriminator losses "
               f"{[round(m['discriminator_loss'], 4) for m in metrics]}; step "
               f"ms {[round(x, 1) for x in times]}; peak memory "
@@ -4031,6 +4100,298 @@ def a12b_slice(card):
     return by_path, summary
 
 
+# ---------------------------------------------------------------------------
+# the reference's options and data parallelism
+# ---------------------------------------------------------------------------
+
+REFINE_OVERRIDES = [
+    "model.cfg_predictor_instance.cfg_articulation.enable_refine=true",
+    "+model.cfg_predictor_instance.cfg_articulation.refine_feature_mode="
+    "dino_global+dino_sample"]
+BG_OVERRIDES = ["model.cfg_render.background_mode=input",
+                "dataset.background_mode=input"]
+REFINE_BG_OVERRIDES = REFINE_OVERRIDES + BG_OVERRIDES
+DELTA_OVERRIDES = [
+    "+model.cfg_predictor_instance.cfg_articulation.predict_delta=true"]
+OPTION_REPS = ("euler_angle", "quaternion", "lookat")
+OPTION_TOL = 1e-4       # |gpu - cpu| of the small option heads, float32
+DDP_TIMED = 3
+# the whole `train` step in a group of one against a plain one. The loss
+# is held relative to itself. The gradients are not reproducible from run
+# to run on the card: the backward sums with float atomics (`resolve_bwd`,
+# `index_add_`, and `torch.gather`'s scatter into the bf16 patch features
+# in `grid_sample_bilinear`), and six plain runs of
+# the step differed by up to 5.8e-3 of a leaf's norm (the encoder's patch
+# key head, NVIDIA H100 80GB HBM3, 700 W), so each leaf is held to the
+# bound of the training reference's noisy leaves
+DDP_PLAIN_RUNS = 3
+DDP_LOSS_TOL = 1e-6
+DDP_GRAD_TOL = 2e-2
+
+
+def options_phase():
+    """Each single-pose head (`rot_rep` euler_angle, quaternion, lookat)
+    through `forward_pose`, and the ViT encoder without its final conv
+    (`final_layer_type` none), on the card against the same weights on
+    the CPU, float32: within `OPTION_TOL`."""
+    import copy
+    import torch
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    from animals3d_tpu_torch.predictors.instance import ViTEncoder
+    set_mixed_precision(False)
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.uniform(0, 1, (2, 1, 3, 64, 64))
+                              .astype(np.float32))
+    errs = {}
+    for rep in OPTION_REPS:
+        ov = SMALL_OVERRIDES + [
+            f"model.cfg_predictor_instance.cfg_pose.rot_rep={rep}"]
+        _cfg, gpu = build(ov, "cuda")
+        state = {k: v.cpu() for k, v in gpu.init_params(SEED).items()}
+        _cfg, cpu = build(ov, "cpu")
+        cpu.load_state_dict(state)
+        out = []
+        for model, x in ((gpu, images.cuda()), (cpu, images)):
+            with torch.no_grad():
+                _g, _k, p_out, p_key = model.netInstance.forward_encoder(x)
+                out.append(model.netInstance.forward_pose(
+                    p_out, p_key, zeroy=True).cpu())
+        errs[rep] = float((out[0] - out[1]).abs().max())
+        print(f"options: rot_rep {rep}: pose {tuple(out[1].shape)}, max "
+              f"|gpu - cpu| {errs[rep]:.3g}")
+        del gpu, cpu
+    enc = ViTEncoder(cout=32, final_layer_type="none", image_size=64)
+    gen = torch.Generator().manual_seed(SEED)
+    for m in enc.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    x = images[:, 0] * 2 - 1
+    with torch.no_grad():
+        want = enc(x)
+        got = copy.deepcopy(enc).cuda()(x.cuda())
+    errs["final_layer_type=none"] = max(
+        float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    print(f"options: final_layer_type none: global features "
+          f"{tuple(want[0].shape)}, {tuple(want[1].shape)}, max |gpu - cpu| "
+          f"{errs['final_layer_type=none']:.3g}")
+    bad = {k: v for k, v in errs.items() if not v <= OPTION_TOL}
+    if bad:
+        raise AssertionError(f"options: the card differs from the CPU: {bad}")
+
+
+def refine_delta_phase():
+    """Articulation refinement with `predict_delta` (the unbounded delta
+    added to the first pass's angles) at the small width, float32: the
+    card's `forward_articulation` against the CPU's from the same prior
+    mesh, encoder features and cameras (the CPU's): the angles and the
+    posed vertices within `OPTION_TOL`. The encoders' own float32 gap
+    between the devices (~1e-6) grows tenfold through each random-weight
+    attention network, and the unbounded delta (angles up to ~4) keeps
+    it; the CPU tests hold the same pass to JAX the same way."""
+    import dataclasses
+    import torch
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    set_mixed_precision(False)
+    ov = TRAIN_SMALL_OVERRIDES + REFINE_BG_OVERRIDES + DELTA_OVERRIDES
+    _cfg, gpu = build(ov, "cuda")
+    state = {k: v.cpu() for k, v in gpu.init_params(SEED).items()}
+    _cfg, cpu = build(ov, "cpu")
+    cpu.load_state_dict(state)
+    phase = cpu.phase_for_iter(TRAIN_IT, is_training=False)
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.uniform(0, 1, (2, 1, 3, 64, 64))
+                              .astype(np.float32))
+    grid, v_cap, f_cap = cpu.grid_for_phase(phase)
+    with torch.no_grad():
+        prior, *_ = cpu.forward_base(grid, v_cap, f_cap)
+        _g, feat, _p, patch = cpu.netInstance.forward_encoder(images)
+        out = cpu.netInstance(images, prior, TRAIN_IT, phase)
+        mvp, w2c = out[3], out[4]
+        args = (feat, patch, mvp, w2c, 2, 1, phase)
+        want = cpu.netInstance.forward_articulation(prior, *args)
+        on = lambda x: x.cuda() if torch.is_tensor(x) else x
+        prior_gpu = dataclasses.replace(prior, **{
+            f.name: on(getattr(prior, f.name))
+            for f in dataclasses.fields(prior)})
+        got = gpu.netInstance.forward_articulation(
+            prior_gpu, *[on(a) for a in args])
+    err_a = float((got[1].cpu() - want[1]).abs().max())
+    err_v = float((got[0].v_pos.cpu() - want[0].v_pos).abs().max())
+    print(f"refine, predict_delta: angles {tuple(want[1].shape)} up to "
+          f"{float(want[1].abs().max()):.3g}, max |gpu - cpu| {err_a:.3g}; "
+          f"posed vertices max |gpu - cpu| {err_v:.3g}")
+    if not (err_a <= OPTION_TOL and err_v <= OPTION_TOL):
+        raise AssertionError(f"refine, predict_delta: the card differs from "
+                             f"the CPU by {err_a}, {err_v}")
+
+
+def refine_bg_path(card):
+    """`train` with articulation refinement and the input image as the
+    background at the full width (`REFINE_BG_OVERRIDES`, bf16): 1 warm-up
+    and `TIMED_RUNS` timed steps (`train_slice_phase`). Returns
+    (launches, median ms, peak bytes)."""
+    import torch
+    cfg, model = build(REFINE_BG_OVERRIDES, "cuda")
+    model.init_params(SEED)
+    a = model.netInstance.cfg.cfg_articulation
+    if not (a.enable_refine and model.cfg_render.background_mode == "input"
+            and hasattr(model.netInstance, "netArticulationRefine")):
+        raise AssertionError("train_refine_bg: the options are off")
+    out = train_slice_phase(model, cfg["dataset"]["batch_size"],
+                            "train_refine_bg")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_phase(model, B, card):
+    """The `train` step inside a one-rank NCCL process group
+    (`parallel.init_distributed` from a `FileStore`). Averaging over one
+    rank is exact: the group's reductions of one plain run's loss, metrics
+    and gradients give them back bit for bit. The card's own step is not
+    bit-reproducible (float atomics in the backward), so the group's whole step is held to a plain one within
+    `DDP_LOSS_TOL` and `DDP_GRAD_TOL` of each leaf's norm, beside the gap
+    of the plain runs to each other. Then `train_step` timed in the group
+    and out of it (`local_only` takes the collectives out), and
+    `all_reduce_grads` alone: the wrapper's cost. Restores the weights.
+    Returns (launches, (median ms in the group, peak bytes))."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from animals3d_tpu_torch import parallel
+    from animals3d_tpu_torch.data.synth import fake_batch
+    from animals3d_tpu_torch.trainer import make_optimizer, train_step
+    batch = fake_batch(model, B, SEED)
+    phase = model.phase_for_iter(TRAIN_IT)
+    noise = draw_noise(model, torch.Generator().manual_seed(SEED), B)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(model)
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def once():
+        """(loss, scalar metrics, gradients) of one forward and backward
+        on the fixed batch and draws; the group reduces the last two."""
+        model.zero_grad(set_to_none=True)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        loss, (met, _aux) = model.forward(batch, TRAIN_IT, g, phase,
+                                          noise=noise)
+        loss.backward()
+        met = {k: v.detach().clone() for k, v in met.items()
+               if torch.is_tensor(v) and v.ndim == 0}
+        return loss.detach().clone(), met, grads()
+
+    def grads():
+        return {names[id(p)]: (torch.zeros_like(p) if p.grad is None
+                               else p.grad.clone()) for p in opt.trained()}
+
+    def rel_gaps(a, b):
+        """Each leaf's ||a - b|| / ||b||; a leaf that is zero in exact
+        arithmetic (norm under 1e-6 of the largest) over the largest."""
+        top = max(float(v.float().norm()) for v in b.values())
+        return {k: float((a[k] - b[k]).float().norm())
+                / max(float(b[k].float().norm()), 1e-6 * top) for k in b}
+
+    def worst(gaps):
+        k = max(gaps, key=gaps.get)
+        return f"{gaps[k]:.3g} ({k})"
+
+    plain = [once() for _ in range(DDP_PLAIN_RUNS)]
+    l_a, m_a, g_a = plain[0]
+    own_loss = max(abs(float(l) - float(l_a)) for l, _m, _g in plain)
+    own = {}
+    for _l, _m, g in plain[1:]:
+        for k, v in rel_gaps(g, g_a).items():
+            own[k] = max(own.get(k, 0.0), v)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        dev = parallel.init_distributed("cuda", store=os.path.join(
+            tmp, "store"), rank=0, world_size=1)
+        backend = torch.distributed.get_backend()
+        if backend != "nccl" or parallel.world_size() != 1 or dev.index != 0:
+            raise AssertionError(f"train_ddp: group {backend}, "
+                                 f"{parallel.world_size()} ranks, {dev}")
+        # the whole step in the group
+        l_c, m_c, _ = once()
+        m_c = parallel.all_reduce_metrics({"loss": l_c, **m_c})
+        parallel.all_reduce_grads(opt.trained())
+        g_c = grads()
+        # the group's reductions alone, on the first plain run's output
+        for p in opt.trained():
+            p.grad = g_a[names[id(p)]].clone()
+        parallel.all_reduce_grads(opt.trained())
+        got_g = grads()
+        got_m = parallel.all_reduce_metrics({"loss": l_a, **m_a})
+        exact = (all(torch.equal(got_g[k], g_a[k]) for k in g_a)
+                 and all(torch.equal(got_m[k], v.float())
+                         for k, v in {"loss": l_a, **m_a}.items()))
+        step_loss = abs(float(m_c["loss"]) - float(l_a)) / abs(float(l_a))
+        step = rel_gaps(g_c, g_a)
+        bad = [k for k, v in step.items() if not v <= DDP_GRAD_TOL]
+        print(f"train_ddp: NCCL group of 1 on {dev}; the group's reductions "
+              f"of a plain run's loss, {len(m_a)} metrics and {len(g_a)} "
+              f"gradients give them back bit for bit: {exact}; the whole "
+              f"step in the group against a plain one: loss "
+              f"{float(m_c['loss']).hex()} against {float(l_a).hex()} (rel "
+              f"{step_loss:.3g}, tolerance {DDP_LOSS_TOL:g}), worst leaf "
+              f"||gap|| / norm {worst(step)} (tolerance {DDP_GRAD_TOL:g}); "
+              f"{DDP_PLAIN_RUNS} plain runs: loss spread "
+              f"{own_loss / abs(float(l_a)):.3g}, worst leaf {worst(own)}")
+        if not (exact and step_loss <= DDP_LOSS_TOL and not bad):
+            raise AssertionError(
+                "train_ddp: the group's step differs from the plain step"
+                + (f" on {bad}" if bad else ""))
+        model.zero_grad(set_to_none=True)
+
+        gen = {True: torch.Generator(device="cuda").manual_seed(SEED),
+               False: torch.Generator(device="cuda").manual_seed(SEED)}
+        times = {True: [], False: []}
+        steps = WARMUP_RUNS + DDP_TIMED
+        torch.cuda.reset_peak_memory_stats()
+        group_launches = None
+        for grouped in (True, False):
+            if grouped:
+                reset_counts()
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if grouped:
+                    met = train_step(model, opt, batch, TRAIN_IT,
+                                     gen[grouped], phase)
+                else:
+                    with parallel.local_only():
+                        met = train_step(model, opt, batch, TRAIN_IT,
+                                         gen[grouped], phase)
+                torch.cuda.synchronize()
+                if i >= WARMUP_RUNS:
+                    times[grouped].append((time.perf_counter() - t0) * 1e3)
+                if not np.isfinite(float(met["loss"])):
+                    raise AssertionError("train_ddp: non-finite loss")
+            if grouped:
+                group_launches = check_counts("train_ddp", steps)
+        peak = torch.cuda.max_memory_allocated()
+        once()
+        reduce_ms = cuda_ms(lambda: parallel.all_reduce_grads(opt.trained()),
+                            KERNEL_RUNS)
+        n_el = sum(p.numel() for p in opt.trained())
+    finally:
+        parallel.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+        model.zero_grad(set_to_none=True)
+        model.load_state_dict(before)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"train_ddp: train_step median {med[True]:.2f} ms in the group "
+          f"({[round(x, 2) for x in times[True]]}), {med[False]:.2f} ms "
+          f"without ({[round(x, 2) for x in times[False]]}), gap "
+          f"{med[True] - med[False]:.2f} ms; all_reduce_grads alone "
+          f"{statistics.median(reduce_ms):.3f} ms over {n_el} float32 "
+          f"gradients ({n_el * 4 / 2**20:.1f} MiB); peak memory "
+          f"{peak / 2**30:.2f} GiB; launches in {steps} steps in the group "
+          f"{ {k: v for k, v in group_launches.items() if v} }; card {card}")
+    return group_launches, (med[True], peak)
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4059,6 +4420,17 @@ def main() -> int:
     train_reference_phase("pony_stage2_train", PONY_STAGE2,
                           PONY_SMALL_OVERRIDES, PONY_IT)
     vis_reference_phase(card)
+    options_phase()
+    train_reference_phase("train_refine_bg",
+                          overrides=TRAIN_SMALL_OVERRIDES + REFINE_OVERRIDES,
+                          label="train_refine_bg, refinement",
+                          no_grad=("netInstance.netArticulation.",))
+    train_reference_phase("train_refine_bg",
+                          overrides=TRAIN_SMALL_OVERRIDES
+                          + REFINE_BG_OVERRIDES,
+                          no_grad=("netInstance.netArticulation.",),
+                          hold_grads=False)
+    refine_delta_phase()
 
     model, images, it, B, H = slice_phase()
     from animals3d_tpu_torch.data.synth import fake_batch
@@ -4072,6 +4444,9 @@ def main() -> int:
     state = model.state_dict()
     by_path, summary = {}, {}
     by_path["train"], *summary["train"] = train_slice_phase(model, B)
+    by_path["train_ddp"], summary["train_ddp"] = ddp_phase(model, B, card)
+    by_path["train_refine_bg"], *summary["train_refine_bg"] = \
+        refine_bg_path(card)
     _cfg, m6 = build([], "cuda", **PATHS["train_v6_kernel_rows"][0])
     m6.load_state_dict(state)
     by_path["train_v6_kernel_rows"], *summary["train_v6_kernel_rows"] = \

@@ -397,16 +397,16 @@ def pair():
     return Pair()
 
 
-def search_here(pair):
+def search_here(pair, start=0):
     """One forward and backward of both packages at `pair.it`, at the
-    first key on which their discrete decisions agree: feet and faces
-    (`forward_agrees`), the antialias blend branches
+    first key from `start` on which their discrete decisions agree: feet
+    and faces (`forward_agrees`), the antialias blend branches
     (`same_blend_branches`) and, where it matters, the texture field's
     ReLUs (`Pair.relu_tie`). Keys skipped for one of the last two ties are
     kept in `pair.tie_keys` and `pair.relu_keys`. Runs in this process;
     the tests call `search_step`, which runs it in a child."""
     pair.reset()
-    for seed in range(MAX_KEYS):
+    for seed in range(start, MAX_KEYS):
         rng = jax.random.PRNGKey(seed)
         (jloss, (jmet, jaux)), jgrads = pair.value_and_grad(pair.jp, rng)
         tloss, (tmet, taux) = pair.tm.forward(

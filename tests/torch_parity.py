@@ -5,6 +5,8 @@ JAX package runs on the CPU, the port with `device="cpu"` in float32.
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import numpy as np
 import torch
@@ -203,17 +205,10 @@ def jax_noise(rng, n_images, num_hypos, num_verts=None, vae=None,
     motion_vae.py:124-125`)."""
     from animals3d_tpu_torch.noise import Noise
     rngs = jax.random.split(rng, 5)
-    jitter_u = jax.random.uniform(rngs[0], ())
-    rng_pose, _ = jax.random.split(rngs[1])
-    k1, k2 = jax.random.split(rng_pose)
-    rand_idx = jax.random.randint(k1, (n_images,), 0, num_hypos)
-    best_u = jax.random.uniform(k2, (n_images,))
-    e1, e2, e3 = jax.random.split(rngs[2], 3)
-    n = 5000
     t = lambda a: torch.from_numpy(np.array(a))
-    surf_idx = None
-    if num_verts is not None:
-        surf_idx = t(jax.random.randint(e2, (n,), 0, max(int(num_verts), 1)))
+    draws = _jax_draws(rng, n_images, num_hypos,
+                       None if num_verts is None
+                       else np.int32(max(int(num_verts), 1)))
     extra = {}
     if vae is not None:
         inst, params, shape = vae
@@ -226,12 +221,29 @@ def jax_noise(rng, n_images, num_hypos, num_verts=None, vae=None,
         k_pick, k_vae, _k_pose = jax.random.split(rngs[1], 3)
         extra["gen_pick"] = t(jax.random.randint(k_pick, (), 0, n_in))
         extra["gen_z_normal"] = t(jax.random.normal(k_vae, z_shape))
-    return Noise(jitter_u=t(jitter_u), rand_idx=t(rand_idx), best_u=t(best_u),
-                 rand_pts_u=t(jax.random.uniform(e1, (n, 3))),
-                 surf_idx=surf_idx,
-                 surf_u=t(jax.random.uniform(e3, (n, 3))),
-                 rv_deg=t(jax.random.randint(rngs[3], (n_images,), 0, 360)),
-                 **extra)
+    return Noise(**{k: None if v is None else t(v)
+                    for k, v in draws.items()}, **extra)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _jax_draws(rng, n_images, num_hypos, num_verts):
+    """`jax_noise`'s draws of the MagicPony and Fauna sites in one jitted
+    call (the same numbers as drawn one by one: `jax.random` is integer
+    arithmetic on the key)."""
+    rngs = jax.random.split(rng, 5)
+    rng_pose, _ = jax.random.split(rngs[1])
+    k1, k2 = jax.random.split(rng_pose)
+    e1, e2, e3 = jax.random.split(rngs[2], 3)
+    n = 5000
+    return dict(
+        jitter_u=jax.random.uniform(rngs[0], ()),
+        rand_idx=jax.random.randint(k1, (n_images,), 0, num_hypos),
+        best_u=jax.random.uniform(k2, (n_images,)),
+        rand_pts_u=jax.random.uniform(e1, (n, 3)),
+        surf_idx=None if num_verts is None else jax.random.randint(
+            e2, (n,), 0, num_verts),
+        surf_u=jax.random.uniform(e3, (n, 3)),
+        rv_deg=jax.random.randint(rngs[3], (n_images,), 0, 360))
 
 
 def flat_tree(tree, prefix=()):
