@@ -1,0 +1,8 @@
+"""The training iteration's model FLOPs per second over the dense bf16 peak."""
+from harness import readers
+
+
+def read(ctx):
+    if ctx["entry"] != "train":
+        return None
+    return readers.mfu_pct(ctx)

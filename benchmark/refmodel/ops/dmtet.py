@@ -1,0 +1,420 @@
+"""Marching tetrahedra with static capacities, the BCE edge regularizer
+and the banded lattice SDF sweep (port of `animals3d_tpu.ops.dmtet`).
+
+Contract kept from the JAX package:
+  * vertices, one per sign-crossing edge, in lexicographic edge order —
+    the reference's `torch.unique` order;
+  * faces: all 1-triangle tets first, then the 2-triangle tets' pairs,
+    ascending tet id, `face_gidx = 2 · tet + triangle`;
+  * `v_cap`/`f_cap` buffers with valid masks; `num_verts`/`num_faces` are
+    the true counts (they may exceed the capacities on overflow).
+Compaction inverts prefix sums: output slot j takes the first element
+whose cumulative count reaches j + 1 (`first_geq`, a `searchsorted`).
+
+Two paths: the procedural Kuhn lattice derives edges and tets from index
+shifts and flips the winding so surfaces face outward
+(`marching_tets_lattice`); a general (npz) grid reads its edge tables
+(`geometry.tets.DeviceTetGrid`) and keeps the file's raw winding
+(`marching_tets_general`). On one Kuhn grid the two give the same mesh
+with the face columns reversed.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from refmodel.geometry.tets import kuhn_corners
+
+# Case index = sum(occupancy[corner] << corner). Six entries per case: up to
+# two triangles of local edge ids, -1 padded. Standard marching-tets table.
+TRI_TABLE = np.array([
+    [-1, -1, -1, -1, -1, -1],
+    [1, 0, 2, -1, -1, -1],
+    [4, 0, 3, -1, -1, -1],
+    [1, 4, 2, 1, 3, 4],
+    [3, 1, 5, -1, -1, -1],
+    [2, 3, 0, 2, 5, 3],
+    [1, 4, 0, 1, 5, 4],
+    [4, 2, 5, -1, -1, -1],
+    [4, 5, 2, -1, -1, -1],
+    [4, 1, 0, 4, 5, 1],
+    [3, 2, 0, 3, 5, 2],
+    [1, 3, 5, -1, -1, -1],
+    [4, 1, 2, 4, 3, 1],
+    [3, 0, 4, -1, -1, -1],
+    [2, 0, 1, -1, -1, -1],
+    [-1, -1, -1, -1, -1, -1],
+], np.int64)
+
+NUM_TRI_TABLE = np.array([0, 1, 1, 2, 1, 2, 2, 1, 1, 2, 2, 1, 2, 1, 1, 0],
+                         np.int64)
+
+
+class ExtractedMesh(NamedTuple):
+    """Capacity-bounded mesh buffers. Invalid entries are zero-filled."""
+    verts: torch.Tensor       # (v_cap, 3) float
+    v_valid: torch.Tensor     # (v_cap,) bool
+    faces: torch.Tensor       # (f_cap, 3) int64 — indices into verts
+    f_valid: torch.Tensor     # (f_cap,) bool
+    face_gidx: torch.Tensor   # (f_cap,) int64 — static global face id
+    num_verts: torch.Tensor   # () int64
+    num_faces: torch.Tensor   # () int64
+
+
+def first_geq(csum: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """For each target t, the first index i with csum[..., i] >= t (csum
+    non-decreasing along its last dim; n when t exceeds csum[..., -1])."""
+    return torch.searchsorted(csum, targets.to(csum.dtype).contiguous(),
+                              side="left")
+
+
+# the 7 Kuhn edge directions, ascending by linear delta
+_LATTICE_DIRS = np.array([
+    [0, 0, 1], [0, 1, 0], [0, 1, 1], [1, 0, 0], [1, 0, 1], [1, 1, 0],
+    [1, 1, 1]], np.int64)
+
+
+def _lattice_tables():
+    """Per-tet corner offsets and local edge → (base corner, dir rank)."""
+    corners = kuhn_corners()
+    edge_map = []
+    pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+    for cs in corners:
+        rows = []
+        for a, b in pairs:
+            lo = np.minimum(cs[a], cs[b])
+            d = np.abs(cs[b] - cs[a])
+            rank = int(np.where((_LATTICE_DIRS == d).all(1))[0][0])
+            rows.append([*lo, rank])
+        edge_map.append(rows)
+    return np.asarray(corners), np.asarray(edge_map, np.int64)
+
+
+_LATTICE_CORNERS, _LATTICE_EDGE_MAP = _lattice_tables()
+
+
+def lattice_edge_crossings(occ3: torch.Tensor) -> torch.Tensor:
+    """(n,n,n) occupancy → (n³·7,) crossing flags in edge-id order
+    (edge id = vertex_id * 7 + dir_rank); out-of-bounds edges are False."""
+    n = occ3.shape[0]
+    out = torch.zeros((n, n, n, 7), dtype=torch.bool, device=occ3.device)
+    for r, (dx, dy, dz) in enumerate(_LATTICE_DIRS):
+        a = occ3[:n - dx, :n - dy, :n - dz]
+        b = occ3[dx:, dy:, dz:]
+        out[:n - dx, :n - dy, :n - dz, r] = a != b
+    return out.reshape(-1)
+
+
+def lattice_tet_cases(occ3: torch.Tensor) -> torch.Tensor:
+    """(n,n,n) occupancy → (m³·6,) marching-tets case ids in tet order
+    (cell-major, Kuhn perm minor)."""
+    n = occ3.shape[0]
+    m = n - 1
+    occ_i = occ3.to(torch.int64)
+
+    def corner(c):
+        return occ_i[c[0]:c[0] + m, c[1]:c[1] + m, c[2]:c[2] + m]
+
+    cases = []
+    for p in range(6):
+        cs = _LATTICE_CORNERS[p]
+        cases.append(corner(cs[0]) + 2 * corner(cs[1]) + 4 * corner(cs[2])
+                     + 8 * corner(cs[3]))
+    return torch.stack(cases, -1).reshape(-1)
+
+
+def marching_tets_lattice(pos: torch.Tensor, sdf: torch.Tensor, res: int,
+                          v_cap: int, f_cap: int) -> ExtractedMesh:
+    """pos: (n³, 3) lattice vertex positions; sdf: (n³,); n = res + 1."""
+    dev = pos.device
+    n = res + 1
+    occ3 = (sdf > 0).reshape(n, n, n)
+    deltas = torch.tensor([1, n, n + 1, n * n, n * n + 1, n * n + n,
+                           n * n + n + 1], dtype=torch.int64, device=dev)
+
+    # ---- vertices ----
+    cross = lattice_edge_crossings(occ3)
+    csum_cross = torch.cumsum(cross.to(torch.int64), 0)
+    num_verts = csum_cross[-1]
+    src = first_geq(csum_cross, torch.arange(1, v_cap + 1, device=dev))
+    v_valid = src < cross.shape[0]
+    src = src.clamp(0, cross.shape[0] - 1)
+    ce0 = src // 7
+    ce1 = (ce0 + deltas[src % 7]).clamp(0, sdf.shape[0] - 1)
+    # index_select: its backward scatters with atomics (see `take_rows`)
+    s0, s1 = sdf.index_select(0, ce0), sdf.index_select(0, ce1)
+    denom = s0 - s1
+    denom = torch.where(denom.abs() > 1e-10, denom,
+                        torch.full_like(denom, 1e-10))
+    w1 = s0 / denom
+    verts = pos[ce0] * (1.0 - w1)[:, None] + pos[ce1] * w1[:, None]
+    verts = torch.where(v_valid[:, None], verts, torch.zeros_like(verts))
+
+    # ---- faces ----
+    case = lattice_tet_cases(occ3)
+    T = case.shape[0]
+    m = n - 1
+    ntri = torch.as_tensor(NUM_TRI_TABLE, device=dev)[case]
+    csum1 = torch.cumsum((ntri == 1).to(torch.int64), 0)
+    csum2 = torch.cumsum((ntri == 2).to(torch.int64), 0)
+    n1 = csum1[-1]
+    num_faces = n1 + 2 * csum2[-1]
+
+    j = torch.arange(f_cap, device=dev)
+    k = torch.clamp(j - n1, min=0)
+    tet_a = first_geq(csum1, j + 1)
+    tet_b = first_geq(csum2, k // 2 + 1)
+    in_a = j < n1
+    tet = torch.where(in_a, tet_a, tet_b)
+    f_valid = torch.where(in_a, tet_a < T, (tet_b < T) & (j < num_faces))
+    tet = tet.clamp(0, T - 1)
+    tri_sel = torch.where(in_a, torch.zeros_like(k), k % 2)
+
+    cell = tet // 6
+    perm = tet % 6
+    ci = cell // (m * m)
+    cj = (cell // m) % m
+    ck = cell % m
+
+    tri_rows = torch.as_tensor(TRI_TABLE, device=dev)[case[tet]]
+    tri_local = torch.gather(tri_rows.reshape(f_cap, 2, 3), 1,
+                             tri_sel[:, None, None].expand(f_cap, 1, 3))[:, 0]
+    tri_ok = (tri_local >= 0).all(-1)
+    tri_local = tri_local.clamp(min=0)
+
+    # local edge → (base corner, dir rank) → global edge id → vertex slot
+    emap = torch.as_tensor(_LATTICE_EDGE_MAP, device=dev)       # (6, 6, 4)
+    entries = emap[perm[:, None], tri_local]                     # (f_cap,3,4)
+    vx = ci[:, None] + entries[..., 0]
+    vy = cj[:, None] + entries[..., 1]
+    vz = ck[:, None] + entries[..., 2]
+    edge_id = ((vx * n + vy) * n + vz) * 7 + entries[..., 3]
+    faces = csum_cross[edge_id] - 1
+    f_valid = f_valid & tri_ok & (faces < v_cap).all(-1) \
+        & (faces >= 0).all(-1)
+    # canonical positively-oriented tets emit inward-winding triangles with
+    # the standard table; flip so surfaces wind outward
+    faces = faces.flip(-1)
+    faces = torch.where(f_valid[:, None], faces, torch.zeros_like(faces))
+    face_gidx = torch.where(f_valid, tet * 2 + tri_sel,
+                            torch.zeros_like(tet))
+    return ExtractedMesh(verts=verts, v_valid=v_valid, faces=faces,
+                         f_valid=f_valid, face_gidx=face_gidx,
+                         num_verts=num_verts, num_faces=num_faces)
+
+
+def marching_tets_general(pos, sdf, edges, tet_edge_ids, tets, v_cap: int,
+                          f_cap: int) -> ExtractedMesh:
+    """Marching tets over a general grid's tables (`DeviceTetGrid`):
+    `edges` (E, 2) sorted unique, `tet_edge_ids` (T, 6), `tets` (T, 4).
+    The faces keep the grid's raw winding (no flip)."""
+    dev = pos.device
+    E, T = edges.shape[0], tets.shape[0]
+    sdf = sdf.reshape(-1)
+    occ = sdf > 0
+
+    # ---- vertices: one per sign-crossing edge, lexicographic edge order ----
+    e0, e1 = edges[:, 0], edges[:, 1]
+    cross = occ[e0] != occ[e1]
+    csum_cross = torch.cumsum(cross.to(torch.int64), 0)
+    num_verts = csum_cross[-1]
+    vslot = csum_cross - 1
+    src_e = first_geq(csum_cross, torch.arange(1, v_cap + 1, device=dev))
+    v_valid = src_e < E
+    src_e = src_e.clamp(0, E - 1)
+    ce0, ce1 = e0[src_e], e1[src_e]
+    s0, s1 = sdf.index_select(0, ce0), sdf.index_select(0, ce1)
+    denom = s0 - s1
+    denom = torch.where(denom.abs() > 1e-10, denom,
+                        torch.full_like(denom, 1e-10))
+    w1 = s0 / denom
+    verts = pos[ce0] * (1.0 - w1)[:, None] + pos[ce1] * w1[:, None]
+    verts = torch.where(v_valid[:, None], verts, torch.zeros_like(verts))
+
+    # ---- faces: the reference's emission order via two prefix sums ----
+    occ4 = occ[tets].to(torch.int64)
+    case = (occ4 * torch.tensor([1, 2, 4, 8], device=dev)).sum(-1)
+    ntri = torch.as_tensor(NUM_TRI_TABLE, device=dev)[case]
+    csum1 = torch.cumsum((ntri == 1).to(torch.int64), 0)
+    csum2 = torch.cumsum((ntri == 2).to(torch.int64), 0)
+    n1 = csum1[-1]
+    num_faces = n1 + 2 * csum2[-1]
+
+    j = torch.arange(f_cap, device=dev)
+    k = torch.clamp(j - n1, min=0)
+    tet_a = first_geq(csum1, j + 1)
+    tet_b = first_geq(csum2, k // 2 + 1)
+    in_a = j < n1
+    tet = torch.where(in_a, tet_a, tet_b)
+    f_valid = torch.where(in_a, tet_a < T, (tet_b < T) & (j < num_faces))
+    tet = tet.clamp(0, T - 1)
+    tri_sel = torch.where(in_a, torch.zeros_like(k), k % 2)
+
+    tri_rows = torch.as_tensor(TRI_TABLE, device=dev)[case[tet]]
+    tri_local = torch.gather(tri_rows.reshape(f_cap, 2, 3), 1,
+                             tri_sel[:, None, None].expand(f_cap, 1, 3))[:, 0]
+    edge_ids = torch.gather(tet_edge_ids[tet], 1, tri_local.clamp(min=0))
+    faces = vslot[edge_ids]
+    f_valid = f_valid & (faces < v_cap).all(-1) & (tri_local >= 0).all(-1)
+    faces = torch.where(f_valid[:, None], faces, torch.zeros_like(faces))
+    face_gidx = torch.where(f_valid, tet * 2 + tri_sel,
+                            torch.zeros_like(tet))
+    return ExtractedMesh(verts=verts, v_valid=v_valid, faces=faces,
+                         f_valid=f_valid, face_gidx=face_gidx,
+                         num_verts=num_verts, num_faces=num_faces)
+
+
+def marching_tets(pos, sdf, grid, v_cap: int, f_cap: int) -> ExtractedMesh:
+    """Dispatch: lattice grids go to `marching_tets_lattice`, general
+    grids (`DeviceTetGrid` with tables) to `marching_tets_general`."""
+    if getattr(grid, "is_lattice", False):
+        return marching_tets_lattice(pos, sdf, grid.res, v_cap, f_cap)
+    return marching_tets_general(pos, sdf, grid.edges, grid.tet_edge_ids,
+                                 grid.tets, v_cap, f_cap)
+
+
+def sdf_bce_reg_loss_lattice(sdf: torch.Tensor, res: int) -> torch.Tensor:
+    """BCE consistency across the sign-crossing lattice edges, averaged
+    over them. Per crossing edge, bce(a, [b > 0]) + bce(b, [a > 0]) equals
+    softplus(±a) + softplus(±b) with the sign picked by the neighbour's
+    occupancy, so two crossing-degree fields per vertex are accumulated
+    with shifted compares and softplus is evaluated once per vertex."""
+    n = res + 1
+    s3 = sdf.reshape(n, n, n)
+    occ = s3 > 0
+    sgn = torch.sign(s3)
+    deg_pos = torch.zeros_like(s3)    # crossing edges whose neighbour > 0
+    deg_neg = torch.zeros_like(s3)    # crossing edges whose neighbour <= 0
+    count = torch.zeros((), dtype=s3.dtype, device=s3.device)
+    for dx, dy, dz in _LATTICE_DIRS.tolist():
+        a_sl = (slice(0, n - dx), slice(0, n - dy), slice(0, n - dz))
+        b_sl = (slice(dx, None), slice(dy, None), slice(dz, None))
+        crossing = sgn[a_sl] != sgn[b_sl]
+        a_occ, b_occ = occ[a_sl], occ[b_sl]
+        end_pad = (0, dz, 0, dy, 0, dx)       # F.pad: last dim first
+        beg_pad = (dz, 0, dy, 0, dx, 0)
+        f = lambda m, pad: F.pad(m.to(s3.dtype), pad)
+        deg_pos = deg_pos + f(crossing & b_occ, end_pad) \
+            + f(crossing & a_occ, beg_pad)
+        deg_neg = deg_neg + f(crossing & ~b_occ, end_pad) \
+            + f(crossing & ~a_occ, beg_pad)
+        count = count + crossing.sum()
+    total = (F.softplus(-s3) * deg_pos + F.softplus(s3) * deg_neg).sum()
+    return total / torch.clamp(count, min=1)
+
+
+def sdf_bce_reg_loss(sdf: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Symmetric BCE-with-logits between the two endpoint values of every
+    sign-crossing edge of `edges` (E, 2), averaged over those edges. As in
+    the JAX package, an edge crosses where the signs differ, and the
+    targets are the endpoints' `> 0`."""
+    s0, s1 = sdf[edges[:, 0]], sdf[edges[:, 1]]
+    crossing = torch.sign(s0) != torch.sign(s1)
+
+    def bce_logits(logit, target):
+        return torch.clamp(logit, min=0) - logit * target \
+            + torch.log1p(torch.exp(-logit.abs()))
+
+    loss = bce_logits(s0, (s1 > 0).to(sdf.dtype)) \
+        + bce_logits(s1, (s0 > 0).to(sdf.dtype))
+    denom = torch.clamp(crossing.sum(), min=1)
+    return torch.where(crossing, loss, torch.zeros_like(loss)).sum() / denom
+
+
+def sdf_bce_for_grid(sdf: torch.Tensor, grid) -> torch.Tensor:
+    """Dispatch: lattice grids go to `sdf_bce_reg_loss_lattice`, general
+    grids to `sdf_bce_reg_loss` over their edge table."""
+    if getattr(grid, "is_lattice", False):
+        return sdf_bce_reg_loss_lattice(sdf, grid.res)
+    return sdf_bce_reg_loss(sdf, grid.edges)
+
+
+# ---------------------------------------------------------------------------
+# Banded lattice SDF sweep
+#
+# Marching tets needs exact values only near the zero crossing, so:
+#   1. evaluate the MLP on the stride-2 coarse sublattice ((res/2 + 1)³);
+#   2. upsample trilinearly to the fine lattice (midpoint averages);
+#   3. flag the 32-vertex flat segments whose interpolated |sdf| dips below
+#      τ = band_tau · h (h the fine spacing), a surface band for any
+#      near-eikonal field (the BCE and eikonal regularizers hold the
+#      field's slope near 1);
+#   4. compact the flagged segments (cumsum + `first_geq`, up to
+#      `seg_cap`) and evaluate the MLP there again; merge by a gather.
+# Out-of-band vertices keep the interpolated values, and so do flagged
+# segments past `seg_cap`; `count` (the flagged segments) is returned so
+# that callers can watch the band's occupancy.
+# ---------------------------------------------------------------------------
+
+BAND_SEG = 32
+
+
+def default_seg_cap(res: int) -> int:
+    """The banded sweep's default cap on re-evaluated segments: an eighth
+    of the (res + 1)³ lattice's `BAND_SEG`-vertex segments, at least
+    256."""
+    return max(256, -(-(res + 1) ** 3 // BAND_SEG) // 8)
+
+
+def sdf_lattice_banded(sdf_fn, pos: torch.Tensor, res: int,
+                       band_tau: float = 4.0, seg_cap: int = None,
+                       force_branch: str = None):
+    """`sdf_fn` (N, 3) -> (N,) over the (res + 1)³ lattice `pos` (row-major
+    i, j, k) by the coarse + band scheme. Each MLP sweep is recomputed in
+    the backward (`torch.utils.checkpoint`) instead of keeping its
+    activations; `force_branch="dense"` evaluates every vertex exactly.
+    Returns (sdf ((res + 1)³,), count)."""
+    n = res + 1
+    N = n * n * n
+    if res % 2:
+        raise ValueError(f"the banded sweep needs an even res, got {res}")
+    m = res // 2 + 1
+    # consecutive k differ by the fine spacing (a global jitter cancels)
+    h = pos[1, 2] - pos[0, 2]
+    plain = sdf_fn
+    sdf_fn = lambda p: checkpoint(plain, p, use_reentrant=False)
+
+    coarse = pos.reshape(n, n, n, 3)[::2, ::2, ::2].reshape(-1, 3)
+    cs = sdf_fn(coarse).reshape(m, m, m)
+
+    def up1(a, axis):
+        """Linear upsampling to 2m - 1 along `axis` (midpoint averages)."""
+        lo = a.narrow(axis, 0, m - 1)
+        hi = a.narrow(axis, 1, m - 1)
+        inter = torch.stack([lo, (lo + hi) * 0.5], axis + 1)
+        shp = list(a.shape)
+        shp[axis] = 2 * (m - 1)
+        return torch.cat([inter.reshape(shp), a.narrow(axis, m - 1, 1)],
+                         axis)
+
+    s_f = up1(up1(up1(cs, 0), 1), 2).reshape(-1)
+    tau = band_tau * h.abs()
+    nseg = -(-N // BAND_SEG)
+    padN = nseg * BAND_SEG
+    s_pad = F.pad(s_f, (0, padN - N), value=float("inf"))
+    flag = s_pad.abs().reshape(nseg, BAND_SEG).amin(1) < tau
+    count = flag.sum()
+    if seg_cap is None:
+        seg_cap = default_seg_cap(res)
+    if force_branch == "dense":
+        return sdf_fn(pos), count
+
+    csum = torch.cumsum(flag.to(torch.int64), 0)
+    seg_idx = first_geq(csum, torch.arange(1, seg_cap + 1, device=pos.device))
+    safe = seg_idx.clamp(max=nseg - 1)
+    pos_pad = torch.cat([pos, pos[-1:].expand(padN - N, 3)])
+    bpos = pos_pad.reshape(nseg, BAND_SEG * 3)[safe] \
+        .reshape(seg_cap * BAND_SEG, 3)
+    bs = sdf_fn(bpos).reshape(seg_cap, BAND_SEG)
+    # gather-merge: flagged segment j was evaluated at band slot
+    # rank(j) = csum[j] - 1; unflagged ones and those past the cap keep
+    # the interpolated row
+    rank = (csum - 1).clamp(0, seg_cap - 1)
+    take = flag & (csum - 1 < seg_cap)
+    merged = torch.where(take[:, None], bs[rank],
+                         s_pad.reshape(nseg, BAND_SEG))
+    return merged.reshape(-1)[:N], count
