@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from animals3d_tpu_torch import config as cfglib
+from animals3d_tpu_torch import tracing
 from animals3d_tpu_torch.device import get_device
 from animals3d_tpu_torch.geometry import tets as tetlib
 from animals3d_tpu_torch.geometry.mesh import take_rows
@@ -272,16 +273,19 @@ class AnimalModel(nn.Module):
         if use_dino:
             dino_fn = lambda tex_pos: self.netBase.dino_field(tex_pos,
                                                               class_vector)
-        if background is None:
-            background = self.background_image(N, h, w)
-        return render_mesh(shape, mvp, w2c, campos, (h, w),
-                           material_fn=material_fn, light_params=light_params,
-                           background=background,
-                           spp=spp or self.cfg_render.renderer_spp,
-                           render_modes=render_modes, prior_mesh=prior_mesh,
-                           dino_fn=dino_fn, num_frames=num_frames,
-                           raster_variant=self.raster_variant,
-                           resolve_rows=self.resolve_rows)
+        with tracing.span("render"):
+            if background is None:
+                background = self.background_image(N, h, w)
+            return render_mesh(shape, mvp, w2c, campos, (h, w),
+                               material_fn=material_fn,
+                               light_params=light_params,
+                               background=background,
+                               spp=spp or self.cfg_render.renderer_spp,
+                               render_modes=render_modes,
+                               prior_mesh=prior_mesh, dino_fn=dino_fn,
+                               num_frames=num_frames,
+                               raster_variant=self.raster_variant,
+                               resolve_rows=self.resolve_rows)
 
     # -- loss weights -------------------------------------------------------
     def loss_weight(self, name: str, total_iter):
@@ -452,13 +456,15 @@ class AnimalModel(nn.Module):
             grid = _g
         jitter = uniform(noise.jitter_u, (), gen, self.device) \
             if phase.is_training else None
-        prior_mesh, sdf, class_vector, _bank_aux = self.forward_base(
-            grid, v_cap, f_cap, jitter=jitter, batch=batch)
+        with tracing.span("netbase"):
+            prior_mesh, sdf, class_vector, _bank_aux = self.forward_base(
+                grid, v_cap, f_cap, jitter=jitter, batch=batch)
 
-        (shape, pose_raw, pose, mvp, w2c, campos, im_features, _feat_key,
-         deformation, arti_params, light_params, fw_aux) = \
-            self.instance_forward(images, prior_mesh, total_iter, phase,
-                                  gen=gen, noise=noise)
+        with tracing.span("netinstance"):
+            (shape, pose_raw, pose, mvp, w2c, campos, im_features,
+             _feat_key, deformation, arti_params, light_params, fw_aux) = \
+                self.instance_forward(images, prior_mesh, total_iter, phase,
+                                      gen=gen, noise=noise)
 
         final_losses = {}
         metrics = {}
@@ -587,19 +593,24 @@ class AnimalModel(nn.Module):
         shaded RGBA (B·F, 4, H, W) and the instance predictor's 12-tuple."""
         if params is not None and params is not self:
             self.load_state_dict(params)
-        phase = self.phase_for_iter(total_iter, is_training=False)
-        grid, v_cap, f_cap = self.grid_for_phase(phase)
-        prior_mesh, _sdf, _class_vector, _bank_aux = self.forward_base(
-            grid, v_cap, f_cap, batch={"images": images})
-        out = self.instance_forward(images, prior_mesh, total_iter, phase)
-        (shape, _pose_raw, _pose, mvp, w2c, campos, im_features, _feat_key,
-         _deformation, _arti_params, light_params, _aux) = out
-        H = self.in_image_size
-        renders = self.render(["shaded"], shape, mvp, w2c, campos, (H, H),
-                              im_features=im_features,
-                              light_params=light_params,
-                              prior_mesh=prior_mesh)
-        return renders["shaded"], out
+        with tracing.span("reconstruct"):
+            phase = self.phase_for_iter(total_iter, is_training=False)
+            grid, v_cap, f_cap = self.grid_for_phase(phase)
+            with tracing.span("netbase"):
+                prior_mesh, _sdf, _class_vector, _bank_aux = \
+                    self.forward_base(grid, v_cap, f_cap,
+                                      batch={"images": images})
+            with tracing.span("netinstance"):
+                out = self.instance_forward(images, prior_mesh, total_iter,
+                                            phase)
+            (shape, _pose_raw, _pose, mvp, w2c, campos, im_features,
+             _feat_key, _deformation, _arti_params, light_params, _aux) = out
+            H = self.in_image_size
+            renders = self.render(["shaded"], shape, mvp, w2c, campos,
+                                  (H, H), im_features=im_features,
+                                  light_params=light_params,
+                                  prior_mesh=prior_mesh)
+            return renders["shaded"], out
 
     # -- hooks for subclasses ------------------------------------------------
     def extra_losses(self, batch, total_iter, final_losses, metrics, ctx):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from animals3d_tpu_torch import tracing
 from animals3d_tpu_torch.geometry.mesh import take_rows
 from animals3d_tpu_torch.ops.dmtet import first_geq
 from animals3d_tpu_torch.ops.rasterize import Rast
@@ -61,7 +62,8 @@ def silhouette_pairs(rast: Rast, v_clip, faces, z_tol: float = 2e-3,
     slots per image, with the inside triangle's edge functions at both
     pixel centres: p_lin, q_lin (B, K) raster indices of the pair's pixels;
     inside_is_first (B, K); e_p, e_q (B, K, 3), differentiable in v_clip;
-    slot_ok (B, K)."""
+    slot_ok (B, K). Counts `aa.pairs_found` (the pairs of every image) and
+    `aa.pairs_kept` (at most `pair_cap` an image) where tracing is on."""
     B, H, W = rast.face_id.shape
     K = pair_cap if pair_cap is not None else default_pair_cap(H, W)
     n_pix = H * W
@@ -81,6 +83,10 @@ def silhouette_pairs(rast: Rast, v_clip, faces, z_tol: float = 2e-3,
     valid = torch.cat([vh.reshape(B, n_pix), vv.reshape(B, n_pix)], -1)
 
     csum = torch.cumsum(valid.to(torch.int64), -1)
+    if tracing.on():
+        found = csum[:, -1]
+        tracing.count("aa.pairs_found", found)
+        tracing.count("aa.pairs_kept", found.clamp(max=K))
     targets = torch.arange(1, K + 1, device=dev)
     pair_idx = first_geq(csum, targets.expand(B, K))
     slot_ok = targets[None, :] <= csum[:, -1:]

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from animals3d_tpu_torch import tracing
 from animals3d_tpu_torch.geometry.tets import kuhn_corners
 
 # Case index = sum(occupancy[corner] << corner). Six entries per case: up to
@@ -270,11 +271,19 @@ def marching_tets_general(pos, sdf, edges, tet_edge_ids, tets, v_cap: int,
 
 def marching_tets(pos, sdf, grid, v_cap: int, f_cap: int) -> ExtractedMesh:
     """Dispatch: lattice grids go to `marching_tets_lattice`, general
-    grids (`DeviceTetGrid` with tables) to `marching_tets_general`."""
+    grids (`DeviceTetGrid` with tables) to `marching_tets_general`.
+    Counts `mesh.faces` (the faces the surface has; above `f_cap` the rest
+    are dropped) and `mesh.face_slots` (`f_cap`, the slots every face
+    consumer processes) where tracing is on."""
     if getattr(grid, "is_lattice", False):
-        return marching_tets_lattice(pos, sdf, grid.res, v_cap, f_cap)
-    return marching_tets_general(pos, sdf, grid.edges, grid.tet_edge_ids,
-                                 grid.tets, v_cap, f_cap)
+        out = marching_tets_lattice(pos, sdf, grid.res, v_cap, f_cap)
+    else:
+        out = marching_tets_general(pos, sdf, grid.edges, grid.tet_edge_ids,
+                                    grid.tets, v_cap, f_cap)
+    if tracing.on():
+        tracing.count("mesh.faces", out.num_faces)
+        tracing.count("mesh.face_slots", f_cap)
+    return out
 
 
 def sdf_bce_reg_loss_lattice(sdf: torch.Tensor, res: int) -> torch.Tensor:

@@ -51,6 +51,7 @@ from dataclasses import dataclass
 
 import torch
 
+from animals3d_tpu_torch import tracing
 from animals3d_tpu_torch.precision import compute_dtype
 
 NF = 256             # hidden width the kernels are written for
@@ -185,6 +186,7 @@ def fused_mlp_fwd(e, win, b, ws, wlast, wstream=None):
 
 
 fused_mlp_fwd.launches = 0
+tracing.register_launches(fused_mlp_fwd)
 
 
 def bwd_plan(N: int, L: int, dp: int = KPAD,
@@ -376,6 +378,7 @@ def fused_mlp_bwd(e, g, win, b, ws, wlast, wstream=None):
 
 
 fused_mlp_bwd.launches = 0
+tracing.register_launches(fused_mlp_bwd)
 
 
 class _Sweep(torch.autograd.Function):

@@ -86,6 +86,7 @@ from typing import Optional
 
 import torch
 
+from animals3d_tpu_torch import tracing
 from animals3d_tpu_torch.ops.rasterize import Rast, affine
 
 BIG = 3.0e38
@@ -400,6 +401,7 @@ def cull(table, resolution):
 
 
 cull.launches = 0
+tracing.register_launches(cull)
 
 
 def unit_boxes(fbox, sub: int, resolution):
@@ -450,6 +452,7 @@ def cull_units(table, resolution, sub: int):
 
 
 cull_units.launches = 0
+tracing.register_launches(cull_units)
 
 
 def _check(tensors, device):
@@ -854,6 +857,7 @@ def visibility(table, orig, order, counts, masks, zlo, fbox, resolution,
 
 
 visibility.launches = 0
+tracing.register_launches(visibility)
 
 
 def orig_of_runs(bbase):
@@ -893,6 +897,7 @@ def visibility_v4(table, bbase, order, counts, masks, zlo, fbox, resolution,
 
 
 visibility_v4.launches = 0
+tracing.register_launches(visibility_v4)
 
 
 def visibility_v6(table, orig, units, counts6, zu, fbox, ubox, resolution,
@@ -928,6 +933,7 @@ def visibility_v6(table, orig, units, counts6, zu, fbox, ubox, resolution,
 
 
 visibility_v6.launches = 0
+tracing.register_launches(visibility_v6)
 
 
 def rasterize_cuda(v_clip, faces, f_valid, resolution, v_pos0,

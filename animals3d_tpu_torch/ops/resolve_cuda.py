@@ -38,6 +38,8 @@ from __future__ import annotations
 
 import torch
 
+from animals3d_tpu_torch import tracing
+
 
 def _check(g, face_id, num_faces):
     if g.ndim != 3 or g.dtype not in (torch.float32, torch.bfloat16):
@@ -90,6 +92,7 @@ def resolve_bwd(g, face_id, num_faces: int):
 
 
 resolve_bwd.launches = 0
+tracing.register_launches(resolve_bwd)
 
 
 TILE_H, TILE_W = 16, 32          # the visibility kernels' pixel tiles
@@ -168,3 +171,4 @@ def resolve_fwd(pf, face_id, resolution):
 
 
 resolve_fwd.launches = 0
+tracing.register_launches(resolve_fwd)

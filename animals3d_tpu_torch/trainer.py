@@ -25,6 +25,7 @@ alone writes checkpoints, logs, archives and the training results.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -36,7 +37,7 @@ import torch
 
 from animals3d_tpu_torch import checkpoint as ckpt
 from animals3d_tpu_torch import config as cfglib
-from animals3d_tpu_torch import parallel
+from animals3d_tpu_torch import parallel, tracing
 from animals3d_tpu_torch.data.loaders import (DataLoaderConfig,
                                               get_data_loaders)
 from animals3d_tpu_torch.precision import set_mixed_precision
@@ -78,6 +79,10 @@ class TrainerConfig:
     # read nowhere, as in the JAX trainer: FaunaDataset always reshuffles
     shuffle_dataset_paths: bool = True
     mesh_shape: Optional[Any] = None
+    # where set, the run's spans and counters (`tracing`) are written there
+    # as a Chrome trace at each checkpoint and at the end (rank r > 0
+    # writes `<trace_file>.rank<r>`)
+    trace_file: Optional[str] = None
 
 
 class Optimizer:
@@ -190,15 +195,23 @@ def train_step(model, optimizer: Optimizer, batch, total_iter, gen=None,
     """One training step: forward, backward, the gradients averaged over
     the data-parallel ranks (where a group is up), optimizer step. Returns
     the metrics (detached tensors)."""
-    loss, (metrics, _aux) = model.forward(batch, total_iter, gen, phase,
-                                          noise=noise)
-    if loss.requires_grad:       # else no trained parameter reaches the loss
-        loss.backward()
-    parallel.all_reduce_grads(optimizer.trained())
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
-    return {k: v.detach() if torch.is_tensor(v) else v
-            for k, v in metrics.items()}
+    with tracing.span("train_step"):
+        with tracing.span("forward"):
+            loss, (metrics, _aux) = model.forward(batch, total_iter, gen,
+                                                  phase, noise=noise)
+        if loss.requires_grad:   # else no trained parameter reaches the loss
+            with tracing.span("backward"):
+                loss.backward()
+        with tracing.span("all_reduce"):
+            parallel.all_reduce_grads(optimizer.trained())
+        with tracing.span("adam"):
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+        out = {k: v.detach() if torch.is_tensor(v) else v
+               for k, v in metrics.items()}
+        # the step's outputs are freed inside its span, not after it
+        del loss, metrics, _aux
+        return out
 
 
 def disc_step(model, optimizer: Optimizer, record):
@@ -207,13 +220,15 @@ def disc_step(model, optimizer: Optimizer, record):
     `netDisc` alone, its gradients averaged over the data-parallel ranks,
     a step of the `disc` Adam. The generator's backward leaves gradients
     on `netDisc`; they are dropped first. Returns the detached loss."""
-    model.netDisc.zero_grad(set_to_none=True)
-    loss = model.discriminator_loss(record)
-    loss.backward()
-    parallel.all_reduce_grads(list(model.netDisc.parameters()))
-    optimizer.disc.step()
-    model.netDisc.zero_grad(set_to_none=True)
-    return loss.detach()
+    with tracing.span("disc_step"):
+        model.netDisc.zero_grad(set_to_none=True)
+        loss = model.discriminator_loss(record)
+        loss.backward()
+        with tracing.span("all_reduce"):
+            parallel.all_reduce_grads(list(model.netDisc.parameters()))
+        optimizer.disc.step()
+        model.netDisc.zero_grad(set_to_none=True)
+        return loss.detach()
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -368,7 +383,7 @@ class Trainer:
     def _eval_aux(self, batch, it, gen):
         """The eval-mode forward's aux at iteration `it` (no gradients)."""
         phase = self.model.phase_for_iter(it, is_training=False)
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("forward"):
             _, (_metrics, aux) = self.model.forward(batch, it, gen, phase)
         return aux
 
@@ -410,12 +425,35 @@ class Trainer:
                         strict=False)
 
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _traced(self):
+        """Where `trace_file` is set, record the block's spans and counters
+        and write them at its end."""
+        if not self.cfg.trace_file:
+            yield
+            return
+        tracing.enable()
+        try:
+            yield
+            self._write_trace()
+        finally:
+            tracing.disable()
+
+    def _write_trace(self):
+        if self.cfg.trace_file:
+            r = parallel.rank()
+            tracing.write(self.cfg.trace_file + (f".rank{r}" if r else ""))
+
     def _loaders(self):
         """This rank's (train, val, test) loaders."""
         return get_data_loaders(self.cfg_dataset, host_id=parallel.rank(),
                                 num_hosts=self.dp)
 
     def train(self):
+        with self._traced():
+            return self._train()
+
+    def _train(self):
         cfg = self.cfg
         model = self.model
         if not parallel.in_group():
@@ -451,14 +489,15 @@ class Trainer:
                     dataset_split_num=cfg.remake_dataloader_num)
                 train_loader, val_loader, _ = self._loaders()
                 train_iter = iter(train_loader)
-            try:
-                batch = next(train_iter)
-            except StopIteration:
-                train_iter = iter(train_loader)
-                batch = next(train_iter)
+            with tracing.span("load"):
+                try:
+                    batch = next(train_iter)
+                except StopIteration:
+                    train_iter = iter(train_loader)
+                    batch = next(train_iter)
+                device_batch = batch_to_device(batch, model.device)
 
             phase = model.phase_for_iter(total_iter)
-            device_batch = batch_to_device(batch, model.device)
             step_metrics = train_step(model, optimizer, device_batch,
                                       total_iter, gen, phase)
             # Fauna: the discriminator's step on the recorded masks
@@ -470,11 +509,14 @@ class Trainer:
                     model, optimizer, disc_record)
             total_iter += 1
 
+            metrics.add_images(batch["images"].shape[0])
             if total_iter % cfg.log_loss_freq == 0 or total_iter == 1:
-                # the global batch's means, as the JAX trainer logs them
-                step_metrics = parallel.all_reduce_metrics(step_metrics)
-                host_metrics = {k: float(v) for k, v in step_metrics.items()
-                                if torch.is_tensor(v) and v.ndim == 0}
+                with tracing.span("log"):
+                    # the global batch's means, as the JAX trainer logs them
+                    step_metrics = parallel.all_reduce_metrics(step_metrics)
+                    host_metrics = {k: float(v)
+                                    for k, v in step_metrics.items()
+                                    if torch.is_tensor(v) and v.ndim == 0}
                 if not math.isfinite(host_metrics.get("loss", 0.0)):
                     # the reference drops into pdb on a NaN loss
                     # (`AnimalModel.py:504-506`); fail fast with context
@@ -518,13 +560,16 @@ class Trainer:
                     if cfg.log_val and val_loader is not None:
                         self._log_val_visuals(writer, val_loader, total_iter)
 
-            if total_iter % cfg.save_checkpoint_freq == 0 and main:
-                ckpt.save_checkpoint(
-                    cfg.checkpoint_dir, total_iter,
-                    {"model": model.state_dict(), **optimizer.state_dict()},
-                    keep_num=cfg.keep_num_checkpoint)
-                self.metrics_trace.save(
-                    os.path.join(cfg.checkpoint_dir, "metrics.json"))
+            if total_iter % cfg.save_checkpoint_freq == 0:
+                if main:
+                    ckpt.save_checkpoint(
+                        cfg.checkpoint_dir, total_iter,
+                        {"model": model.state_dict(),
+                         **optimizer.state_dict()},
+                        keep_num=cfg.keep_num_checkpoint)
+                    self.metrics_trace.save(
+                        os.path.join(cfg.checkpoint_dir, "metrics.json"))
+                self._write_trace()
 
         if main:
             ckpt.save_checkpoint(cfg.checkpoint_dir, total_iter,
@@ -549,6 +594,10 @@ class Trainer:
         Under data parallelism each rank takes its stride of the test set
         (the last batch as long on every rank, by the loader's pad) and
         writes its rows under their index in the global batch."""
+        with self._traced():
+            return self._test()
+
+    def _test(self):
         from animals3d_tpu_torch.utils import results_io
         cfg = self.cfg
         model = self.model

@@ -43,19 +43,26 @@ class MovingAverage:
 
 
 class StandardMetrics:
-    """Per-iteration metric dict + an images/sec speed meter."""
+    """Per-iteration metric dict + an images/sec speed meter: the images
+    counted by `add_images` since the previous update over the time since
+    then, so that a loop that logs every n iterations reads its rate."""
 
     def __init__(self):
         self.meters = {}
         self.speed = MovingAverage(inertia=0.9)
         self._last_time = None
+        self._images = 0
+
+    def add_images(self, n: int):
+        self._images += n
 
     def update(self, metrics: dict, batch_size: int = 1):
         now = time.time()
         if self._last_time is not None:
             dt = max(now - self._last_time, 1e-9)
-            self.speed.update(batch_size / dt)
+            self.speed.update(self._images / dt)
         self._last_time = now
+        self._images = 0
         for k, v in metrics.items():
             self.meters.setdefault(k, TotalAverage()).update(v, batch_size)
 

@@ -138,14 +138,13 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """No file of the port, nor chip_smoke.py, the profile script or the
-    card-only tests, imports jax, flax, optax, orbax or the JAX package.
+    """No file of the port, nor chip_smoke.py or the card-only tests,
+    imports jax, flax, optax, orbax or the JAX package.
     The training slice's modules, the loop's, the loaders', the
     checkpoints', the CLI's, Fauna's and Ponymation's, the Visualizer's,
     the evaluation's and the logging's, and the textures, export,
     regularizers and CNN encoders are among the files scanned."""
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_recon_profile.py"),
              os.path.join(REPO, "tests", "test_torch_cuda.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO,
                                                    "animals3d_tpu_torch")):
@@ -163,7 +162,8 @@ def test_port_imports_no_jax():
                 "utils/smooth_loss.py", "visualization.py", "evaluation.py",
                 "utils/visual_log.py", "utils/wandb_writer.py",
                 "render/texture.py", "render/export.py",
-                "render/regularizer.py", "networks/encoders.py"):
+                "render/regularizer.py", "networks/encoders.py",
+                "tracing.py"):
         assert os.path.join("animals3d_tpu_torch", new) in scanned, new
     banned = ("jax", "flax", "optax", "orbax", "animals3d_tpu")
     for path in files:

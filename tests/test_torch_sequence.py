@@ -357,12 +357,12 @@ PONY_CONFIGS = [f"train_ponymation_{a}_stage{s}"
 def test_ponymation_configs_load_as_in_jax(name):
     """The composed config (base, `dataset/sequence.yaml`,
     `model/ponymation.yaml` and the run file) equals the JAX package's
-    dict for dict, but for the two keys the port's `base.yaml` names with
-    the trainer's defaults (`checkpoint_path` null, `load_optim` true),
-    where the run file sets neither."""
+    dict for dict, but for the three keys the port's `base.yaml` names
+    with the trainer's defaults (`checkpoint_path` null, `load_optim` true,
+    `trace_file` null), where the run file sets none."""
     from animals3d_tpu_torch.trainer import TrainerConfig
     got, want = tcfg.load_config(name), jcfg.load_config(name)
-    for k in ("checkpoint_path", "load_optim"):
+    for k in ("checkpoint_path", "load_optim", "trace_file"):
         if k not in want:
             assert got.pop(k) == getattr(TrainerConfig, k), k
     assert got == want
