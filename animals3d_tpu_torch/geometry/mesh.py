@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from animals3d_tpu_torch.device import constant
+
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor, dim: int = 0):
     """x[idx] along `dim` for an integer index of any shape, through
@@ -100,8 +102,7 @@ def auto_normals(v_pos, t_pos_idx, v_valid, f_valid):
         acc = acc.index_add(0, t_pos_idx[:, k], fn)
     v_nrm = acc.reshape(V, B, 3).transpose(0, 1)
     dot = (v_nrm * v_nrm).sum(-1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype,
-                            device=v_pos.device)
+    fallback = constant((0.0, 0.0, 1.0), v_pos.device, v_pos.dtype)
     v_nrm = torch.where(dot > 1e-20, v_nrm, fallback)
     return safe_normalize(v_nrm)
 
@@ -136,8 +137,7 @@ def compute_tangents(v_pos, t_pos_idx, face_uvs, v_nrm, v_valid, f_valid):
     t = safe_normalize(t)
     t = t - (t * v_nrm).sum(-1, keepdim=True) * v_nrm
     good = ((t * t).sum(-1, keepdim=True) > 1e-12) & v_valid[None, :, None]
-    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=v_pos.dtype,
-                            device=v_pos.device)
+    fallback = constant((1.0, 0.0, 0.0), v_pos.device, v_pos.dtype)
     return torch.where(good, safe_normalize(t), fallback)
 
 

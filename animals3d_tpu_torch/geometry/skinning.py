@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from animals3d_tpu_torch.device import cached, constant
+
 
 def line_segment_distance(a, b, points):
     """Distance from `points` (..., V, 3) to segments [a, b] (..., 3)."""
@@ -114,8 +116,8 @@ def _estimate_bone_rotation(forward):
     """Rest-pose bone frame: columns right, up, forward (= bone dir)."""
     fwd = forward / torch.clamp(torch.linalg.norm(forward, dim=-1,
                                                   keepdim=True), min=1e-12)
-    right0 = torch.tensor([1.0, 0.0, 0.0], dtype=forward.dtype,
-                          device=forward.device).expand_as(fwd)
+    right0 = constant((1.0, 0.0, 0.0), forward.device,
+                      forward.dtype).expand_as(fwd)
     up = torch.cross(fwd, right0, dim=-1)
     up = up / torch.clamp(torch.linalg.norm(up, dim=-1, keepdim=True),
                           min=1e-12)
@@ -134,9 +136,15 @@ def _masked_nanquantile(x, valid, q: float):
     lo = torch.floor(pos)
     hw = pos - lo
     top = torch.clamp(n - 1, min=0)
-    lo_v = s[torch.minimum(lo, top).clamp(min=0).long()]
-    hi_v = s[torch.minimum(torch.ceil(pos), top).clamp(min=0).long()]
+    lo_v = _at(s, torch.minimum(lo, top).clamp(min=0).long())
+    hi_v = _at(s, torch.minimum(torch.ceil(pos), top).clamp(min=0).long())
     return lo_v * (1 - hw) + hi_v * hw
+
+
+def _at(x, i):
+    """x[i] for a 0-d index tensor, read on the device (indexing with it
+    reads its value on the host: a synchronize)."""
+    return x.index_select(0, i.reshape(1))[0]
 
 
 def _take_vert(verts, idx):
@@ -155,18 +163,33 @@ def _body_ancestors(n_body_bones: int) -> np.ndarray:
     return A
 
 
+def _leg_suffixes(n_body: int, n_legs: int, n_leg: int) -> np.ndarray:
+    """(n_legs, n_leg, n_leg): each leg bone's chain within its leg,
+    root-first, -1 padded."""
+    out = -np.ones((n_legs, n_leg, n_leg), np.int64)
+    for li in range(n_legs):
+        s = n_body + li * n_leg
+        for i in range(n_leg):
+            chain = list(range(s + n_leg - 1, s + i - 1, -1))
+            out[li, i, :len(chain)] = chain
+    return out
+
+
 def _full_ancestors(n_body: int, n_legs: int, n_leg: int, body_idx,
                     attach: bool):
     """(K, D) ancestor matrix; leg rows depend on the attachment ids."""
     dev = body_idx.device
     half = n_body // 2
-    body = torch.as_tensor(np.concatenate(
-        [_body_ancestors(n_body), -np.ones((n_body, n_leg), np.int64)], 1),
-        device=dev)
+    body = cached(("body_ancestors", n_body, n_leg), dev,
+                  lambda: torch.as_tensor(np.concatenate(
+                      [_body_ancestors(n_body),
+                       -np.ones((n_body, n_leg), np.int64)], 1)))
+    suffixes = cached(("leg_suffixes", n_body, n_legs, n_leg), dev,
+                      lambda: torch.as_tensor(
+                          _leg_suffixes(n_body, n_legs, n_leg)))
     t = torch.arange(half, device=dev)
     rows = [body]
     for li in range(n_legs):
-        s = n_body + li * n_leg
         if attach:
             k = body_idx[li]
             root = torch.where(k < half, half - 1, n_body - 1)
@@ -175,11 +198,7 @@ def _full_ancestors(n_body: int, n_legs: int, n_leg: int, body_idx,
         else:
             bp = torch.full((half,), -1, dtype=torch.int64, device=dev)
         for i in range(n_leg):
-            suffix = -np.ones((n_leg,), np.int64)
-            chain = list(range(s + n_leg - 1, s + i - 1, -1))
-            suffix[:len(chain)] = chain
-            rows.append(torch.cat([bp, torch.as_tensor(suffix, device=dev)])
-                        [None])
+            rows.append(torch.cat([bp, suffixes[li, i]])[None])
     return torch.cat(rows, 0)
 
 
@@ -246,8 +265,8 @@ def estimate_bones(verts, v_valid, n_body_bones: int, n_legs: int = 4,
 
     if n_leg_bones == 0:
         structure = BoneStructure(
-            torch.as_tensor(_body_ancestors(n_body_bones),
-                            device=verts.device),
+            cached(("body_ancestors", n_body_bones, 0), verts.device,
+                   lambda: torch.as_tensor(_body_ancestors(n_body_bones))),
             n_body_bones, 0, 0,
             torch.zeros((4,), dtype=torch.int64, device=verts.device))
         return body_bones, structure
@@ -286,7 +305,7 @@ def estimate_bones(verts, v_valid, n_body_bones: int, n_legs: int = 4,
         foot = _take_vert(verts, torch.argmin(
             torch.where(mask, ys, torch.full_like(ys, big)), 2))
         if fixed_idx[li] is not None:
-            body_idx = torch.tensor(fixed_idx[li], device=verts.device)
+            body_idx = constant(int(fixed_idx[li]), verts.device)
         elif li == 2:
             body_idx = body_idx_all[1]
         elif li == 3:
@@ -296,7 +315,8 @@ def estimate_bones(verts, v_valid, n_body_bones: int, n_legs: int = 4,
             dz = (body_bones[0, 0, :, 1, 2] - foot[0, 0, 2]).abs()
             body_idx = torch.argmin(dz)
         body_idx_all.append(body_idx)
-        body_joint = body_bones[:, :, body_idx, 1]
+        body_joint = body_bones.index_select(
+            2, body_idx.reshape(1))[:, :, 0, 1]
         blend_l = torch.linspace(0.0, 1.0, n_leg_bones + 1,
                                  dtype=verts.dtype, device=verts.device) \
             [None, None, :, None]
@@ -327,7 +347,7 @@ def compute_bone_transforms(bones, structure: BoneStructure, angles):
     L = torch.zeros((B, F, K, 4, 4), dtype=bones.dtype, device=bones.device)
     L[..., :3, :3] = M3
     L[..., :3, 3] = tr
-    L[..., 3, 3] = 1.0
+    L[..., 3, 3].fill_(1.0)
     eye = torch.eye(4, dtype=bones.dtype, device=bones.device) \
         .expand(B, F, 1, 4, 4)
     L_ext = torch.cat([L, eye], 2)                  # slot K = identity

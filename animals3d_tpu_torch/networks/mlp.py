@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from animals3d_tpu_torch.device import constant
 from animals3d_tpu_torch.precision import compute_dtype
 
 
@@ -140,7 +141,7 @@ class MLP(nn.Module):
 def _apply_min_max(out, min_max):
     if min_max is None:
         return out
-    mm = torch.as_tensor(min_max, dtype=out.dtype, device=out.device)
+    mm = constant(min_max, out.device, out.dtype)
     return out * (mm[:, 1] - mm[:, 0]) + mm[:, 0]
 
 

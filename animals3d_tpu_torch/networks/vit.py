@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from animals3d_tpu_torch.device import cached
 from animals3d_tpu_torch.networks.mlp import Dense, lecun_normal_
 
 
@@ -145,10 +146,12 @@ class DinoViT(nn.Module):
         g = self.pos_grid
         patch_pos = pos[0, 1:].reshape(g, g, self.dim)
         # DINO quirk: the width grid drives the height scale factor
-        wh = torch.as_tensor(torch_bicubic_matrix(g, gh, (gw + 0.1) / g),
-                             device=pos.device)
-        ww = torch.as_tensor(torch_bicubic_matrix(g, gw, (gh + 0.1) / g),
-                             device=pos.device)
+        wh = cached(("vit_bicubic", g, gh, gw), pos.device,
+                    lambda: torch.as_tensor(
+                        torch_bicubic_matrix(g, gh, (gw + 0.1) / g)))
+        ww = cached(("vit_bicubic", g, gw, gh), pos.device,
+                    lambda: torch.as_tensor(
+                        torch_bicubic_matrix(g, gw, (gh + 0.1) / g)))
         patch_pos = torch.einsum("oi,ijd->ojd", wh, patch_pos)
         patch_pos = torch.einsum("pj,ojd->opd", ww, patch_pos)
         return torch.cat([pos[:, :1], patch_pos.reshape(1, gh * gw,

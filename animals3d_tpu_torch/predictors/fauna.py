@@ -15,7 +15,8 @@ import torch
 
 from animals3d_tpu_torch.phase import Phase
 from animals3d_tpu_torch.predictors.config import InstancePredictorConfig
-from animals3d_tpu_torch.predictors.instance import InstancePredictor
+from animals3d_tpu_torch.predictors.instance import (
+    InstancePredictor, scale_bones)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,14 +28,6 @@ class FaunaAdditionalConfig:
     reg_body_rotate_mult: float = 0.1
     bone_y_threshold: float = 0.4
     nozeroy_start: int = 20000
-
-
-def _scaled(angles, entries):
-    """angles × a scale of ones set to each (bones, axis, value) entry."""
-    scale = torch.ones_like(angles)
-    for bones, axis, value in entries:
-        scale[:, :, list(bones), axis] = value
-    return angles * scale
 
 
 class FaunaInstancePredictor(InstancePredictor):
@@ -55,11 +48,11 @@ class FaunaInstancePredictor(InstancePredictor):
         angles = torch.tanh(angles * a.output_multiplier)
         nb = a.num_body_bones
         if a.static_root_bones:
-            angles = _scaled(angles, [([nb // 2 - 1, nb - 1], slice(None),
-                                       0.0)])
+            angles = scale_bones(angles, [([nb // 2 - 1, nb - 1],
+                                           slice(None), 0.0)])
         legs = nb + np.arange(a.num_leg_bones * a.num_legs)
         if phase.constrain_legs:
-            angles = _scaled(angles, [(legs, 2, 0.3), (legs, 1, 0.3)])
+            angles = scale_bones(angles, [(legs, 2, 0.3), (legs, 1, 0.3)])
         if phase.leg_rot_started and add.forbid_leg_rotate:
             entries = []
             if add.small_leg_angle:
@@ -67,7 +60,7 @@ class FaunaInstancePredictor(InstancePredictor):
                 entries += [(top, 1, 0.05), (top, 2, 0.05)]
             bottom = [9, 10, 12, 13, 15, 16, 18, 19]
             entries += [(bottom, 1, 0.0), (bottom, 2, 0.0)]
-            angles = _scaled(angles, entries)
+            angles = scale_bones(angles, entries)
         angles = angles * (a.max_arti_angle / 180.0 * np.pi)
         mult = add.reg_body_rotate_mult * 180.0 / (a.max_arti_angle * np.pi)
-        return _scaled(angles, [(range(nb), 2, mult)])
+        return scale_bones(angles, [(range(nb), 2, mult)])

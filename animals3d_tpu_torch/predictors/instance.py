@@ -9,6 +9,12 @@ but, as in the JAX package, have no hypothesis sampling. With
 `enable_refine` a second articulation pass (`netArticulationRefine`) reads
 the bones posed by the first. Ponymation's `MotionVAEPredictor`
 subclasses it.
+
+On a CUDA device `forward` replays as CUDA graphs (`cuda_graphs`): its two
+random draws are made first and enter as inputs with the schedules'
+values, and every constant it reads is made once per device
+(`device.cached`), so that nothing in the replayed part copies from the
+host or waits for the card.
 """
 from __future__ import annotations
 
@@ -17,6 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from animals3d_tpu_torch import tracing
+from animals3d_tpu_torch.cuda_graphs import GraphCache
+from animals3d_tpu_torch.device import cached, constant
 from animals3d_tpu_torch.geometry import skinning as sk
 from animals3d_tpu_torch.geometry.mesh import Mesh, make_mesh
 from animals3d_tpu_torch.networks.articulation import ArticulationNetwork
@@ -41,8 +50,8 @@ _ORTHANT_SIGNS = {
 
 def lookat_forward_to_rot_matrix(vec_forward, up=(0.0, 1.0, 0.0)):
     """Rows: right, up, forward."""
-    up = torch.tensor(up, dtype=vec_forward.dtype,
-                      device=vec_forward.device).expand_as(vec_forward)
+    up = constant(tuple(up), vec_forward.device,
+                  vec_forward.dtype).expand_as(vec_forward)
     right = torch.cross(up, vec_forward, dim=-1)
     right = right / torch.clamp(torch.linalg.norm(right, dim=-1,
                                                   keepdim=True), min=1e-12)
@@ -55,6 +64,22 @@ def lookat_forward_to_rot_matrix(vec_forward, up=(0.0, 1.0, 0.0)):
 def softplus_with_init(x, init=0.5):
     beta = np.log(2.0) / init
     return F.softplus(x * beta) / beta
+
+
+def scale_bones(angles, entries):
+    """angles (..., K, 3) × a scale of ones with each (bones, axis, value)
+    entry set in turn, made once per entries, K and dtype on the device."""
+    K = angles.shape[-2]
+    key = ("bone_scale", K, angles.dtype,
+           tuple((tuple(int(b) for b in bones), repr(axis), repr(value))
+                 for bones, axis, value in entries))
+
+    def make():
+        scale = torch.ones((K, 3), dtype=angles.dtype)
+        for bones, axis, value in entries:
+            scale[list(bones), axis] = value
+        return scale
+    return angles * cached(key, angles.device, make)
 
 
 class ViTEncoder(nn.Module):
@@ -112,9 +137,15 @@ class ViTEncoder(nn.Module):
 
 class InstancePredictor(nn.Module):
 
+    # Whether the forward draws random numbers past the pose hypothesis's
+    # two, which `forward` draws before the rest: a CUDA graph would replay
+    # such a draw's numbers, so a predictor that draws so runs eagerly.
+    draws_in_forward = False
+
     def __init__(self, cfg: InstancePredictorConfig, image_size: int = 256):
         super().__init__()
         self.cfg = cfg
+        self._graphs = GraphCache("netinstance", self)
         scalar = 2 * np.pi / cfg.spatial_scale * 0.9
         enc_dim = cfg.cfg_encoder.cout
         self.netEncoder = ViTEncoder(
@@ -216,17 +247,16 @@ class InstancePredictor(nn.Module):
             else patch_out
         pose = self.netPose(feat)
         dev = pose.device
-        trans = torch.tanh(pose[..., -3:]) * torch.as_tensor(
-            self.max_trans_xyz_range, device=dev)
+        trans = torch.tanh(pose[..., -3:]) * constant(
+            tuple(self.max_trans_xyz_range.tolist()), dev, torch.float32)
         if cfg.rot_rep == "euler_angle":
             # tanh-bounded xyz angles
-            rot_pred = torch.tanh(pose[..., :3]) * torch.as_tensor(
-                self.max_rot_xyz_range, device=dev)
+            rot_pred = torch.tanh(pose[..., :3]) * constant(
+                tuple(self.max_rot_xyz_range.tolist()), dev, torch.float32)
             return torch.cat([rot_pred, trans], -1)            # (N, 6)
         if cfg.rot_rep == "quaternion":
             # shifted at init, normalized, real part >= 0
-            quat = pose[..., :4] + torch.tensor([0.01, 0.0, 0.0, 0.0],
-                                                device=dev)
+            quat = pose[..., :4] + constant((0.01, 0.0, 0.0, 0.0), dev)
             quat = quat / torch.clamp(torch.linalg.norm(
                 quat, dim=-1, keepdim=True), min=1e-12)
             return torch.cat([quat * torch.sign(quat[..., :1]), trans],
@@ -235,7 +265,7 @@ class InstancePredictor(nn.Module):
             # one normalized forward vector
             fwd = pose[..., :3]
             if zeroy:
-                fwd = fwd * torch.tensor([1.0, 0.0, 1.0], device=dev)
+                fwd = fwd * constant((1.0, 0.0, 1.0), dev)
             fwd = fwd / torch.clamp(torch.linalg.norm(
                 fwd, dim=-1, keepdim=True), min=1e-12)
             return torch.cat([fwd, trans], -1)                 # (N, 6)
@@ -250,8 +280,9 @@ class InstancePredictor(nn.Module):
         if zeroy:
             ys = ys * 0
         zs = softplus_with_init(zs, 0.5)
-        fwd = torch.stack([xs, ys, zs], -1) * torch.as_tensor(
-            _ORTHANT_SIGNS[cfg.rot_rep][:K], device=dev)
+        fwd = torch.stack([xs, ys, zs], -1) * cached(
+            ("orthant_signs", cfg.rot_rep, K), dev,
+            lambda: torch.as_tensor(_ORTHANT_SIGNS[cfg.rot_rep][:K]))
         fwd = fwd / torch.clamp(torch.linalg.norm(fwd, dim=-1, keepdim=True),
                                 min=1e-12)
         rot_pred = torch.cat([logits, fwd], -1).reshape(-1, K * 4)
@@ -264,37 +295,82 @@ class InstancePredictor(nn.Module):
         eval pose is the most probable hypothesis; with `random_sample` a
         uniformly random one replaces it unless `best_u < p_best` (p_best
         ramps to 0.8), the draws coming from `noise` or `gen`."""
-        cfg = self.cfg.cfg_pose
-        if cfg.rot_rep not in ("quadlookat", "octlookat"):
+        self._check_hypotheses()
+        draws = self.pose_draws(poses_raw.shape[0], random_sample,
+                                poses_raw.device, gen, noise)
+        return self.select_pose(poses_raw, self.pose_schedule(total_iter),
+                                draws)
+
+    def _check_hypotheses(self):
+        rot_rep = self.cfg.cfg_pose.rot_rep
+        if rot_rep not in ("quadlookat", "octlookat"):
             # as the reference's multi-hypothesis forward asserts
             raise NotImplementedError(
                 f"hypothesis sampling requires quad/octlookat, "
-                f"got {cfg.rot_rep}")
+                f"got {rot_rep}")
+
+    def pose_schedule(self, total_iter):
+        """The pose sampling's schedules at `total_iter`: (temperature,
+        naive_w, p_best)."""
+        cfg = self.cfg.cfg_pose
+        temp = 1.0 / float(np.clip(total_iter / 1000.0 / cfg.rot_temp_scalar,
+                                   1.0, cfg.temp_clip_high))
+        naive_w = float(np.clip(1.0 - (total_iter - cfg.naive_probs_iter)
+                                / 2000.0, 0.0, 1.0))
+        p_best = float(np.clip((total_iter - cfg.best_pose_start_iter)
+                               / 2000.0, 0.0, 0.8))
+        return temp, naive_w, p_best
+
+    def graph_schedule(self, schedule):
+        """`pose_schedule`'s values as the pinned host tensor that a CUDA
+        graph reads them from: 1 / T as CUDA takes a host divisor (the
+        float32 reciprocal of float32 T), the two terms of the uniform
+        blend and p_best."""
+        temp, naive_w, p_best = schedule
+        inv_temp = np.float32(1.0) / np.float32(temp)
+        return torch.tensor([inv_temp, (1.0 / self.num_pose_hypos) * naive_w,
+                             1.0 - naive_w, p_best],
+                            dtype=torch.float32).pin_memory()
+
+    def pose_draws(self, n: int, random_sample: bool, device, gen=None,
+                   noise: Noise = None):
+        """The random hypothesis's draws for `n` images from `noise` or
+        `gen`, in the order the sampling has always made them: (rand_idx,
+        best_u), or None without `random_sample`."""
+        if not random_sample:
+            return None
+        noise = noise or Noise()
+        K = self.num_pose_hypos
+        if noise.rand_idx is not None:
+            rand_idx = noise.rand_idx.to(device).long()
+        else:
+            rand_idx = torch.floor(uniform_rows(None, (n,), gen, device)
+                                   * K).long().clamp(max=K - 1)
+        return rand_idx, uniform_rows(noise.best_u, (n,), gen, device)
+
+    def select_pose(self, poses_raw, schedule, draws):
+        """The sampling from its schedules (`pose_schedule`'s floats, or in
+        a CUDA graph the device copy of `graph_schedule`) and its draws
+        (`pose_draws`). Both give the same bits on a CUDA device."""
         K = self.num_pose_hypos
         rots = poses_raw[..., :K * 4].reshape(-1, K, 4)
         N = rots.shape[0]
         logits = rots[..., 0]
         fwd = rots[..., 1:4]
         trans = poses_raw[..., -3:]
-        temp = 1.0 / float(np.clip(total_iter / 1000.0 / cfg.rot_temp_scalar,
-                                   1.0, cfg.temp_clip_high))
-        probs = torch.softmax(-logits / temp, dim=1)
-        naive_w = float(np.clip(1.0 - (total_iter - cfg.naive_probs_iter)
-                                / 2000.0, 0.0, 1.0))
-        probs = (1.0 / K) * naive_w + probs * (1.0 - naive_w)
+        if torch.is_tensor(schedule):
+            probs = torch.softmax(-logits * schedule[0], dim=1)
+            probs = schedule[1] + probs * schedule[2]
+            p_best = schedule[3]
+        else:
+            temp, naive_w, p_best = schedule
+            probs = torch.softmax(-logits / temp, dim=1)
+            probs = (1.0 / K) * naive_w + probs * (1.0 - naive_w)
         rot_idx = torch.argmax(probs, dim=1)
         rand_flag = torch.zeros((N,), dtype=torch.int32, device=probs.device)
-        if random_sample:
-            noise = noise or Noise()
-            dev = probs.device
-            if noise.rand_idx is not None:
-                rand_idx = noise.rand_idx.to(dev).long()
-            else:
-                rand_idx = torch.floor(uniform_rows(None, (N,), gen, dev)
-                                       * K).long().clamp(max=K - 1)
-            p_best = float(np.clip((total_iter - cfg.best_pose_start_iter)
-                                   / 2000.0, 0.0, 0.8))
-            best_flag = uniform_rows(noise.best_u, (N,), gen, dev) < p_best
+        if draws is not None:
+            rand_idx, best_u = draws
+            best_flag = best_u < p_best
             rot_idx = torch.where(best_flag, rot_idx, rand_idx)
             rand_flag = 1 - best_flag.to(torch.int32)
 
@@ -320,13 +396,14 @@ class InstancePredictor(nn.Module):
         dev = pose.device
         R = pose[:, :9].reshape(N, 3, 3).transpose(-1, -2)
         z_off = cfg.cam_pos_z_offset + (offset_extra or 0.0)
-        T = pose[:, -3:] + torch.tensor([0.0, 0.0, -z_off], device=dev)
+        T = pose[:, -3:] + constant((0.0, 0.0, -z_off), dev)
         w2c = torch.zeros((N, 4, 4), dtype=pose.dtype, device=dev)
         w2c[:, :3, :3] = R
         w2c[:, :3, 3] = T
-        w2c[:, 3, 3] = 1.0
-        proj = torch.as_tensor(perspective(cfg.fov / 180 * np.pi, 1.0, znear,
-                                           zfar), device=dev)
+        w2c[:, 3, 3].fill_(1.0)
+        proj = cached(("perspective", cfg.fov, znear, zfar), dev,
+                      lambda: torch.as_tensor(perspective(
+                          cfg.fov / 180 * np.pi, 1.0, znear, zfar)))
         mvp = torch.einsum("ij,bjk->bik", proj, w2c)
         campos = -torch.einsum("bji,bj->bi", R, T)
         return mvp, w2c, campos
@@ -351,43 +428,30 @@ class InstancePredictor(nn.Module):
         """tanh + per-bone-group clamps."""
         a = self.cfg.cfg_articulation
         angles = angles * a.output_multiplier
-        if a.static_root_bones:
-            m = torch.ones_like(angles)
-            m[:, :, [a.num_body_bones // 2 - 1, a.num_body_bones - 1]] = 0.0
-            angles = angles * m
-        angles = torch.tanh(angles)
         nb = a.num_body_bones
+        if a.static_root_bones:
+            angles = scale_bones(angles, [([nb // 2 - 1, nb - 1],
+                                           slice(None), 0.0)])
+        angles = torch.tanh(angles)
         n_leg_total = a.num_leg_bones * a.num_legs
         if phase.constrain_legs:
             legs = list(nb + np.arange(n_leg_total))
-            scale = torch.ones_like(angles)
-            scale[:, :, legs, 2] = 0.3     # twist
-            scale[:, :, legs, 1] = 0.3     # side bend
-            angles = angles * scale
+            # twist, side bend
+            angles = scale_bones(angles, [(legs, 2, 0.3), (legs, 1, 0.3)])
             if a.use_fauna_constraints:
                 top = [10, 13, 16, 19]
                 bottom = [8, 9, 11, 12, 14, 15, 17, 18]
-                scale = torch.ones_like(angles)
-                scale[:, :, top, 1] = 0.05
-                scale[:, :, top, 2] = 0.05
-                scale[:, :, top, 0] = 0.75
-                scale[:, :, bottom, 1] = 0.0
-                scale[:, :, bottom, 2] = 0.0
-                scale[:, :, bottom, 0] = 0.3
-                scale[:, :, list(range(8)), 2] = 0.1
-                angles = angles * scale
+                angles = scale_bones(angles, [
+                    (top, 1, 0.05), (top, 2, 0.05), (top, 0, 0.75),
+                    (bottom, 1, 0.0), (bottom, 2, 0.0), (bottom, 0, 0.3),
+                    (range(8), 2, 0.1)])
         if a.extra_constraints:
             legs_all = list(range(nb, nb + n_leg_total))
             top = [nb + i * a.num_leg_bones for i in range(a.num_legs)]
             bottom = [b for b in legs_all if b not in top]
-            scale = torch.ones_like(angles)
-            scale[:, :, legs_all, 2] = 0.3
-            scale[:, :, legs_all, 1] = 0.3
-            scale[:, :, top, 1] = 0.05
-            scale[:, :, top, 2] = 0.05
-            scale[:, :, bottom, 1] = 0.0
-            scale[:, :, bottom, 2] = 0.0
-            angles = angles * scale
+            angles = scale_bones(angles, [
+                (legs_all, 2, 0.3), (legs_all, 1, 0.3), (top, 1, 0.05),
+                (top, 2, 0.05), (bottom, 1, 0.0), (bottom, 2, 0.0)])
         return angles * (a.max_arti_angle / 180.0 * np.pi)
 
     def bone_codes(self, bp, mvp, w2c):
@@ -404,8 +468,8 @@ class InstancePredictor(nn.Module):
 
         bp4 = torch.cat([bp, torch.ones_like(bp[..., :1])], -1)
         cam = torch.einsum("nij,nkej->nkei", w2c, bp4)
-        cam3 = cam[..., :3] / cam[..., 3:4] + torch.tensor(
-            [0.0, 0.0, self.cfg.cfg_pose.cam_pos_z_offset], device=dev)
+        cam3 = cam[..., :3] / cam[..., 3:4] + constant(
+            (0.0, 0.0, self.cfg.cfg_pose.cam_pos_z_offset), dev)
         pos3d = cam3.reshape(N, K, 6) / self.cfg.spatial_scale * 2
 
         idx_in = (torch.arange(K, device=dev) + 0.5) / K * 2 - 1
@@ -513,15 +577,38 @@ class InstancePredictor(nn.Module):
     def forward(self, images, prior_mesh: Mesh, total_iter,
                 phase: Phase = Phase(), gen=None, noise: Noise = None):
         """The 12-tuple (shape, pose_raw, pose, mvp, w2c, campos, feat_out,
-        feat_key, deformation, arti_params, light_params, aux)."""
+        feat_key, deformation, arti_params, light_params, aux). The random
+        hypothesis's draws come first; on a CUDA device the rest replays
+        as CUDA graphs once two calls in a row share phase and shapes
+        (`cuda_graphs`), unless the predictor draws more
+        (`draws_in_forward`)."""
+        random_sample = phase.is_training and self.cfg.cfg_pose.rand_campos
+        draws = self.pose_draws(images.shape[0] * images.shape[1],
+                                random_sample, images.device, gen, noise)
+        schedule = self.pose_schedule(total_iter)
+        if images.is_cuda and not self.draws_in_forward:
+            out = self._graphs(
+                (phase, random_sample),
+                lambda im, mesh, d, sched: self.forward_drawn(
+                    im, mesh, sched, phase, d),
+                (images, prior_mesh, draws, self.graph_schedule(schedule)))
+            if out is not None:
+                return out
+        tracing.count("netinstance.eager_calls", 1)
+        return self.forward_drawn(images, prior_mesh, schedule, phase, draws,
+                                  gen=gen, noise=noise)
+
+    def forward_drawn(self, images, prior_mesh: Mesh, schedule, phase: Phase,
+                      draws, gen=None, noise: Noise = None):
+        """`forward` from the sampling's schedules and draws (see
+        `select_pose`); `gen` and `noise` serve the subclasses' random
+        sites."""
         batch_size, num_frames = images.shape[:2]
         feat_out, feat_key, patch_out, patch_key = \
             self.forward_encoder(images)
         poses_raw = self.forward_pose(patch_out, patch_key, zeroy=phase.zeroy)
-        pose_raw, pose, aux = self.sample_pose_hypothesis(
-            poses_raw, total_iter,
-            random_sample=(phase.is_training and self.cfg.cfg_pose.rand_campos),
-            gen=gen, noise=noise)
+        self._check_hypotheses()
+        pose_raw, pose, aux = self.select_pose(poses_raw, schedule, draws)
         mvp, w2c, campos = self.get_camera_extrinsics_from_pose(pose)
 
         shape = prior_mesh

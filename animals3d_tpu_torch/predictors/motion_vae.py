@@ -46,6 +46,8 @@ class MotionVAEConfig:
 
 class MotionVAEPredictor(InstancePredictor):
 
+    draws_in_forward = True     # the VAE's ε, in `forward_articulation`
+
     def __init__(self, cfg: InstancePredictorConfig,
                  enable_motion_vae: bool = True,
                  cfg_motion_vae: MotionVAEConfig = MotionVAEConfig(),

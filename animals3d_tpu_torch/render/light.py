@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from animals3d_tpu_torch.device import constant
 from animals3d_tpu_torch.networks.mlp import MLP
 from animals3d_tpu_torch.ops import shading
 
@@ -41,8 +42,7 @@ class DirectionalLight(nn.Module):
         direction = shading.safe_normalize(direction)
         intensity = out[..., 2:]
         if self.intensity_min_max is not None:
-            mm = torch.as_tensor(self.intensity_min_max, dtype=out.dtype,
-                                 device=out.device)
+            mm = constant(self.intensity_min_max, out.device, out.dtype)
             intensity = intensity * (mm[:, 1] - mm[:, 0]) + mm[:, 0]
         return torch.cat([direction, intensity], -1)
 

@@ -177,6 +177,10 @@ def test_train_step_and_reconstruct_give_the_layer_tree(tiny):
     assert 0 < c["mesh.faces"] <= c["mesh.face_slots"]
     assert 0 < c["aa.pairs_kept"] <= c["aa.pairs_found"]
     assert c["launches.visibility"] == 0      # the CPU runs no kernel
+    # netInstance's two calls, eager: the CPU captures no CUDA graph
+    assert c["netinstance.eager_calls"] == 2
+    assert "netinstance.graph_captures" not in c
+    assert "netinstance.graph_replays" not in c
 
 
 def test_profiler_session_turns_tracing_on_afresh():
@@ -332,7 +336,9 @@ HAND = {"spans": {n: {"calls": c, "host_ms": h, "self_ms": 0.0,
                       ("a3d.adam", 4, 20.0, 30.0),
                       ("a3d.reconstruct", 2, 300.0, None))},
         "counters": {"mesh.faces": 300, "mesh.face_slots": 1000,
-                     "aa.pairs_found": 200, "aa.pairs_kept": 150},
+                     "aa.pairs_found": 200, "aa.pairs_kept": 150,
+                     "netinstance.graph_replays": 3,
+                     "netinstance.graph_captures": 1},
         "roots": 10, "ring": [], "start_ns": 0}
 WANT = {"host_step_ms.train": 110.0, "netbase_host_ms.train": 10.0,
         "netinstance_host_ms.train": 20.0, "render_host_ms.train": 15.0,
@@ -340,7 +346,8 @@ WANT = {"host_step_ms.train": 110.0, "netbase_host_ms.train": 10.0,
         "backward_stream_ms": 30.0, "adam_stream_ms": 7.5,
         "face_fill_pct.train": 30.0, "aa_dropped_pct.train": 25.0,
         "host_step_ms.recon": 150.0, "face_fill_pct.recon": 30.0,
-        "aa_dropped_pct.recon": 25.0}
+        "aa_dropped_pct.recon": 25.0, "netinstance_graphed_pct.train": 75.0,
+        "netinstance_graphed_pct.recon": 75.0}
 
 
 @pytest.mark.parametrize("name", sorted(WANT))
@@ -352,6 +359,20 @@ def test_benchmark_reader_of_a_hand_made_snapshot(name):
     other = "train" if entry == "recon" else "recon"
     assert read({"entry": other, "program_trace": HAND}) is None
     assert read({"entry": entry, "program_trace": None}) is None
+
+
+@pytest.mark.parametrize("entry", ["train", "recon"])
+def test_graphed_share_without_the_counters_reads_none(entry):
+    """A program that counts no netInstance call (one without the graphs)
+    leaves the share out of the line."""
+    counts = {k: v for k, v in HAND["counters"].items()
+              if not k.startswith("netinstance.")}
+    read = _bench_reader(f"netinstance_graphed_pct.{entry}")
+    assert read({"entry": entry,
+                 "program_trace": {**HAND, "counters": counts}}) is None
+    counts["netinstance.eager_calls"] = 4
+    assert read({"entry": entry,
+                 "program_trace": {**HAND, "counters": counts}}) == 0.0
 
 
 def test_dropped_share_of_no_pairs_reads_zero():
