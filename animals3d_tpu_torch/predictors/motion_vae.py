@@ -14,6 +14,14 @@
 
 The VAE's ε and `generate`'s frame pick and z come from a `Noise` where it
 has them, else from the generator.
+
+Spans (`tracing`): `a3d.encoder` (the ViT and its heads over every frame),
+`a3d.deform` (netDeform's chunks), `a3d.teacher` (the frozen articulation
+network and its constraints), `a3d.vae` (the VAE's forward) and
+`a3d.skinning` (the skinning with the VAE's angles). They are set here
+and not in the shared instance predictor, whose forward other models replay
+as CUDA graphs, where a host span would not fire; this predictor draws
+in its forward and runs eagerly.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from animals3d_tpu_torch import tracing
 from animals3d_tpu_torch.geometry import skinning as sk
 from animals3d_tpu_torch.geometry.mesh import Mesh, make_mesh
 from animals3d_tpu_torch.networks.motion_vae import ArticulationVAE
@@ -65,17 +74,22 @@ class MotionVAEPredictor(InstancePredictor):
                 z_token_num=vae.z_token_num,
                 transformer_layer_num=vae.transformer_layer_num)
 
+    def forward_encoder(self, images):
+        with tracing.span("encoder"):
+            return super().forward_encoder(images)
+
     def _deform_offsets(self, verts_b, feat):
         """netDeform's output, in chunks of whole images of at most
         `DEFORM_ROWS` vertex rows (each row's value is the same function of
         that row alone, equal within float32 rounding: a matrix product's
         blocking follows its row count)."""
         step = max(1, DEFORM_ROWS // verts_b.shape[1])
-        if verts_b.shape[0] <= step:
-            return self.netDeform(verts_b, feat)
-        return torch.cat([self.netDeform(verts_b[i:i + step],
-                                         feat[i:i + step])
-                          for i in range(0, verts_b.shape[0], step)])
+        with tracing.span("deform"):
+            if verts_b.shape[0] <= step:
+                return self.netDeform(verts_b, feat)
+            return torch.cat([self.netDeform(verts_b[i:i + step],
+                                             feat[i:i + step])
+                              for i in range(0, verts_b.shape[0], step)])
 
     def forward_deformation(self, mesh: Mesh, feat, batch_size=None,
                             num_frames=None):
@@ -112,7 +126,7 @@ class MotionVAEPredictor(InstancePredictor):
             batch_size, num_frames, phase.attach_legs)
         K = self.num_bones
         # the teacher: the frozen articulation network, without gradient
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("teacher"):
             angles_gt = self.netArticulation(bones_feat, pos_in) \
                 .reshape(batch_size, num_frames, K, 3)
             angles_gt = self.apply_articulation_constraints(angles_gt, phase)
@@ -122,13 +136,15 @@ class MotionVAEPredictor(InstancePredictor):
         eps = normal_rows(noise.vae_normal,
                           (vae.z_token_num, batch_size, vae.latent_dim), gen,
                           verts.device, dim=1)
-        angles_pred, mu, logvar = self.netVAE(bones_feat, pos_in, num_frames,
-                                              batch_size, eps)
+        with tracing.span("vae"):
+            angles_pred, mu, logvar = self.netVAE(bones_feat, pos_in,
+                                                  num_frames, batch_size, eps)
         angles_pred = self.apply_articulation_constraints(angles_pred, phase)
-        posed, aux = sk.skinning(verts_bf, bones, structure, angles_pred,
-                                 output_posed_bones=True,
-                                 temperature=a.skinning_temperature,
-                                 v_valid=mesh.v_valid)
+        with tracing.span("skinning"):
+            posed, aux = sk.skinning(verts_bf, bones, structure, angles_pred,
+                                     output_posed_bones=True,
+                                     temperature=a.skinning_temperature,
+                                     v_valid=mesh.v_valid)
         posed = posed.reshape(N, *posed.shape[2:])
         out_mesh = make_mesh(posed, mesh.t_pos_idx, mesh.v_valid,
                              mesh.f_valid, mesh.num_verts, mesh.num_faces,

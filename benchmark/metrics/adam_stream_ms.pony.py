@@ -1,0 +1,8 @@
+"""Stream ms an iteration of the program's span `a3d.adam`: the VAE's Adam
+step; the interval between its CUDA events on the stream, its device work
+and any device idle inside it, in a Ponymation training cell."""
+from harness.entries import pony_train
+
+
+def read(ctx):
+    return pony_train.span_ms(ctx, "a3d.adam")
