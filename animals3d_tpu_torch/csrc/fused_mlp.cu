@@ -17,7 +17,7 @@
 // Bound on the H100: 2 N (D 256 + (L-1) 256^2 + 256) operations forward
 // (D the embedding's width) and three times that backward less the input
 // cotangent, against N (2 D + 4) bytes: bound by operations (1.20 and
-// 3.53 ms in bf16 at full width).
+// 3.53 ms in bf16 at full width; 17.7 ms forward in float32).
 //
 // bf16 forward (K6, fused_mlp_fwd_wgmma_kernel): the forward half of the
 // backward's chain pass below. A persistent grid (one block of two
@@ -38,11 +38,26 @@
 // each layer's epilogue runs while the tensor cores wait, since a layer's
 // products need all of the previous layer's output.
 //
-// float32 forward (the float32 policy's card-vs-CPU references; off the
-// bf16 main path; wgmma has no float32 form): the first design, kept as it
-// is. One block of 256 threads takes a tile of 32 rows and loops over
-// tiles; two activation buffers ping-pong; weights are read from global
-// memory (L2) by FMA loops, thread t owning column t.
+// float32 forward (fused_mlp_fwd_f32_kernel; the float32 policy: Ponymation's
+// frozen netSDF sweep and the card-vs-CPU references; wgmma has no float32
+// form, so the FMA units do the work): bound by operations, 1.18 TFLOP at
+// stage 2's 2,146,689 rows and width 51, 17.7 ms at the 67 TFLOP/s float32
+// peak. A SIMT GEMM for Hopper's FMA units: a persistent grid (one block of
+// 256 threads per SM) walks 128-row tiles; the tile's input rows, then each
+// layer's activations, stay in one transposed shared buffer (256 x 128
+// floats, rows padded by 4) for all L layers; each thread accumulates an
+// 8 x 16 register tile of the layer's outputs, fed per k by two 16-byte
+// shared loads of activations and four of weights (6 loads to 128 FMAs), and
+// writes it back in place after a barrier once the K loop ends. The weights
+// come as (16, 256) slices, each contiguous in win / ws, one bulk copy per
+// slice into a 4-slot ring (three slices ahead), the stream running on
+// across tiles: no thread reads weights from L2 inside the FMA loop. The
+// last layer (256 -> 1) is folded into the epilogue of a_{L-1}: per row, a
+// thread's 16 columns, the row's four threads by a fixed butterfly, the
+// four column quarters in order. Every sum has a fixed order and no atomics.
+// Shared memory 204,832 bytes. It takes 22.5 ms at stage 2's shape on an
+// H100 (700 W), 78% of its bound; the first design (32-row tiles, thread t
+// owning column t, a shared load per FMA and an L2 load per 32) took 202.
 //
 // bf16 backward (K7) in three kernels per call, in a loop over chunks of
 // C rows (`bwd_plan` in ops/fused_mlp.py). The TPU kernel accumulates the
@@ -156,51 +171,6 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ e, T* E,
     const int r = i / DP, c = i % DP;
     const long row = row0 + r;
     E[r * lde + c] = row < N ? e[row * DP + c] : fromf<T>(0.0f);
-  }
-}
-
-// e (N, DP); win (DP, 256); b (256) float; ws (L-1, 256, 256) rows = input
-// feature; wlast (256); out (N) float.
-template <typename T, int ROWS>
-__global__ void __launch_bounds__(NTHREADS)
-fused_mlp_fwd_kernel(const T* __restrict__ e, const T* __restrict__ win,
-                     const float* __restrict__ b, const T* __restrict__ ws,
-                     const T* __restrict__ wlast, float* __restrict__ out,
-                     long N, int DP, int L) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int lde = DP + PAD;
-  T* buf0 = reinterpret_cast<T*>(smem_raw);
-  T* buf1 = buf0 + ROWS * LDA;
-  T* E = buf1 + ROWS * LDA;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const long ntiles = (N + ROWS - 1) / ROWS;
-  for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long row0 = tile * ROWS;
-    __syncthreads();
-    load_rows<T, ROWS>(e, E, lde, DP, row0, N);
-    __syncthreads();
-    T* cur = buf0;
-    T* nxt = buf1;
-    gemm_rows<ROWS>(E, lde, DP, win, [&](int r, int c, float v) {
-      const float z = rnd<T>(rnd<T>(v) + rnd<T>(b[c]));
-      cur[r * LDA + c] = fromf<T>(fmaxf(z, 0.0f));
-    });
-    __syncthreads();
-    for (int li = 0; li < L - 1; ++li) {
-      gemm_rows<ROWS>(cur, LDA, NF, ws + (size_t)li * NF * NF,
-                      [&](int r, int c, float v) {
-                        nxt[r * LDA + c] = fromf<T>(fmaxf(rnd<T>(v), 0.0f));
-                      });
-      __syncthreads();
-      T* tmp = cur; cur = nxt; nxt = tmp;
-    }
-    for (int r = warp; r < ROWS; r += NWARPS) {
-      float s = 0.0f;
-      for (int k = lane; k < NF; k += 32)
-        s = fmaf(tof(cur[r * LDA + k]), tof(wlast[k]), s);
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0 && row0 + r < N) out[row0 + r] = rnd<T>(s);
-    }
   }
 }
 
@@ -1042,6 +1012,261 @@ __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+// ---------------------------------------------------------------------------
+// float32 forward: register-tiled FMA products over shared-memory weight
+// slices
+// ---------------------------------------------------------------------------
+
+#define F32_ROWS 128           // rows per tile
+#define F32_LDT (F32_ROWS + 4) // floats per k-row of the transposed tile
+#define F32_KS 16              // rows of a weight matrix per staged slice
+#define F32_NST 4              // slices in the ring: three landing, one in use
+#define F32_SLICE (F32_KS * NF)
+
+// The float32 forward's weight stream: the K-slices (16 x 256 floats, 16 KB)
+// of win and ws[0..L-2] in the order a tile's products read them, each
+// contiguous in the weights, so that one bulk copy by thread 0 brings a
+// slice; repeated for each of the block's tiles, F32_NST - 1 slices ahead of
+// the products, each slot with its mbarrier.
+struct F32Stream {
+  const float* win;
+  const float* ws;
+  float* ring;
+  uint64_t* full;
+  int nwin;          // slices of win
+  int per_tile;
+  int left;          // slices still to issue
+  int slot;          // position of the next slice to issue within a tile
+  int put, get;      // ring slots of the next issue and the next use
+  unsigned used;     // slices consumed so far
+
+  __device__ __forceinline__ void issue() {
+    if (left > 0) {
+      if (threadIdx.x == 0) {
+        const float* src = slot < nwin
+                               ? win + (size_t)slot * F32_SLICE
+                               : ws + (size_t)(slot - nwin) * F32_SLICE;
+        mbar_expect_tx(full + put, F32_SLICE * sizeof(float));
+        bulk_load(ring + put * F32_SLICE, src, F32_SLICE * sizeof(float),
+                  full + put);
+      }
+      --left;
+      slot = slot + 1 == per_tile ? 0 : slot + 1;
+    }
+    put = put + 1 == F32_NST ? 0 : put + 1;
+  }
+  __device__ __forceinline__ void wait() {
+    mbar_wait(full + get, (used / F32_NST) & 1);
+  }
+  __device__ __forceinline__ void next() {
+    get = get + 1 == F32_NST ? 0 : get + 1;
+    ++used;
+  }
+};
+
+// Thread t's place in a tile: rows 64 (w / 4) + 4 (lane / 4) + 32 h + i and
+// columns 64 (w % 4) + 4 (lane % 4) + 16 j + q (w = t / 32), its outputs
+// acc[4 h + i][4 j + q]: row and column bases.
+__device__ __forceinline__ int f32_row0() {
+  return 64 * (threadIdx.x >> 7) + 4 * ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int f32_col0() {
+  return 64 * ((threadIdx.x >> 5) & 3) + 4 * (threadIdx.x & 3);
+}
+
+// acc = A W over K = 16 nsl: A the tile's activations in At, transposed
+// (At[k * F32_LDT + r]), W the next nsl slices of the stream. Per k a
+// thread feeds its 8 x 16 outputs from two 16-byte loads of A and four of
+// W (the warp's A loads read 128 contiguous bytes, its W loads 64: one
+// shared-memory wavefront each) and runs 128 FMAs; every sum runs over k in
+// order. The barrier before each slice's use lets thread 0 refill the slot
+// that the previous slice held, and makes the epilogue's writes of At
+// visible.
+__device__ __forceinline__ void f32_product(F32Stream& st, const float* At,
+                                            int nsl, float (&acc)[8][16]) {
+  const float* a0 = At + f32_row0();
+  const int c0 = f32_col0();
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[i][c] = 0.0f;
+  for (int s = 0; s < nsl; ++s) {
+    st.wait();
+    __syncthreads();
+    st.issue();
+    const float* B = st.ring + st.get * F32_SLICE + c0;
+    const float* A = a0 + s * F32_KS * F32_LDT;
+#pragma unroll
+    for (int k = 0; k < F32_KS; ++k) {
+      const float4 x0 = *reinterpret_cast<const float4*>(A + k * F32_LDT);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(A + k * F32_LDT + 32);
+      const float av[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      float bv[16];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 y =
+            *reinterpret_cast<const float4*>(B + k * NF + 16 * j);
+        bv[4 * j] = y.x;
+        bv[4 * j + 1] = y.y;
+        bv[4 * j + 2] = y.z;
+        bv[4 * j + 3] = y.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+    }
+    st.next();
+  }
+}
+
+// At = relu(acc + bias) (the bias for the in-layer alone), in place once
+// every thread has read At in the product; 16-byte stores of 4 rows of a
+// column (the padding of F32_LDT spreads a warp's 32 over all banks).
+template <bool kBias>
+__device__ __forceinline__ void f32_store(float* At,
+                                          const float (&acc)[8][16],
+                                          const float* sb) {
+  float* a0 = At + f32_row0();
+  const int c0 = f32_col0();
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + 16 * j + q, x = 4 * j + q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float z = acc[4 * h + i][x];
+          v[i] = fmaxf(kBias ? z + sb[c] : z, 0.0f);
+        }
+        *reinterpret_cast<float4*>(a0 + c * F32_LDT + 32 * h) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+}
+
+// The last layer (256 -> 1) on relu(acc): per row, a thread's 16 columns in
+// column order, then the row's four threads of the warp by a fixed
+// butterfly, then the four column quarters (warps) in order through red
+// (4 x 128); thread t < 128 writes row t for rows < N.
+__device__ __forceinline__ void f32_last(const float (&acc)[8][16],
+                                         const float* sw, float* red,
+                                         float* __restrict__ out, long row0,
+                                         long N) {
+  const int t = threadIdx.x, r0 = f32_row0(), c0 = f32_col0();
+  float s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        s[i] = fmaf(fmaxf(acc[i][4 * j + q], 0.0f), sw[c0 + 16 * j + q],
+                    s[i]);
+    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+  }
+  if ((t & 3) == 0) {
+    float* rq = red + ((t >> 5) & 3) * F32_ROWS + r0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rq[32 * h + i] = s[4 * h + i];
+  }
+  __syncthreads();
+  if (t < F32_ROWS && row0 + t < N)
+    out[row0 + t] = ((red[t] + red[F32_ROWS + t]) + red[2 * F32_ROWS + t]) +
+                    red[3 * F32_ROWS + t];
+}
+
+// Rows [row0, row0 + 128) of e (DP wide) into At's first DP k-rows,
+// transposed; rows at or past N are zero. A warp takes 32 rows of one
+// 16-byte column group, so that its stores fall in distinct banks.
+__device__ __forceinline__ void f32_load_rows(float* At,
+                                              const float* __restrict__ e,
+                                              long row0, long N, int DP) {
+  for (int c = threadIdx.x; c < F32_ROWS * (DP / 4); c += NTHREADS) {
+    const int r = c % F32_ROWS, q = c / F32_ROWS;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < N)
+      v = *reinterpret_cast<const float4*>(e + (size_t)(row0 + r) * DP +
+                                           4 * q);
+    float* d = At + 4 * q * F32_LDT + r;
+    d[0] = v.x;
+    d[F32_LDT] = v.y;
+    d[2 * F32_LDT] = v.z;
+    d[3 * F32_LDT] = v.w;
+  }
+}
+
+// float32 forward over the N rows of e: a persistent grid walks 128-row
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...; per tile the input rows,
+// then each layer's activations, sit in one transposed tile buffer At
+// (256 x 128 floats, padded), each product's outputs in registers until its
+// K loop ends, written back in place (`f32_store`); the weights come slice
+// by slice through the ring (`F32Stream`), the stream running on across
+// tiles; the last layer (256 -> 1) is folded into the epilogue of
+// a_{L-1} (`f32_last`).
+__global__ void __launch_bounds__(NTHREADS, 1)
+fused_mlp_fwd_f32_kernel(const float* __restrict__ e,
+                         const float* __restrict__ win,
+                         const float* __restrict__ b,
+                         const float* __restrict__ ws,
+                         const float* __restrict__ wlast,
+                         float* __restrict__ out, long N, int DP, int L) {
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  float* At = reinterpret_cast<float*>(smem_f32);       // NF x F32_LDT
+  float* ring = At + NF * F32_LDT;                      // F32_NST slices
+  float* sb = ring + F32_NST * F32_SLICE;               // bias
+  float* sw = sb + NF;                                  // wlast
+  float* red = sw + NF;                                 // 4 x F32_ROWS
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * F32_ROWS);
+  const int t = threadIdx.x;
+  const long ntiles = (N + F32_ROWS - 1) / F32_ROWS;
+  const int mine = ntiles > (long)blockIdx.x
+      ? (int)((ntiles - 1 - (long)blockIdx.x) / gridDim.x) + 1 : 0;
+  F32Stream st;
+  st.win = win; st.ws = ws; st.ring = ring; st.full = full;
+  st.nwin = DP / F32_KS;
+  st.per_tile = st.nwin + (L - 1) * (NF / F32_KS);
+  st.left = mine * st.per_tile;
+  st.slot = 0; st.put = 0; st.get = 0; st.used = 0;
+  if (t == 0) {
+    for (int i = 0; i < F32_NST; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < F32_NST - 1; ++i) st.issue();
+  sb[t] = b[t];
+  sw[t] = wlast[t];
+  float acc[8][16];
+  for (int it = 0; it < mine; ++it) {
+    const long row0 = ((long)blockIdx.x + (long)it * gridDim.x) * F32_ROWS;
+    f32_load_rows(At, e, row0, N, DP);
+    f32_product(st, At, st.nwin, acc);
+    f32_store<true>(At, acc, sb);
+    for (int li = 0; li < L - 2; ++li) {
+      f32_product(st, At, NF / F32_KS, acc);
+      f32_store<false>(At, acc, sb);
+    }
+    f32_product(st, At, NF / F32_KS, acc);
+    f32_last(acc, sw, red, out, row0, N);
+  }
+}
+
+static size_t fwd_f32_smem() {
+  return ((size_t)NF * F32_LDT + (size_t)F32_NST * F32_SLICE + 2 * NF +
+          4 * F32_ROWS) * sizeof(float) +
+         F32_NST * sizeof(uint64_t);
+}
+
 #define MAX_SMEM 232448
 
 // bf16 forward (K6) over e (N, DP); wstream: `weight_stream`, of which the
@@ -1067,25 +1292,24 @@ extern "C" int fused_mlp_fwd_bf16_launch(const void* e, const void* wstream,
   return (int)cudaGetLastError();
 }
 
-// float32 forward: the first design (see the note at the top), 32-row
-// tiles. Returns a cudaError.
+// float32 forward over e (N, DP) with win (DP, 256) and ws (L-1, 256, 256)
+// as they are (rows = input feature); out (N) float. e, win and ws 16-byte
+// aligned; nblk: `fwd_f32_plan` in ops/fused_mlp.py. Returns a cudaError.
 extern "C" int fused_mlp_fwd_f32_launch(const float* e, const float* win,
                                         const float* b, const float* ws,
                                         const float* wlast, float* out, long N,
                                         int DP, int L, int nblk,
                                         void* stream) {
-  constexpr int ROWS = 32;
-  if (DP % 16 || DP <= 0 || L < 2 || nblk <= 0)
+  if (DP % F32_KS || DP <= 0 || DP > NF || L < 2 || nblk <= 0 || N <= 0 ||
+      ((uintptr_t)e | (uintptr_t)win | (uintptr_t)ws) % 16)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * ROWS * LDA * sizeof(float) +
-                      (size_t)ROWS * (DP + PAD) * sizeof(float);
+  const size_t smem = fwd_f32_smem();
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<float, ROWS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_mlp_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mlp_fwd_kernel<float, ROWS><<<nblk, NTHREADS, smem,
-                                      (cudaStream_t)stream>>>(
+  fused_mlp_fwd_f32_kernel<<<nblk, NTHREADS, smem, (cudaStream_t)stream>>>(
       e, win, b, ws, wlast, out, N, DP, L);
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,11 @@ relu between them, a final 256 → 1 layer — is evaluated at every row of
 the embedded lattice (2.1M rows at grid 128) without any (N, 256)
 activation of the whole lattice in device memory.
 
-Both directions read the weights from one weight stream (`weight_stream`):
-win, ws[0 .. L-2], ws[L-2 .. 0]^T cut into (32, 256) slices, each laid out
-as its image in shared memory, so that one bulk copy brings a slice. The
-autograd Function builds it once per forward and hands it to the backward.
+In bf16 both directions read the weights from one weight stream
+(`weight_stream`): win, ws[0 .. L-2], ws[L-2 .. 0]^T cut into (32, 256)
+slices, each laid out as its image in shared memory, so that one bulk copy
+brings a slice. The autograd Function builds it once per forward and hands
+it to the backward.
 
 Forward (`fused_mlp_fwd`), bf16: one persistent kernel over 128-row tiles,
 every layer a tensor-core product (wgmma) from shared memory with the
@@ -25,12 +26,19 @@ C = 67,584 rows), then a weight-gradient pass multiplies them out as GEMMs
 over the chunk's rows into fixed per-block float32 partials; one reduce
 sums the partials in a fixed order. Both passes run on wgmma from shared
 memory too.
-float32 (the float32 policy's references only; wgmma has no float32
-form): the first design, a forward kernel of FMA loops with the weights
-read from L2, and one backward kernel with per-block partials and its
-reduce. The kernels are bound by operations: 2·N·(D·256 + (L-1)·256² +
-256) forward and about three times that backward, 1.20 and 3.53 ms in
-bf16 on an H100 at full width.
+float32 forward (Ponymation's frozen netSDF sweep and the float32
+references; wgmma has no float32 form): a SIMT GEMM for the FMA units over
+the same 128-row tiles (`fwd_f32_plan`), the tile's activations in one
+transposed shared buffer for every layer, an 8 × 16 register tile of
+outputs a thread, the weights as (16, 256) slices straight from win and ws
+by bulk copy into a 4-slot ring, the 256 → 1 layer folded into the last
+epilogue: 22.5 ms at Ponymation stage 2's 2,146,689 rows on an H100 (700
+W), 78% of its bound (the first design, FMA loops with the weights read
+from L2, took 202 ms). float32 backward: the first design, one kernel with
+per-block partials and its reduce. The kernels are bound by operations:
+2·N·(D·256 + (L-1)·256² + 256) forward and about three times that
+backward, 1.20 and 3.53 ms in bf16 on an H100 at full width; 17.7 ms for
+the float32 forward at 67 TFLOP/s.
 
 Numerics (the Pallas kernels'): operands in the compute type of the
 precision policy, float32 accumulation, every layer's output and every
@@ -63,6 +71,8 @@ TILE_ROWS = 128      # rows per tile of the bf16 chain pass
 # read-modify-write and the launches, 32 chunks at full width)
 CHUNK_ROWS = 4 * NUM_BLOCKS * TILE_ROWS
 WGRAD_SPLITS = 14    # row splits per weight-gradient tile (9 x 14 blocks)
+F32_SLICE_ROWS = 16  # rows of a weight matrix per slice of the float32 ring
+F32_STAGES = 4       # slices in the float32 forward's ring
 _PLAIN_ROWS = 1 << 18
 
 
@@ -78,6 +88,34 @@ class BwdPlan:
     scratch_elems: int
     chain_blocks: int
     splits: int
+
+
+@dataclass(frozen=True)
+class FwdF32Plan:
+    """`fwd_f32_plan`'s result: rows per tile, tiles, the grid (block b
+    takes tiles b, b + grid, ...) and the kernel's shared-memory bytes."""
+    tile_rows: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def fwd_f32_plan(N: int, L: int, dp: int = KPAD) -> FwdF32Plan:
+    """The float32 forward's launch over N rows of an L-layer trunk with
+    inputs of width dp: 128-row tiles over a persistent grid of at most one
+    block per SM; its shared memory, the kernel's layout: the transposed
+    tile buffer (256 k-rows of 128 floats, padded by 4), the weight ring
+    (`F32_STAGES` slices of `F32_SLICE_ROWS` x 256), the bias, wlast, the
+    last layer's 4 x 128 partial sums and one mbarrier a slot. The input
+    rows share the tile buffer, so dp is at most 256. Pure: no tensor, no
+    device."""
+    if N < 0 or L < 2 or dp <= 0 or dp > NF or dp % F32_SLICE_ROWS:
+        raise ValueError(f"N {N}, L {L}, dp {dp}: want N >= 0, L >= 2 and "
+                         f"0 < dp <= {NF} a multiple of {F32_SLICE_ROWS}")
+    tiles = -(-N // TILE_ROWS)
+    smem = 4 * (NF * (TILE_ROWS + 4) + F32_STAGES * F32_SLICE_ROWS * NF
+                + 2 * NF + 4 * TILE_ROWS) + 8 * F32_STAGES
+    return FwdF32Plan(TILE_ROWS, tiles, min(NUM_BLOCKS, tiles), smem)
 
 
 def _check(e, win, b, ws, wlast):
@@ -180,7 +218,7 @@ def fused_mlp_fwd(e, win, b, ws, wlast, wstream=None):
                 wstream, b, wlast, out, N, dp, L, NUM_BLOCKS)
     else:
         _launch("fused_mlp_fwd", library().fused_mlp_fwd_f32_launch, e, win,
-                b, ws, wlast, out, N, dp, L, NUM_BLOCKS)
+                b, ws, wlast, out, N, dp, L, fwd_f32_plan(N, L, dp).grid)
     fused_mlp_fwd.launches += 1
     return out
 

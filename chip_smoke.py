@@ -1004,13 +1004,30 @@ def sweep_phase(model):
                     + ("59" if fwd else "76"), "redesigned, PR "
                     + ("6" if fwd else "5") + " (ported, PR 2)", kerr, ms,
                     plain_ms, bytes_ms, ops_ms))
-            if not f32:
+            if f32:
+                fwd_f32_line(ops_, flops, rows[0])
+            else:
                 entries = {r["name"]: r for r in rows}
                 fwd_alone(fm, ops_, flops, entries["fused_mlp_fwd"])
                 bwd_passes(fm, ops_, g)
             full = N
     unfused_sweep_line(model, full)
     return entries["fused_mlp_fwd"], entries["fused_mlp_bwd"]
+
+
+def fwd_f32_line(ops_, flops, entry):
+    """K6's float32 build at Ponymation stage 2's sweep (the training
+    grid's 129³ rows, the netSDF 5 x 256): its time (CUDA events, median),
+    rate and share of its bound at the float32 FMA peak, beside the plain
+    version's time."""
+    ep, ws = ops_[0], ops_[3]
+    ms, bound = entry["ms"], entry["bound_ms"]
+    print(f"fused_mlp_fwd[f32, N={ep.shape[0]}, DP {ep.shape[1]}, L "
+          f"{ws.shape[0] + 1}] (Ponymation stage 2's sweep): kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound / ms * 100:.1f}% of the bound {bound:.4f} ms at the "
+          f"float32 FMA peak); plain {entry['plain_ms']:.4f} ms; card "
+          f"{card_line()}")
 
 
 def fwd_alone(fm, ops_, flops, entry):

@@ -324,28 +324,54 @@ def test_fused_mlp_bwd_chunks_equal_plain_version(card, monkeypatch, n, nl,
 
 @pytest.mark.parametrize("n,nl", [(50, 4), (77, 1), (3 * 128 + 1, 4),
                                   (132 * 128 + 1, 4)])
-def test_fused_mlp_fwd_ragged_tiles_bf16(card, n, nl):
-    """The bf16 forward with fewer rows than one 128-row tile, and with
-    N = k·128 + 1, so that the last tile holds a single row (at k = 132 the
-    first block's second tile): every output within 2 bf16 ulps of the
-    output's magnitude of the plain version (the limit of
-    `test_fused_mlp_kernels_equal_plain_version`), the last row on its own
-    too and not left at zero; one launch counted per call; a second call
-    gives the same bits."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_fwd_ragged_tiles_bf16(card, n, nl, dtype):
+    """The forward (bf16, and the float32 build over the same 128-row
+    tiles, `fwd_f32_plan`) with fewer rows than one tile, and with
+    N = k·128 + 1, so that the last tile holds a single row (at k = 132,
+    more tiles than blocks: the first block's second tile): every output
+    within the limits of `test_fused_mlp_kernels_equal_plain_version` (2
+    bf16 ulps, float32 2e-5, of the output's magnitude) of the plain
+    version, the last row on its own too and not left at zero; one launch
+    counted per call; a second call gives the same bits."""
     from animals3d_tpu_torch.ops import fused_mlp as fm
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    assert fm.fwd_f32_plan(n, nl + 1, 64).tile_rows == 128
     e, win, b, ws, wlast, _g = _mlp_inputs(np.random.default_rng(n + nl), n,
-                                           64, nl, torch.bfloat16, card)
+                                           64, nl, dtype, card)
     before = fm.fused_mlp_fwd.launches
     out = fm.fused_mlp_fwd(e, win, b, ws, wlast)
     again = fm.fused_mlp_fwd(e, win, b, ws, wlast)
     torch.cuda.synchronize()
     assert fm.fused_mlp_fwd.launches == before + 2
     want = fm.fused_mlp_fwd_reference(e, win, b, ws, wlast)
-    tol = 2 * 2 ** -8 * float(want.abs().max())
+    tol = (2e-5 if dtype == torch.float32 else 2 * 2 ** -8) \
+        * float(want.abs().max())
     assert torch.isfinite(out).all()
     assert float((out - want).abs().max()) <= tol
     assert float((out[-1] - want[-1]).abs()) <= tol and float(out[-1]) != 0
+    assert torch.equal(out, again)
+
+
+def test_fused_mlp_fwd_f32_at_stage2_shape(card):
+    """The float32 forward at Ponymation stage 2's sweep: 129³ = 2,146,689
+    rows (the grid-128 lattice), DP 64, L 5, against the plain version
+    (TF32 off): every output within 2e-5 of the output's magnitude, the
+    last row not left at zero; a second call gives the same bits."""
+    from animals3d_tpu_torch.ops import fused_mlp as fm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 129 ** 3
+    e, win, b, ws, wlast, _g = _mlp_inputs(np.random.default_rng(22), n, 64,
+                                           4, torch.float32, card)
+    out = fm.fused_mlp_fwd(e, win, b, ws, wlast)
+    again = fm.fused_mlp_fwd(e, win, b, ws, wlast)
+    want = fm.fused_mlp_fwd_reference(e, win, b, ws, wlast)
+    torch.cuda.synchronize()
+    tol = 2e-5 * float(want.abs().max())
+    assert torch.isfinite(out).all()
+    assert float((out - want).abs().max()) <= tol
+    assert float(out[-1]) != 0
     assert torch.equal(out, again)
 
 

@@ -267,6 +267,61 @@ def test_bwd_plan_rejects_bad_chunks():
         fm.bwd_plan(1000, 5, 64, 0)
 
 
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 3 * 128 + 1,
+                               132 * 128, 132 * 128 + 1, 129 ** 3])
+def test_fwd_f32_plan_covers_every_row_once(n):
+    """The float32 forward's launch (a pure function): block b takes tiles
+    b, b + grid, ... of `tile_rows` rows; together they hold every row
+    exactly once, every block has a tile, and the grid is at most one block
+    per SM."""
+    plan = fm.fwd_f32_plan(n, 5, 64)
+    assert plan.tile_rows == fm.TILE_ROWS
+    assert plan.tiles * plan.tile_rows >= n > (plan.tiles - 1) * plan.tile_rows
+    assert plan.grid == min(fm.NUM_BLOCKS, plan.tiles)
+    seen = np.zeros(n, np.int64)
+    for blk in range(plan.grid):
+        mine = range(blk, plan.tiles, plan.grid)
+        assert len(mine) > 0
+        for t in mine:
+            seen[t * plan.tile_rows:(t + 1) * plan.tile_rows] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("L", range(2, 9))
+@pytest.mark.parametrize("dp", [64, 128])
+def test_fwd_f32_plan_shared_memory(dp, L):
+    """The float32 forward's shared memory fits one block on an H100 at
+    the input widths the sweep pads to, for any depth: the tile buffer,
+    ring and sums do not grow with dp or L."""
+    plan = fm.fwd_f32_plan(129 ** 3, L, dp)
+    assert plan.smem <= 232448          # a block's most on an H100
+    assert plan.smem == fm.fwd_f32_plan(1, 2, 64).smem
+
+
+def test_fwd_f32_plan_matches_the_kernel_source():
+    """`fwd_f32_plan`'s tile, slice and ring sizes and its shared-memory
+    bytes are the CUDA kernel's (`csrc/fused_mlp.cu`, which no CPU test can
+    compile)."""
+    import pathlib
+    import re
+    src = (pathlib.Path(fm.__file__).parent.parent / "csrc"
+           / "fused_mlp.cu").read_text()
+    define = lambda name: int(re.search(rf"#define {name} (\d+)", src)[1])
+    assert define("F32_ROWS") == fm.TILE_ROWS
+    assert define("F32_KS") == fm.F32_SLICE_ROWS
+    assert define("F32_NST") == fm.F32_STAGES
+    assert define("MAX_SMEM") == 232448
+    assert "#define F32_LDT (F32_ROWS + 4)" in src
+    assert fm.fwd_f32_plan(1, 5, 64).smem == 204832   # the source's note
+
+
+@pytest.mark.parametrize("n,L,dp", [(-1, 5, 64), (100, 1, 64), (100, 5, 0),
+                                    (100, 5, 24), (100, 5, 320)])
+def test_fwd_f32_plan_rejects_bad_inputs(n, L, dp):
+    with pytest.raises(ValueError):
+        fm.fwd_f32_plan(n, L, dp)
+
+
 @pytest.mark.parametrize("dp,nl", [(64, 4), (128, 1)])
 def test_weight_stream_layout(dp, nl):
     """`weight_stream` (a pure layout change): undoing `slice_layout` gives
