@@ -50,7 +50,7 @@ requires grad. The Function has no double backward; the eikonal term goes
 through the plain `CoordMLP`.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernels or raise.
+launch the kernels from the library of `ops.kernels` or raise.
 """
 from __future__ import annotations
 
@@ -60,6 +60,7 @@ from dataclasses import dataclass
 import torch
 
 from animals3d_tpu_torch import tracing
+from animals3d_tpu_torch.ops import kernels
 from animals3d_tpu_torch.precision import compute_dtype
 
 NF = 256             # hidden width the kernels are written for
@@ -126,19 +127,11 @@ def _check(e, win, b, ws, wlast):
     if e.ndim != 2 or dp % KPAD:
         raise ValueError(f"e: want (N, multiple of {KPAD}), got "
                          f"{tuple(e.shape)}")
-    want = {"win": (win, cd, (dp, NF)), "b": (b, torch.float32, (NF,)),
-            "ws": (ws, cd, (ws.shape[0], NF, NF)),
-            "wlast": (wlast, cd, (NF,))}
-    for name, (t, dtype, shape) in want.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    for name, t in (("e", e), ("win", win), ("b", b), ("ws", ws),
-                    ("wlast", wlast)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != e.device:
-            raise ValueError(f"{name} is on {t.device}, e on {e.device}")
+    kernels.check_tensors({"e": (e, cd, e.shape),
+                           "win": (win, cd, (dp, NF)),
+                           "b": (b, torch.float32, (NF,)),
+                           "ws": (ws, cd, (ws.shape[0], NF, NF)),
+                           "wlast": (wlast, cd, (NF,))}, e.device)
 
 
 def _acts(e, win, b, ws):
@@ -206,7 +199,6 @@ def fused_mlp_fwd(e, win, b, ws, wlast, wstream=None):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check(e, win, b, ws, wlast)
-    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     N, dp = e.shape
     L = ws.shape[0] + 1
     out = torch.empty((N,), dtype=torch.float32, device=dev)
@@ -214,11 +206,13 @@ def fused_mlp_fwd(e, win, b, ws, wlast, wstream=None):
         return out
     if e.dtype == torch.bfloat16:
         wstream = _stream_for(win, ws, wstream)
-        _launch("fused_mlp_fwd", library().fused_mlp_fwd_bf16_launch, e,
-                wstream, b, wlast, out, N, dp, L, NUM_BLOCKS)
+        kernels.launch(kernels.library().fused_mlp_fwd_bf16_launch,
+                       "fused_mlp_fwd", e, wstream, b, wlast, out, N, dp, L,
+                       NUM_BLOCKS)
     else:
-        _launch("fused_mlp_fwd", library().fused_mlp_fwd_f32_launch, e, win,
-                b, ws, wlast, out, N, dp, L, fwd_f32_plan(N, L, dp).grid)
+        kernels.launch(kernels.library().fused_mlp_fwd_f32_launch,
+                       "fused_mlp_fwd", e, win, b, ws, wlast, out, N, dp, L,
+                       fwd_f32_plan(N, L, dp).grid)
     fused_mlp_fwd.launches += 1
     return out
 
@@ -313,9 +307,8 @@ class BwdRun:
     not given."""
 
     def __init__(self, e, g, win, b, ws, wlast, plan, wstream=None):
-        from animals3d_tpu_torch.ops.rasterize_cuda import library
         dev = e.device
-        self.plan, self.lib = plan, library()
+        self.plan, self.lib = plan, kernels.library()
         N, self.dp = e.shape
         self.L = ws.shape[0] + 1
         self.psz = self.dp * NF + NF + (self.L - 1) * NF * NF + NF
@@ -333,28 +326,26 @@ class BwdRun:
                                                   wlast, self.scratch,
                                                   self.part2)]
 
-    def _check(self, name, err):
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
     def chain(self, i):
         r0, rows = self.plan.chunks[i]
-        self._check("fused_mlp_bwd_chain", self.lib.fused_mlp_bwd_chain_launch(
+        err = self.lib.fused_mlp_bwd_chain_launch(
             *self.chain_args, r0, rows, self.plan.C, self.dp, self.L,
-            self.plan.chain_blocks, int(i == 0), self.stream))
+            self.plan.chain_blocks, int(i == 0), self.stream)
+        kernels.check_error("fused_mlp_bwd_chain", err)
 
     def wgrad(self, i):
         _r0, rows = self.plan.chunks[i]
-        self._check("fused_mlp_bwd_wgrad", self.lib.fused_mlp_bwd_wgrad_launch(
+        err = self.lib.fused_mlp_bwd_wgrad_launch(
             self.scratch.data_ptr(), self.part.data_ptr(), rows, self.plan.C,
-            self.dp, self.L, self.plan.splits, int(i == 0), self.stream))
+            self.dp, self.L, self.plan.splits, int(i == 0), self.stream)
+        kernels.check_error("fused_mlp_bwd_wgrad", err)
 
     def reduce(self):
-        self._check("fused_mlp_bwd_reduce",
-                    self.lib.fused_mlp_bwd_reduce_launch(
-                        self.part.data_ptr(), self.plan.splits,
-                        self.part2.data_ptr(), self.plan.chain_blocks,
-                        self.out.data_ptr(), self.dp, self.L, self.stream))
+        err = self.lib.fused_mlp_bwd_reduce_launch(
+            self.part.data_ptr(), self.plan.splits, self.part2.data_ptr(),
+            self.plan.chain_blocks, self.out.data_ptr(), self.dp, self.L,
+            self.stream)
+        kernels.check_error("fused_mlp_bwd_reduce", err)
 
     def launches(self) -> int:
         """Device launches of one call: two per chunk and the reduce."""
@@ -387,10 +378,7 @@ def fused_mlp_bwd(e, g, win, b, ws, wlast, wstream=None):
         raise ValueError(f"unsupported device {dev}")
     _check(e, win, b, ws, wlast)
     N, dp = e.shape
-    if g.dtype != torch.float32 or tuple(g.shape) != (N,) \
-            or not g.is_contiguous() or g.device != dev:
-        raise ValueError(f"g: want contiguous float32 ({N},) on {dev}")
-    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
+    kernels.check_tensors({"g": (g, torch.float32, (N,))}, dev)
     nl = ws.shape[0]
     if e.dtype == torch.bfloat16:
         plan = bwd_plan(N, nl + 1, dp, CHUNK_ROWS)
@@ -409,8 +397,9 @@ def fused_mlp_bwd(e, g, win, b, ws, wlast, wstream=None):
     out = torch.empty((psz,), dtype=torch.float32, device=dev)
     partial = torch.zeros((NUM_BLOCKS, psz), dtype=torch.float32, device=dev)
     wts = ws.transpose(1, 2).contiguous()
-    _launch("fused_mlp_bwd", library().fused_mlp_bwd_f32_launch, e, g, win,
-            b, ws, wts, wlast, partial, out, N, dp, nl + 1, NUM_BLOCKS)
+    kernels.launch(kernels.library().fused_mlp_bwd_f32_launch,
+                   "fused_mlp_bwd", e, g, win, b, ws, wts, wlast, partial,
+                   out, N, dp, nl + 1, NUM_BLOCKS)
     fused_mlp_bwd.launches += 1
     return _grads(out, dp, nl)
 

@@ -1,9 +1,6 @@
 """Tile visibility rasterizer: a hand-written CUDA kernel for Hopper
 (`csrc/raster_vis.cu`) and its plain PyTorch version, with the per-face
-cull boxes it reads (`csrc/cull_boxes.cu`, plain version `cull_boxes`);
-and the build of the package's kernel library (`build`, `library`: every
-`csrc/*.cu`, one nvcc call, loaded with ctypes), which the other kernel
-modules load from here.
+cull boxes it reads (`csrc/cull_boxes.cu`, plain version `cull_boxes`).
 
 Port of the Pallas kernel `_raster_kernel`
 (`animals3d_tpu/ops/rasterize_pallas.py:153`, launched from
@@ -72,39 +69,25 @@ Two more kernels compute the same function (`variant` of `prepare` and
     variants may skip different faces.
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
-launches its kernel (built from source with `nvcc` at first use into
-`_build/`) or raises.
+launches its kernel from the library of `ops.kernels` or raises.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Optional
 
 import torch
 
 from animals3d_tpu_torch import tracing
+from animals3d_tpu_torch.ops import kernels
 from animals3d_tpu_torch.ops.rasterize import Rast, affine
+from animals3d_tpu_torch.ops.resolve_cuda import TILE_H, TILE_W, TP
 
 BIG = 3.0e38
-TILE_H = 16          # pixel tile height
-TILE_W = 32          # pixel tile width
-TP = TILE_H * TILE_W
 BLOCK = 32           # face-block granularity of the Morton order
 NSUB = 8             # sub-blocks per chunk for the bbox mask
 ZQ_SCALE = 1048576.0
 ZQ_CLAMP = 8.0
 _INT_MAX = 2 ** 31 - 1
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "raster_vis.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 
 
 def _zq(z: torch.Tensor) -> torch.Tensor:
@@ -389,13 +372,13 @@ def cull(table, resolution):
     if _device(table).type == "cpu":
         return cull_boxes(table, resolution)
     B, nch, _rows, chunk = table.shape
-    _check({"table": (table, torch.float32, (B, nch, 12, chunk))},
-           table.device)
+    kernels.check_tensors({"table": (table, torch.float32,
+                                     (B, nch, 12, chunk))}, table.device)
     height, width = resolution
     out = torch.empty((B, nch * chunk, 4), dtype=torch.int16,
                       device=table.device)
-    _launch("cull_boxes", library().cull_boxes_launch, table, out, None, B,
-            nch, chunk, chunk, height, width)
+    kernels.launch(kernels.library().cull_boxes_launch, "cull_boxes", table,
+                   out, None, B, nch, chunk, chunk, height, width)
     cull.launches += 1
     return out
 
@@ -438,34 +421,21 @@ def cull_units(table, resolution, sub: int):
     if _device(table).type == "cpu":
         fbox = cull_boxes(table, resolution)
         return fbox, unit_boxes(fbox, sub, resolution)
-    _check({"table": (table, torch.float32, (B, nch, 12, chunk))},
-           table.device)
+    kernels.check_tensors({"table": (table, torch.float32,
+                                     (B, nch, 12, chunk))}, table.device)
     height, width = resolution
     fbox = torch.empty((B, nch * chunk, 4), dtype=torch.int16,
                        device=table.device)
     ubox = torch.empty((B, nch * chunk // sub, 4), dtype=torch.int16,
                        device=table.device)
-    _launch("cull_units", library().cull_boxes_launch, table, fbox, ubox, B,
-            nch, chunk, sub, height, width)
+    kernels.launch(kernels.library().cull_boxes_launch, "cull_units", table,
+                   fbox, ubox, B, nch, chunk, sub, height, width)
     cull_units.launches += 1
     return fbox, ubox
 
 
 cull_units.launches = 0
 tracing.register_launches(cull_units)
-
-
-def _check(tensors, device):
-    """tensors: name → (tensor, dtype, shape); each must match, be
-    contiguous and lie on `device`."""
-    for name, (t, dtype, shape) in tensors.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, table on {device}")
 
 
 def _check_table(table, orig, resolution, nsub, ids="orig"):
@@ -477,8 +447,9 @@ def _check_table(table, orig, resolution, nsub, ids="orig"):
         raise ValueError(f"table: want float32 (B, nch, 12, chunk), got "
                          f"{table.dtype} {tuple(table.shape)}")
     per = BLOCK if ids == "bbase" else 1
-    _check({"table": (table, torch.float32, tuple(table.shape)),
-            ids: (orig, torch.int32, (nch * chunk // per,))}, table.device)
+    kernels.check_tensors({"table": (table, torch.float32, table.shape),
+                           ids: (orig, torch.int32, (nch * chunk // per,))},
+                          table.device)
     if height % TILE_H or width % TILE_W or nsub < 1 or chunk % nsub:
         raise ValueError(f"bad resolution {resolution} / chunk {chunk} / "
                          f"nsub {nsub}")
@@ -503,7 +474,7 @@ def _check_inputs(table, orig, order, counts, masks, zlo, resolution, nsub,
             "zlo": (zlo, torch.int32, (B, nch))}
     if fbox is not None:
         want["fbox"] = (fbox, torch.int16, (B, nch * chunk, 4))
-    _check(want, table.device)
+    kernels.check_tensors(want, table.device)
 
 
 def _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub,
@@ -519,7 +490,7 @@ def _check_inputs_v6(table, orig, units, counts6, zu, resolution, nsub,
     if fbox is not None:
         want["fbox"] = (fbox, torch.int16, (B, nch * chunk, 4))
         want["ubox"] = (ubox, torch.int16, (B, nch * nsub, 4))
-    _check(want, table.device)
+    kernels.check_tensors(want, table.device)
 
 
 def _subblock_winners(table, orig, px, py, b, t, cid, g, sub):
@@ -687,114 +658,6 @@ def chunk_flags_v6(slot_flags, units, counts6, masks, nsub: int):
     return won.to(torch.uint8)
 
 
-# ---------------------------------------------------------------------------
-# the CUDA kernels: build, bind, launch
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME)")
-
-
-def _sources(suffixes=(".cu",)) -> list:
-    """Every kernel source of the package (with `(".cu", ".cuh")`, the
-    headers they include too), in a fixed order."""
-    csrc = os.path.join(_PKG_DIR, "csrc")
-    return [os.path.join(csrc, n) for n in sorted(os.listdir(csrc))
-            if n.endswith(suffixes)]
-
-
-def library_path() -> str:
-    """The library's path in `BUILD_DIR`, named by a hash of the compiler
-    flags and of every source and header, so that an edit of any builds
-    anew."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources((".cu", ".cuh")):
-        with open(src, "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libkernels-{h.hexdigest()[:12]}.so")
-
-
-def build() -> str:
-    """Compile every `csrc/*.cu` into one shared library with a single nvcc
-    call (its sources compiled in parallel) unless it is already built.
-    Returns the compiler's output (register and shared-memory use)."""
-    out = library_path()
-    if os.path.exists(out):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "--threads", "0", "-o",
-                           out + ".tmp", *_sources()],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {out}:\n{proc.stdout}")
-    os.replace(out + ".tmp", out)
-    return proc.stdout
-
-
-_LIB = None
-
-
-def library():
-    """The loaded kernel library (built at first use), with the argument
-    types of every launch function set."""
-    global _LIB
-    if _LIB is None:
-        build()
-        lib = ctypes.CDLL(library_path())
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.raster_vis_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
-        lib.raster_vis_smem.argtypes = [i32] * 3
-        lib.raster_vis_smem.restype = i64
-        lib.cull_boxes_launch.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
-        lib.raster_vis_v4_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
-        lib.raster_vis_v4_smem.argtypes = [i32] * 3
-        lib.raster_vis_v4_smem.restype = i64
-        lib.raster_vis_v6_launch.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
-        lib.raster_vis_v6_smem.argtypes = [i32] * 5
-        lib.raster_vis_v6_smem.restype = i64
-        lib.fused_mlp_fwd_bf16_launch.argtypes = [ptr] * 5 + [i64] \
-            + [i32] * 3 + [ptr]
-        lib.fused_mlp_fwd_f32_launch.argtypes = [ptr] * 6 + [i64] \
-            + [i32] * 3 + [ptr]
-        lib.fused_mlp_bwd_f32_launch.argtypes = [ptr] * 9 + [i64] \
-            + [i32] * 3 + [ptr]
-        lib.fused_mlp_bwd_chain_launch.argtypes = [ptr] * 7 + [i64] * 3 \
-            + [i32] * 4 + [ptr]
-        lib.fused_mlp_bwd_wgrad_launch.argtypes = [ptr] * 2 + [i64] * 2 \
-            + [i32] * 4 + [ptr]
-        lib.fused_mlp_bwd_reduce_launch.argtypes = [ptr, i32, ptr, i32, ptr,
-                                                    i32, i32, ptr]
-        lib.resolve_bwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        lib.resolve_fwd_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        for fn in (lib.raster_vis_launch, lib.cull_boxes_launch,
-                   lib.raster_vis_v4_launch,
-                   lib.raster_vis_v6_launch, lib.fused_mlp_fwd_bf16_launch,
-                   lib.fused_mlp_fwd_f32_launch,
-                   lib.fused_mlp_bwd_f32_launch,
-                   lib.fused_mlp_bwd_chain_launch,
-                   lib.fused_mlp_bwd_wgrad_launch,
-                   lib.fused_mlp_bwd_reduce_launch, lib.resolve_bwd_launch,
-                   lib.resolve_fwd_launch):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _launch(name, fn, *args):
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def _device(table):
     dev = table.device
     if dev.type not in ("cpu", "cuda"):
@@ -843,15 +706,15 @@ def visibility(table, orig, order, counts, masks, zlo, fbox, resolution,
                                     resolution, nsub)
     height, width = resolution
     B, nch, _, chunk = table.shape
-    lib = library()
+    lib = kernels.library()
     if lib.raster_vis_smem(chunk, nsub, nch) > SMEM_MAX:
         raise ValueError(f"K1: sub-block of {chunk // nsub} faces and "
                          f"{nch} chunks exceed shared memory")
     T = (height // TILE_H) * (width // TILE_W)
     z, fid, flags = _outputs_cuda(B, resolution, nch, table.device)
-    _launch("raster_vis", lib.raster_vis_launch, table, orig, order, counts,
-            masks, zlo, fbox, z, fid, flags, B, T, width // TILE_W, nch,
-            chunk, nsub, height, width, K1_SMEM)
+    kernels.launch(lib.raster_vis_launch, "raster_vis", table, orig, order,
+                   counts, masks, zlo, fbox, z, fid, flags, B, T,
+                   width // TILE_W, nch, chunk, nsub, height, width, K1_SMEM)
     visibility.launches += 1
     return z, fid, flags
 
@@ -883,15 +746,15 @@ def visibility_v4(table, bbase, order, counts, masks, zlo, fbox, resolution,
         return visibility_reference(table, orig_of_runs(bbase), order,
                                     counts, masks, zlo, resolution, nsub)
     height, width = resolution
-    lib = library()
+    lib = kernels.library()
     if lib.raster_vis_v4_smem(chunk, nsub, nch) > SMEM_MAX:
         raise ValueError(f"K2: sub-block of {chunk // nsub} faces and "
                          f"{nch} chunks exceed shared memory")
     T = (height // TILE_H) * (width // TILE_W)
     z, fid, flags = _outputs_cuda(B, resolution, nch, table.device)
-    _launch("raster_vis_v4", lib.raster_vis_v4_launch, table, bbase, order,
-            counts, masks, zlo, fbox, z, fid, flags, B, T, width // TILE_W,
-            nch, chunk, nsub, height, width, K1_SMEM)
+    kernels.launch(lib.raster_vis_v4_launch, "raster_vis_v4", table, bbase,
+                   order, counts, masks, zlo, fbox, z, fid, flags, B, T,
+                   width // TILE_W, nch, chunk, nsub, height, width, K1_SMEM)
     visibility_v4.launches += 1
     return z, fid, flags
 
@@ -919,15 +782,16 @@ def visibility_v6(table, orig, units, counts6, zu, fbox, ubox, resolution,
     S = units.shape[-1]
     if K3_SPLIT not in (1, 2, 4, 8):
         raise ValueError(f"K3_SPLIT {K3_SPLIT}: want 1, 2, 4 or 8")
-    lib = library()
+    lib = kernels.library()
     if lib.raster_vis_v6_smem(chunk, nsub, nch, S, K3_SPLIT) > SMEM_MAX:
         raise ValueError(f"K3: sub-block of {chunk // nsub} faces and "
                          f"{nch * nsub} units exceed shared memory")
     T = (height // TILE_H) * (width // TILE_W)
     z, fid, sflags = _outputs_cuda(B, resolution, S, table.device)
-    _launch("raster_vis_v6", lib.raster_vis_v6_launch, table, orig, units,
-            counts6, zu, fbox, ubox, z, fid, sflags, B, T, width // TILE_W,
-            nch, chunk, nsub, S, height, width, K3_SMEM, K3_SPLIT)
+    kernels.launch(lib.raster_vis_v6_launch, "raster_vis_v6", table, orig,
+                   units, counts6, zu, fbox, ubox, z, fid, sflags, B, T,
+                   width // TILE_W, nch, chunk, nsub, S, height, width,
+                   K3_SMEM, K3_SPLIT)
     visibility_v6.launches += 1
     return z, fid, sflags
 

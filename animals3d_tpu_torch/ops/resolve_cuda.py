@@ -32,26 +32,26 @@ then writes its pixel's channels from there, so that a warp stores 128
 contiguous bytes of each channel's tile-order segment.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it
-launches its kernel or raises.
+launches its kernel from the library of `ops.kernels` or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from animals3d_tpu_torch import tracing
+from animals3d_tpu_torch.ops import kernels
+
+TILE_H, TILE_W = 16, 32          # the visibility kernels' pixel tiles
+TP = TILE_H * TILE_W
 
 
 def _check(g, face_id, num_faces):
     if g.ndim != 3 or g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"g: want float32 or bfloat16 (B, P, R), got "
                          f"{g.dtype} {tuple(g.shape)}")
-    if face_id.dtype != torch.int32 or tuple(face_id.shape) != g.shape[:2]:
-        raise ValueError(f"face_id: want int32 {tuple(g.shape[:2])}, got "
-                         f"{face_id.dtype} {tuple(face_id.shape)}")
-    if not g.is_contiguous() or not face_id.is_contiguous():
-        raise ValueError("g and face_id must be contiguous")
-    if face_id.device != g.device:
-        raise ValueError(f"face_id is on {face_id.device}, g on {g.device}")
+    kernels.check_tensors({"g": (g, g.dtype, g.shape),
+                           "face_id": (face_id, torch.int32, g.shape[:2])},
+                          g.device)
     if num_faces <= 0:
         raise ValueError(f"num_faces {num_faces}")
 
@@ -82,21 +82,17 @@ def resolve_bwd(g, face_id, num_faces: int):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check(g, face_id, num_faces)
-    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     B, P, R = g.shape
     out = torch.zeros((B, num_faces, R), dtype=torch.float32, device=dev)
-    _launch("resolve_bwd", library().resolve_bwd_launch, g, face_id, out, B,
-            P, R, num_faces, int(g.dtype == torch.bfloat16))
+    kernels.launch(kernels.library().resolve_bwd_launch, "resolve_bwd", g,
+                   face_id, out, B, P, R, num_faces,
+                   int(g.dtype == torch.bfloat16))
     resolve_bwd.launches += 1
     return out
 
 
 resolve_bwd.launches = 0
 tracing.register_launches(resolve_bwd)
-
-
-TILE_H, TILE_W = 16, 32          # the visibility kernels' pixel tiles
-TP = TILE_H * TILE_W
 
 
 def _check_fwd(pf, face_id, resolution):
@@ -107,14 +103,10 @@ def _check_fwd(pf, face_id, resolution):
     if pf.ndim != 3 or pf.dtype != torch.float32 or pf.shape[1] == 0:
         raise ValueError(f"pf: want float32 (B, F, R), got {pf.dtype} "
                          f"{tuple(pf.shape)}")
-    want = (pf.shape[0], height * width)
-    if face_id.dtype != torch.int32 or tuple(face_id.shape) != want:
-        raise ValueError(f"face_id: want int32 {want}, got {face_id.dtype} "
-                         f"{tuple(face_id.shape)}")
-    if not pf.is_contiguous() or not face_id.is_contiguous():
-        raise ValueError("pf and face_id must be contiguous")
-    if face_id.device != pf.device:
-        raise ValueError(f"face_id is on {face_id.device}, pf on {pf.device}")
+    kernels.check_tensors({"pf": (pf, torch.float32, pf.shape),
+                           "face_id": (face_id, torch.int32,
+                                       (pf.shape[0], height * width))},
+                          pf.device)
 
 
 def to_tile_order(x, resolution):
@@ -160,12 +152,11 @@ def resolve_fwd(pf, face_id, resolution):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_fwd(pf, face_id, resolution)
-    from animals3d_tpu_torch.ops.rasterize_cuda import _launch, library
     height, width = resolution
     B, F, R = pf.shape
     out = torch.empty((B, R, height * width), dtype=torch.float32, device=dev)
-    _launch("resolve_fwd", library().resolve_fwd_launch, pf, face_id, out, B,
-            F, R, height, width)
+    kernels.launch(kernels.library().resolve_fwd_launch, "resolve_fwd", pf,
+                   face_id, out, B, F, R, height, width)
     resolve_fwd.launches += 1
     return out
 

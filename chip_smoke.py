@@ -4415,7 +4415,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from animals3d_tpu_torch.ops import rasterize_cuda as rc
+    from animals3d_tpu_torch.ops import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -4424,7 +4424,7 @@ def main() -> int:
           f"{torch.version.cuda}; tf32 off")
 
     t0 = time.perf_counter()
-    print(rc.build())
+    print(kernels.build())
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     reference_phase()

@@ -129,11 +129,12 @@ def occupancy(regs, threads=256):
     return min(65536 // (per_warp * warps), 2048 // threads, 32)
 
 
-def compile_cubin(rc, src, out):
+def compile_cubin(kernels, src, out):
     """nvcc of one source into a cubin with the library's flags; prints
     ptxas's registers and spills."""
-    flags = [f for f in rc.NVCC_FLAGS if f != "-shared"]
-    proc = subprocess.run([rc._nvcc(), "-cubin", *flags, "-o", out, src],
+    flags = [f for f in kernels.NVCC_FLAGS if f != "-shared"]
+    proc = subprocess.run([kernels._nvcc(), "-cubin", *flags, "-o", out,
+                           src],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(proc.stdout + proc.stderr)
@@ -149,10 +150,10 @@ def compile_cubin(rc, src, out):
                   f"({occupancy(regs) * 8} of 64 warps)")
 
 
-def machine_code(rc, tmp, sass_dir):
+def machine_code(kernels, tmp, sass_dir):
     """`-Xptxas -v` and the SASS mix of `csrc/cull_boxes.cu` and of the
     probes, compiled alone into `tmp`."""
-    cuobjdump = os.path.join(os.path.dirname(rc._nvcc()), "cuobjdump")
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     probe = os.path.join(tmp, "probe.cu")
     with open(probe, "w") as f:
         f.write(PROBE)
@@ -160,7 +161,7 @@ def machine_code(rc, tmp, sass_dir):
                           "cull_boxes.cu")
     for i, src in enumerate((source, probe)):
         cubin = os.path.join(tmp, f"{i}.cubin")
-        compile_cubin(rc, src, cubin)
+        compile_cubin(kernels, src, cubin)
         text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                               capture_output=True, text=True).stdout
         tag = os.path.basename(src)
@@ -216,14 +217,15 @@ def main() -> int:
         return 1
     import chip_smoke
     from animals3d_tpu_torch.data.synth import fake_batch
+    from animals3d_tpu_torch.ops import kernels
     from animals3d_tpu_torch.ops import rasterize_cuda as rc
     card = chip_smoke.card_line()
-    os.makedirs(rc.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=rc.BUILD_DIR) as tmp:
-        machine_code(rc, tmp, args.sass)
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        machine_code(kernels, tmp, args.sass)
     if args.machine_code_only:
         return 0
-    rc.build()
+    kernels.build()
     model, images, it, B, _H = chip_smoke.slice_phase()
     scenes = {"recon": chip_smoke.recon_scene(model, images, it),
               "train": chip_smoke.train_pose_scene(

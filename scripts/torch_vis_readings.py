@@ -74,6 +74,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke  # noqa: E402  (the full-width setup and the timers)
 from animals3d_tpu_torch.data.synth import fake_batch  # noqa: E402
+from animals3d_tpu_torch.ops import kernels  # noqa: E402
 from animals3d_tpu_torch.ops import rasterize_cuda as rc  # noqa: E402
 
 
@@ -286,7 +287,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     card = chip_smoke.card_line()
-    rc.build()
+    kernels.build()
     model, images, it, B, _H = chip_smoke.slice_phase()
     if args.k5:
         k5_readings(model, fake_batch(model, B, chip_smoke.SEED), args.runs,

@@ -10,6 +10,7 @@ import torch
 
 from animals3d_tpu.ops import rasterize as jrz
 from animals3d_tpu.ops.rasterize_pallas import rasterize_pallas
+from animals3d_tpu_torch.ops import kernels
 from animals3d_tpu_torch.ops import rasterize as trz
 from animals3d_tpu_torch.ops import rasterize_cuda as rc
 from torch_parity import assert_same_visibility
@@ -211,6 +212,7 @@ def test_cuda_request_without_card_raises():
 
 
 def test_module_imports_without_nvcc():
-    """Importing the kernel module builds nothing and needs no nvcc."""
-    assert rc._LIB is None or torch.cuda.is_available()
-    assert os.path.exists(rc._SOURCE)
+    """Importing the kernel modules builds nothing and needs no nvcc."""
+    assert kernels._LIB is None or torch.cuda.is_available()
+    assert os.path.join(kernels._PKG_DIR, "csrc", "raster_vis.cu") \
+        in kernels._sources()

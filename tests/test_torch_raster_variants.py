@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from animals3d_tpu.ops import rasterize_pallas as jrp
+from animals3d_tpu_torch.ops import kernels
 from animals3d_tpu_torch.ops import rasterize_cuda as rc
 from test_torch_raster import _depth_stack_scene, _random_scene, _sphere_scene
 from torch_parity import assert_same_visibility
@@ -534,20 +535,20 @@ def test_library_hash_covers_sources_and_headers(tmp_path, monkeypatch):
     another kind does not."""
     import shutil
     csrc = tmp_path / "csrc"
-    shutil.copytree(os.path.join(rc._PKG_DIR, "csrc"), csrc)
-    monkeypatch.setattr(rc, "_PKG_DIR", str(tmp_path))
+    shutil.copytree(os.path.join(kernels._PKG_DIR, "csrc"), csrc)
+    monkeypatch.setattr(kernels, "_PKG_DIR", str(tmp_path))
     headers = sorted(csrc.glob("*.cuh"))
     assert headers
-    first = rc.library_path()
+    first = kernels.library_path()
     (csrc / "notes.txt").write_text("not a source")
-    assert rc.library_path() == first
+    assert kernels.library_path() == first
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")
-    second = rc.library_path()
+    second = kernels.library_path()
     assert second != first
     src = csrc / "raster_vis_v6.cu"
     src.write_text(src.read_text() + "\n// edited\n")
-    assert rc.library_path() not in (first, second)
-    assert all(p.endswith(".cu") for p in rc._sources())
+    assert kernels.library_path() not in (first, second)
+    assert all(p.endswith(".cu") for p in kernels._sources())
 
 
 def test_variants_reject_shapes_they_cannot_run():
