@@ -37,6 +37,7 @@ from typing import Iterable, Optional
 
 import torch
 import torch.distributed as dist
+from torch.autograd.graph import increment_version
 
 _LOCAL = [False]       # inside `local_only`: no collectives, one rank
 _GROUP = [None]        # the first `dp` ranks, where fewer than the world
@@ -226,10 +227,13 @@ def all_reduce_metrics(metrics: dict) -> dict:
 
 
 def broadcast_params(module: torch.nn.Module) -> None:
-    """Rank 0's parameters and buffers on every rank."""
+    """Rank 0's parameters and buffers on every rank. Each tensor's
+    version moves, as after any in-place write, so that what is kept
+    from the old values (netBase's eval prior) is made anew."""
     if not active():
         return
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, 0, group=_GROUP[0])
+            increment_version(t)
 

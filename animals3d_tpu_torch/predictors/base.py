@@ -12,6 +12,16 @@ too; the fused sweep stays off for it, as in the JAX package. With
 banded sweep (`ops.dmtet.sdf_lattice_banded`) comes first: it evaluates
 the coarse sublattice and a band of segments around the surface, both
 recomputed in the backward, and neither fused kernel runs.
+
+The eval prior (no jitter, no condition, grad off, as in `reconstruct`) is
+a function of netBase's weights, the lattice and its caps, the config and
+the numerics alone, so `get_prior_mesh` keeps the last one it made and
+returns it again while none of those has changed: a parameter or buffer
+written in place (its version), replaced (its identity or address), another
+grid, resolution or cap, another precision policy, TF32 switched, or
+inference mode entered or left. Any such change, and any call with
+jitter, a condition, grad on or a lattice or weight made in inference mode,
+computes the prior afresh.
 """
 from __future__ import annotations
 
@@ -21,10 +31,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from animals3d_tpu_torch import tracing
 from animals3d_tpu_torch.geometry.mesh import make_mesh
 from animals3d_tpu_torch.networks.mlp import CoordMLP, CoordMLPMod
 from animals3d_tpu_torch.noise import Noise, uniform
 from animals3d_tpu_torch.ops import dmtet, fused_mlp
+from animals3d_tpu_torch.precision import compute_dtype
 from animals3d_tpu_torch.predictors.config import BasePredictorConfig
 
 # rows of one block of the eval sweep: the plain MLP's (N, 256) float32
@@ -60,6 +72,9 @@ class BasePredictor(nn.Module):
             n_harmonic_functions=dino.embedder_freq, embedder_scalar=scalar,
             embed_concat_pts=dino.embed_concat_pts,
             extra_feat_dim=dino_extra_feat_dim, symmetrize=dino.symmetrize)
+        # the last eval prior: (objects, values, storages, (mesh, sdf)) of
+        # `_prior_inputs`
+        self._held_prior = None
 
     def get_sdf(self, pts, feats=None):
         """SDF with x-mirror symmetrization and analytic init bias; `feats`
@@ -137,7 +152,64 @@ class BasePredictor(nn.Module):
         eval): the grid shifts by (2·jitter − 1)·jitter_grid·scale; the
         sweep is banded where `_use_band` lets it, else goes through the
         fused kernels where their gate lets it. `feats` (1, 128)
-        conditions the modulated SDF. Returns (mesh, sdf)."""
+        conditions the modulated SDF. Returns (mesh, sdf).
+
+        With no jitter, no `feats` and grad off, the call returns the
+        (mesh, sdf) it returned last, the same tensors, unless an input
+        of `_prior_inputs` changed since; then it computes and keeps the
+        new pair. Callers read the pair and never write into it. Counters
+        (`tracing.count`): `netbase.prior_hits` (held pair returned),
+        `netbase.prior_misses` (computed and kept), `netbase.prior_bypass`
+        (jitter, `feats`, grad, or an input made in inference mode:
+        computed, not kept); on a hit, the held mesh's `mesh.faces` and
+        `mesh.face_slots`, as marching tets counts them."""
+        inputs = None
+        if jitter is None and feats is None and not torch.is_grad_enabled():
+            inputs = self._prior_inputs(grid, v_cap, f_cap)
+        if inputs is None:
+            tracing.count("netbase.prior_bypass", 1)
+            return self._make_prior_mesh(grid, v_cap, f_cap, jitter, feats)
+        objects, values, storages = inputs
+        held = self._held_prior
+        if held is not None and held[1] == values \
+                and all(a is b for a, b in zip(held[0], objects)):
+            mesh, sdf = held[3]
+            tracing.count("netbase.prior_hits", 1)
+            if tracing.on():
+                tracing.count("mesh.faces", mesh.num_faces)
+                tracing.count("mesh.face_slots", f_cap)
+            return mesh, sdf
+        tracing.count("netbase.prior_misses", 1)
+        self._held_prior = None     # its memory back before the sweep
+        out = self._make_prior_mesh(grid, v_cap, f_cap, None, None)
+        self._held_prior = (objects, values, storages, out)
+        return out
+
+    def _prior_inputs(self, grid, v_cap: int, f_cap: int):
+        """What the eval prior is a function of besides the code:
+        (objects, values, storages). The objects (the config, the grid,
+        its positions and netBase's parameters and buffers) compare by
+        identity; the values (resolution, caps, precision policy, TF32,
+        inference mode, each tensor's version and address) by equality.
+        A version moves with every in-place write (an optimizer step,
+        `copy_`, `load_state_dict`); an address with a new tensor under
+        the same object (`.to`, `param.data = ...`). The storages are held
+        so that no other tensor can take a held address. None where one
+        of the tensors was made in inference mode: it has no version."""
+        tensors = (grid.verts, *self.parameters(), *self.buffers())
+        if any(t.is_inference() for t in tensors):
+            return None
+        objects = (self.cfg, grid, *tensors)
+        values = (grid.res, v_cap, f_cap, compute_dtype(),
+                  torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32,
+                  torch.is_inference_mode_enabled(),
+                  tuple((t._version, t.data_ptr()) for t in tensors))
+        return objects, values, [t.untyped_storage() for t in tensors]
+
+    def _make_prior_mesh(self, grid, v_cap: int, f_cap: int, jitter,
+                         feats):
+        """`get_prior_mesh`'s computation."""
         shape = self.cfg.cfg_shape
         pos = grid.verts * shape.spatial_scale
         if jitter is not None and shape.jitter_grid > 0:

@@ -563,6 +563,84 @@ def test_small_train_step_on_card(card):
             assert not same and bool(torch.isfinite(p).all()), name
 
 
+def test_reconstruct_holds_the_eval_prior_on_card(card):
+    """Two bf16 `reconstruct` calls of MagicPony at grid 64, TF32 off,
+    netInstance eager in both (anomaly mode keeps its graphs off) and
+    deterministic algorithms on (`index_add_`'s atomics would otherwise
+    sum the vertex normals in any order): the first computes the prior
+    (one miss), the second returns the held one (one hit); the held
+    prior equals a fresh model's with the same weights, and the two
+    calls' RGBA equal each other and the fresh model's, all bit for bit.
+    Three more calls, in which netInstance runs eagerly, captures its
+    graph and replays it, leave every tensor of the held prior at its
+    version and its bits."""
+    import dataclasses
+
+    from animals3d_tpu_torch import config as cfglib
+    from animals3d_tpu_torch import tracing
+    from animals3d_tpu_torch.data.synth import fake_batch
+    from animals3d_tpu_torch.models import build_model
+    from animals3d_tpu_torch.precision import set_mixed_precision
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_mixed_precision("bf16")
+    cfg = cfglib.load_config("train_magicpony_horse", overrides=[
+        "dataset.in_image_size=64", "dataset.out_image_size=64",
+        "model.cfg_predictor_base.cfg_shape.grid_res=64",
+        "model.cfg_predictor_base.cfg_shape.grid_res_coarse=64"])
+    make = lambda: build_model(dict(cfg["model"], dataset=cfg["dataset"]),
+                               device="cuda")
+    model, fresh = make(), make()
+    model.init_params(0)
+    fresh.load_state_dict(model.state_dict())
+    images = fake_batch(model, 2)["images"]
+    it = 140000
+
+    def counts():
+        c = tracing.snapshot()["counters"]
+        return tuple(c.get(n, 0) for n in (
+            "netbase.prior_hits", "netbase.prior_misses",
+            "netinstance.graph_captures", "netinstance.graph_replays"))
+
+    def tensors(mesh, sdf):
+        out = {f.name: getattr(mesh, f.name)
+               for f in dataclasses.fields(mesh)
+               if getattr(mesh, f.name) is not None}
+        out["sdf"] = sdf
+        return out
+    tracing.enable()
+    try:
+        rgba, seen = [], []
+        with torch.autograd.set_detect_anomaly(True):
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for _ in range(2):
+                    rgba.append(model.reconstruct(model, images, it)[0])
+                    seen.append(counts())
+                want = fresh.reconstruct(fresh, images, it)[0]
+            finally:
+                torch.use_deterministic_algorithms(False)
+        assert seen == [(0, 1, 0, 0), (1, 1, 0, 0)]
+        held = tensors(*model.netBase._held_prior[3])
+        for k, t in tensors(*fresh.netBase._held_prior[3]).items():
+            assert torch.equal(held[k], t), k
+        assert torch.equal(rgba[0], rgba[1]) and torch.equal(rgba[1], want)
+        assert float(want[:, 3].sum()) > 0
+        versions = {k: t._version for k, t in held.items()}
+        bits = {k: t.clone() for k, t in held.items()}
+        for _ in range(3):
+            model.reconstruct(model, images, it)
+        torch.cuda.synchronize()
+        assert counts() == (4, 2, 1, 1)
+        assert model.netBase._held_prior[3][1] is held["sdf"]
+        for k, t in held.items():
+            assert t._version == versions[k], k
+            assert torch.equal(t, bits[k]), k
+    finally:
+        tracing.disable()
+        set_mixed_precision(None)
+
+
 # ---------------------------------------------------------------------------
 # visibility variants 4 and 6 (K2, K3) and the resolve-rows forward (K5)
 # ---------------------------------------------------------------------------
